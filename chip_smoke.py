@@ -5,7 +5,8 @@
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
-  1. device   require CUDA; print the card's name and power limit
+  1. device   require CUDA; print the card's name and power limit; load
+              liblz4 (the ingest phase compresses with it)
   2. build    compile the row-chain kernel from the repo's sources (sm_90a)
   3. kernel   row_chain (CUDA) == row_chain_ref (plain torch) bit for bit,
               on the main path's batch shapes and on ragged lane counts
@@ -20,6 +21,17 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               the plain version and the memory/ALU bound
   7. batch    one main-path batch (32 x 4 MiB) split into host packing,
               upload, kernel and torch fold time
+  8. ingest   the write leg of the main path: 256 x 4 MiB blocks (1 GiB)
+              plus a 1 MiB + 7 B tail, ~25% from a 4-block duplicate pool,
+              each its own slice, written through the port's CachedStore
+              (lz4, cuda compress estimator) with an inline-dedup
+              IngestPipeline on the cuda backend; gates: elided == planted
+              duplicates with zero passthrough/errors, one stored object per
+              unique block, every hashed block estimated with no compress
+              degrade, one upload per hash batch, cold read-back byte for
+              byte, then a cold `gc --dedup` scan that reproduces the
+              ingest-time digests; the estimator on the card == the same
+              torch ops on the CPU (histograms exact, predictions 1e-5)
 
 It prints a `{"kernels": [...]}` line and, as its last line,
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or juicefs_tpu.
@@ -35,15 +47,19 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from juicefs_tpu_torch import native
+from juicefs_tpu_torch.chunk import CachedStore, ChunkConfig, ContentRefs, IngestPipeline
 from juicefs_tpu_torch.chunk.cached_store import block_key
 from juicefs_tpu_torch.cmd.gc import dedup_scan
-from juicefs_tpu_torch.gpu import hash_torch, kernels
+from juicefs_tpu_torch.compress import new_compressor
+from juicefs_tpu_torch.gpu import compress_batch, hash_torch, kernels
 from juicefs_tpu_torch.gpu.dedup import dedup_digests, scan_step
 from juicefs_tpu_torch.gpu.jth256 import (
     BLOCK_BYTES,
@@ -55,6 +71,9 @@ from juicefs_tpu_torch.gpu.jth256 import (
     pack_blocks,
     pack_into,
 )
+from juicefs_tpu_torch.gpu.pipeline import HashPipeline, PipelineConfig
+from juicefs_tpu_torch.metric import global_registry
+from juicefs_tpu_torch.metric.trace import stage_metrics_snapshot
 from juicefs_tpu_torch.object.file import FileStorage
 
 MASK = 0xFFFFFFFF
@@ -78,23 +97,104 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 class DictMeta:
-    """Stand-in for a meta engine's content index (the port has no meta
-    engine yet): {(sid, indx): (bsize, digest)}."""
+    """Stand-in for the meta engine that a later slice ports: the digest
+    index, the content-ref plane and the hot-fingerprint snapshot, in dicts
+    under one lock, with the semantics of the JAX package's kv engine
+    (meta/kv.py content_* and *_block_digests).
+
+    refs:    digest -> [sid, indx, bsize, refcount]  (canonical block)
+    aliases: (sid, indx) -> (digest, bsize, created_ts)
+    rows:    (sid, indx) -> (bsize, digest)          (digest index)
+    """
 
     def __init__(self):
+        self._lock = threading.Lock()
+        self.refs: dict[bytes, list] = {}
+        self.aliases: dict[tuple[int, int], tuple[bytes, int, float]] = {}
         self.rows: dict[tuple[int, int], tuple[int, bytes]] = {}
+        self.hot: list[tuple[bytes, bytes]] = []
 
+    # -- digest index ------------------------------------------------------
     def scan_block_digests(self):
-        return [(sid, indx, bsize, d)
-                for (sid, indx), (bsize, d) in list(self.rows.items())]
+        with self._lock:
+            return [(sid, indx, bsize, d)
+                    for (sid, indx), (bsize, d) in self.rows.items()]
 
     def set_block_digests(self, rows):
-        for sid, indx, bsize, d in rows:
-            self.rows[(sid, indx)] = (bsize, d)
+        with self._lock:
+            for sid, indx, bsize, d in rows:
+                self.rows[(sid, indx)] = (bsize, d)
 
     def delete_block_digests(self, pairs):
-        for sid, indx in pairs:
-            self.rows.pop((sid, indx), None)
+        with self._lock:
+            for sid, indx in pairs:
+                self.rows.pop((sid, indx), None)
+
+    # -- content-ref plane -------------------------------------------------
+    def _add_ref(self, digest, sid, indx, bsize):
+        ref = self.refs[digest]
+        ref[3] += 1
+        self.aliases[(sid, indx)] = (digest, bsize, time.time())
+        return tuple(ref[:3])
+
+    def content_incref(self, entries):
+        with self._lock:
+            return [self._add_ref(d, sid, indx, bsize) if d in self.refs else None
+                    for d, sid, indx, bsize in entries]
+
+    def content_register(self, entries):
+        out = []
+        with self._lock:
+            for d, sid, indx, bsize in entries:
+                if d in self.refs:
+                    out.append(self._add_ref(d, sid, indx, bsize))
+                else:
+                    self.refs[d] = [sid, indx, bsize, 1]
+                    self.aliases[(sid, indx)] = (d, bsize, time.time())
+                    out.append(None)
+        return out
+
+    def content_decref(self, pairs):
+        out = []
+        with self._lock:
+            for sid, indx in pairs:
+                alias = self.aliases.pop((sid, indx), None)
+                if alias is None:
+                    out.append(("untracked", None))
+                    continue
+                ref = self.refs.get(alias[0])
+                if ref is None:
+                    out.append(("dangling", None))
+                elif ref[3] <= 1:
+                    del self.refs[alias[0]]
+                    out.append(("last", tuple(ref[:3])))
+                else:
+                    ref[3] -= 1
+                    out.append(("released", tuple(ref[:3])))
+        return out
+
+    def content_resolve(self, sid, indx):
+        with self._lock:
+            alias = self.aliases.get((sid, indx))
+            ref = self.refs.get(alias[0]) if alias is not None else None
+            return tuple(ref[:3]) if ref is not None else None
+
+    def scan_content_refs(self):
+        with self._lock:
+            return [(d, tuple(r[:3]), r[3]) for d, r in self.refs.items()]
+
+    def scan_content_aliases(self):
+        with self._lock:
+            return [(k, d, bsize, ts) for k, (d, bsize, ts) in self.aliases.items()]
+
+    # -- hot-content fingerprint snapshot ----------------------------------
+    def set_hot_fingerprints(self, rows):
+        with self._lock:
+            self.hot = list(rows)
+
+    def load_hot_fingerprints(self):
+        with self._lock:
+            return list(self.hot)
 
 
 class FileBlockStore:
@@ -130,6 +230,14 @@ def device_phase() -> tuple[str, str]:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    # the ingest phase compresses with the system liblz4; without it the
+    # run stops here (switching to no compression would also switch the
+    # compress estimator off)
+    lz4 = new_compressor("lz4")
+    probe = b"chip smoke " * 100
+    if lz4.decompress(lz4.compress(probe), len(probe)) != probe:
+        raise AssertionError("liblz4 round trip failed")
+    print(f"liblz4 ok; native (host C++ JTH-256) available: {native.available()}")
     return smi, torch.cuda.get_device_name(0)
 
 
@@ -350,6 +458,208 @@ def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     return out
 
 
+INGEST_STAGES = ("chunk.ingest.pack", "chunk.ingest.hash", "chunk.ingest.lookup",
+                 "chunk.ingest.register", "chunk.upload.compress", "chunk.upload.put")
+
+
+def counter_value(name: str) -> float:
+    return global_registry()._metrics[name].value
+
+
+def stage_delta(before: dict, after: dict) -> dict:
+    """{stage: {count, seconds}} moved between two stage snapshots."""
+    out = {}
+    for name in INGEST_STAGES:
+        a = after.get(name, {"count": 0, "sum_seconds": 0.0})
+        b = before.get(name, {"count": 0, "sum_seconds": 0.0})
+        out[name] = {"count": a["count"] - b["count"],
+                     "seconds": a["sum_seconds"] - b["sum_seconds"]}
+    return out
+
+
+def plan_ingest(rng: np.random.Generator, n_full: int, bs: int, dup_ratio: float = 0.25):
+    """n_full blocks of bs bytes, ~dup_ratio drawn from a 4-block pool, plus a
+    1 MiB + 7 B tail; the expected duplicate count comes from the plan."""
+    pool = [rng.bytes(bs) for _ in range(4)]
+    blocks = [pool[int(rng.integers(0, len(pool)))] if rng.random() < dup_ratio
+              else rng.bytes(bs) for _ in range(n_full)]
+    blocks.append(rng.bytes((1 << 20) + 7))
+    seen: set[int] = set()
+    expect_dups = 0
+    for b in blocks:
+        expect_dups += id(b) in seen  # pool entries are reused bytes objects
+        seen.add(id(b))
+    return blocks, expect_dups
+
+
+def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
+    phase("main path: inline ingest, read-back, cold scan")
+    bs = BLOCK_BYTES
+    blocks, expect_dups = plan_ingest(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs)
+    n_blocks = len(blocks)
+    nbytes = sum(len(b) for b in blocks)
+    base = tempfile.mkdtemp(prefix="jfs-torch-ingest-")
+    store = cold = None
+    try:
+        storage = FileStorage(os.path.join(base, "blob"))
+        storage.create()
+        meta = DictMeta()
+        refs = ContentRefs(meta)
+        store = CachedStore(storage, ChunkConfig(
+            block_size=bs, compress="lz4", compress_backend="cuda",
+            cache_dirs=("memory",), cache_size=1, max_upload=8))
+        store.content_refs = refs
+        store.ingest = IngestPipeline(store, refs, backend="cuda", batch_blocks=32,
+                                      bypass=False)
+        hashed0 = counter_value("juicefs_torch_blocks_hashed")
+        h2d0 = counter_value("juicefs_torch_h2d_bytes")
+        stages0 = stage_metrics_snapshot()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for i, data in enumerate(blocks):
+            w = store.new_writer(1 + i)
+            w.write_at(data, 0)
+            w.finish(len(data))
+        store.ingest.flush()
+        store.flush_all()
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        stages = stage_delta(stages0, stage_metrics_snapshot())
+        hashed = int(counter_value("juicefs_torch_blocks_hashed") - hashed0)
+        h2d = int(counter_value("juicefs_torch_h2d_bytes") - h2d0)
+        st = store.ingest.stats()
+        comp = st["compress"]
+        gibs = nbytes / (1 << 30) / ingest_s
+        print(f"ingest {n_blocks} blocks ({nbytes / (1 << 30):.4f} GiB, {expect_dups} "
+              f"planted duplicates) in {ingest_s:.3f} s = {gibs:.4f} GiB/s")
+        print("ingest_stats " + json.dumps(st))
+        print("ingest_stage_seconds " + json.dumps(stages))
+        print(f"ingest launches {launches}; blocks hashed {hashed}; "
+              f"h2d bytes {h2d}; native available {native.available()}")
+
+        # gate 1: elision count and no degrade
+        if st["put_elided"] != expect_dups:
+            raise AssertionError(f"put_elided {st['put_elided']} != planted {expect_dups}")
+        if st["uploaded"] != n_blocks - expect_dups:
+            raise AssertionError(f"uploaded {st['uploaded']} != {n_blocks - expect_dups}")
+        for k in ("passthrough", "errors", "race_collapsed"):
+            if st[k] != 0:
+                raise AssertionError(f"ingest {k} = {st[k]}, want 0")
+        if launches["jth256_row_chain"] == 0:
+            raise AssertionError("ingest launched no jth256_row_chain kernel")
+        # gate 2: one stored object per unique block
+        n_objects = sum(1 for _ in storage.list_all("chunks/"))
+        if n_objects != n_blocks - expect_dups:
+            raise AssertionError(f"{n_objects} objects stored, want {n_blocks - expect_dups}")
+        # gate 3: every hashed block estimated on the card, no degrade
+        if comp["degraded"] != 0 or comp["estimated"] != hashed:
+            raise AssertionError(f"compress plane {comp}: want degraded 0, "
+                                 f"estimated == {hashed} hashed blocks")
+        # gate 4: one upload per hash batch (each batch padded to 64 lanes)
+        pad = bs // LANE_BYTES * LANE_BYTES
+        if h2d != hashed * pad:
+            raise AssertionError(f"h2d bytes {h2d} != {hashed} hashed blocks x {pad}")
+        ingest_rows = {block_key(sid, indx, bsize): d
+                       for sid, indx, bsize, d in meta.scan_block_digests()}
+
+        # gate 5: cold read-back, elided blocks through their aliases
+        cold = CachedStore(storage, ChunkConfig(
+            block_size=bs, compress="lz4", cache_dirs=("memory",), cache_size=1,
+            max_download=16))
+        cold.content_refs = refs
+        t1 = time.perf_counter()
+        for i, data in enumerate(blocks):
+            got = cold.new_reader(1 + i, len(data)).read(0, len(data))
+            if bytes(got) != data:
+                raise AssertionError(f"slice {1 + i}: read-back differs")
+        readback_s = time.perf_counter() - t1
+        print(f"cold read-back of {n_blocks} slices ok in {readback_s:.3f} s")
+
+        # gate 6: cold gc --dedup scan reproduces the ingest-time digests
+        live = {block_key(1 + i, 0, len(b)): len(b) for i, b in enumerate(blocks)}
+        meta.delete_block_digests([(sid, indx) for sid, indx, _b, _d
+                                   in meta.scan_block_digests()])
+        kernels.reset_launches()
+        scan = dedup_scan(meta, cold, live, "cuda", "", bs, threads=16)
+        torch.cuda.synchronize()
+        scan_launches = dict(kernels.LAUNCHES)
+        scan_rows = {block_key(sid, indx, bsize): d
+                     for sid, indx, bsize, d in meta.scan_block_digests()}
+        if scan["hashed_now"] != n_blocks:
+            raise AssertionError(f"cold scan hashed_now {scan['hashed_now']} != {n_blocks}")
+        if scan_rows != ingest_rows:
+            raise AssertionError("cold-scan digests diverge from ingest-time digests")
+        for i in list(range(0, n_blocks, max(1, n_blocks // 8))) + [n_blocks - 1]:
+            if scan_rows[block_key(1 + i, 0, len(blocks[i]))] != jth256(blocks[i]):
+                raise AssertionError(f"block {i}: digest row != numpy spec")
+        if scan["duplicate_blocks"] != expect_dups:
+            raise AssertionError(f"duplicate_blocks {scan['duplicate_blocks']} != {expect_dups}")
+        if scan_launches["jth256_row_chain"] == 0:
+            raise AssertionError("cold scan launched no jth256_row_chain kernel")
+        print(f"gates ok: {expect_dups} elided, {n_objects} objects, {hashed} blocks "
+              f"estimated, one upload per batch, read-back exact, cold scan "
+              f"{scan['gibs']} GiB/s reproduces {len(scan_rows)} ingest rows; "
+              f"scan launches {scan_launches}")
+        return {"blocks": n_blocks, "bytes": nbytes, "seconds": ingest_s, "gibs": gibs,
+                "stats": st, "stage_seconds": stages, "launches": launches,
+                "blocks_hashed": hashed, "h2d_bytes": h2d, "readback_s": readback_s,
+                "cold_scan": scan, "cold_scan_launches": scan_launches}
+    finally:
+        for s in (store, cold):
+            if s is not None:
+                s.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def estimator_phase(rng: np.random.Generator) -> dict:
+    """Gate 7: the compress estimator on one packed main-path batch
+    (32 x 4 MiB) on the card == the same torch ops on the CPU; an all-zero
+    and a text block predict below 0.5, random blocks above 0.95. Times the
+    estimator and the shared pack's (pageable) upload per batch."""
+    phase("compress estimator vs plain")
+    n = 32
+    text = b"hello world "
+    blocks = [bytes(BLOCK_BYTES), (text * (BLOCK_BYTES // len(text) + 1))[:BLOCK_BYTES],
+              rng.bytes((1 << 20) + 7)] + [rng.bytes(BLOCK_BYTES) for _ in range(n - 3)]
+    packed = pack_blocks(blocks, pad_lanes=BLOCK_BYTES // LANE_BYTES)
+    pipe = HashPipeline(PipelineConfig(backend="cuda", batch_blocks=n))
+    upload_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words, counts, _lengths = pipe.shard_packed(packed)
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    hist = compress_batch.byte_histogram(words, counts)
+    pred = compress_batch.estimate(words, counts)
+    torch.cuda.synchronize()
+    cwords = torch.from_numpy(packed[0].view(np.int32))
+    ccounts = torch.from_numpy(packed[1].astype(np.int64))
+    chist = compress_batch.byte_histogram(cwords, ccounts)
+    cpred = compress_batch.estimate(cwords, ccounts)
+    if not torch.equal(hist.cpu(), chist):
+        raise AssertionError("estimator histograms on the card != CPU")
+    err = float((pred.cpu() - cpred).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"estimator predictions differ by {err} > 1e-5")
+    p = pred.cpu().tolist()
+    if not (p[0] < 0.5 and p[1] < 0.5 and min(p[2:]) > 0.95):
+        raise AssertionError(f"estimator predictions out of range: zero {p[0]}, "
+                             f"text {p[1]}, random min {min(p[2:])}")
+    compress_batch.estimate(words, counts)  # warm-up
+    ms = time_cuda(lambda i: compress_batch.estimate(words, counts), 10)
+    t0 = time.perf_counter()
+    compress_batch.estimate(words, counts)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    out = {"blocks": n, "estimate_ms": ms, "estimate_enqueue_ms": enqueue_ms,
+           "upload_ms": statistics.median(upload_ms), "max_abs_err": err,
+           "zero": p[0], "text": p[1], "random_min": min(p[2:])}
+    print("estimator " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -367,15 +677,22 @@ def main(argv=None) -> int:
     scan = scan_phase(rng, args.volume_gib)
     timing = timing_phase(gen, smi)
     batch_breakdown_phase(rng)
-    print(f"launches of jth256_row_chain per {args.volume_gib} GiB scan: "
-          f"{scan['launches']['jth256_row_chain']} (one per hash batch)")
+    ingest = ingest_phase(rng, args.volume_gib)
+    estimator_phase(rng)
+    by_path = {"scan": scan["launches"]["jth256_row_chain"],
+               "ingest": ingest["launches"]["jth256_row_chain"],
+               "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"]}
+    print(f"launches of jth256_row_chain: {by_path} "
+          f"({args.volume_gib} GiB scan, {args.volume_gib} GiB ingest and its cold scan)")
+    print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s, scan {scan['gibs']} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",
         "route": "cuda",
         "source": "juicefs_tpu_torch/gpu/kernels/jth256_row_chain.cu",
         "replaces": "juicefs_tpu/tpu/hash_jax.py:174",
-        "launches": scan["launches"]["jth256_row_chain"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

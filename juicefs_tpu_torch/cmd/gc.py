@@ -20,6 +20,7 @@ from ..chunk.parallel import FetchStats, fetch_ordered
 from ..gpu.dedup import dedup_digests
 from ..gpu.jth256 import LANE_BYTES, digest_hex
 from ..gpu.pipeline import HashPipeline, PipelineConfig
+from ..object.resilient import resilience_snapshot
 
 
 def dedup_scan(meta, store, live: dict[str, int], backend: str,
@@ -34,8 +35,8 @@ def dedup_scan(meta, store, live: dict[str, int], backend: str,
     (cpu | cuda); `device` is where the cuda backend runs (None: the card,
     which must exist).
 
-    Returns the reference's keys except `resilience`, which waits for the
-    port of object/resilient.py.
+    Returns the reference's keys, `resilience` (the object plane's retry,
+    breaker and hedge counters) included.
     """
     t0 = time.perf_counter()
     # 1. load the persistent index; prune rows for dead slices
@@ -128,4 +129,5 @@ def dedup_scan(meta, store, live: dict[str, int], backend: str,
             "dup_group": round(t_group, 3),
         },
         "shard": pipe.shard_snapshot(),
+        "resilience": resilience_snapshot(),
     }

@@ -12,8 +12,10 @@ oldest batch's completion event. A staging slot is packed again only
 after the event recorded behind its upload has completed, so a reused
 buffer is never overwritten while its copy is still in flight.
 
-Backends: "cpu" (the numpy spec, `hash_packed_np`) and "cuda" (the row
-chain kernel plus torch fold ops on `device`; None means the card).
+Backends: "cpu" (the host: `native.jth256_batch`, the C++ library with
+the numpy spec as its fallback, as the reference hashes on its cpu
+backend) and "cuda" (the row chain kernel plus torch fold ops on
+`device`; None means the card).
 Unlike the reference, which logs and degrades to the CPU when its device
 backend is unavailable, the "cuda" backend raises: a digest computed on
 the CPU must never be reported as a device run. `device="cpu"` is the
@@ -45,7 +47,6 @@ from .jth256 import (
     ROWS,
     digests_to_bytes,
     hash_packed_np,
-    pack_blocks,
     pack_into,
 )
 
@@ -172,10 +173,12 @@ class HashPipeline:
                     sp.set(batch=len(blocks), bytes=nbytes,
                            backend=cfg.backend)
                 if self.device is None:
-                    # numpy spec on the host: no padding past the batch's
-                    # widest block, no transfer (h2d counter untouched)
-                    digests = digests_to_bytes(hash_packed_np(*pack_blocks(blocks)))
-                    pending.append((keys, digests))
+                    # host path: hash raw bytes directly (native C++ batch
+                    # with numpy fallback), no packing, no transfer (h2d
+                    # counter untouched)
+                    from .. import native
+
+                    pending.append((keys, native.jth256_batch(blocks)))
                 else:
                     pending.append((keys, self._dispatch_device(blocks)))
             _BATCH_BLOCKS.observe(len(blocks))

@@ -1,14 +1,15 @@
 """Metrics: the port's own Prometheus-compatible registry.
 
-A copy of the three meter types of juicefs_tpu/metric (counter, gauge,
-histogram) and the registry that renders them in the text exposition
-format. The port registers its meters here, in a registry of its own, so
+A copy of the three meter types of juicefs_tpu/metric (counter, gauge
+with lazily evaluated values, histogram with a timer) and the registry
+that renders them in the text exposition format. The port registers its meters here, in a registry of its own, so
 its `juicefs_torch_*` series never mix with the reference's.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterable
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "global_registry"]
@@ -87,6 +88,7 @@ class Gauge(_Metric):
     def __init__(self, name: str, help_: str = "", label_names: tuple[str, ...] = ()):
         super().__init__(name, help_, label_names)
         self.value = 0.0
+        self._fn = None
 
     def set(self, v: float) -> None:
         with self._lock:
@@ -99,10 +101,15 @@ class Gauge(_Metric):
     def dec(self, v: float = 1.0) -> None:
         self.inc(-v)
 
+    def set_function(self, fn) -> None:
+        """Lazily-evaluated gauge: `fn()` is read at render time."""
+        self._fn = fn
+
     def render(self) -> str:
         out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]
         for s in self._series():
-            out.append(f"{self.name}{_fmt_labels(s._label_dict())} {s.value}")
+            v = s._fn() if s._fn is not None else s.value
+            out.append(f"{self.name}{_fmt_labels(s._label_dict())} {v}")
         return "\n".join(out)
 
 
@@ -130,6 +137,20 @@ class Histogram(_Metric):
                     self.counts[i] += 1
                     return
             self.counts[-1] += 1
+
+    def time(self):
+        """Context manager observing elapsed seconds."""
+        hist = self
+
+        class _Timer:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *a):
+                hist.observe(time.perf_counter() - self.t0)
+
+        return _Timer()
 
     def render(self) -> str:
         out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.kind}"]

@@ -1,23 +1,32 @@
-"""Span tracing for the port: a copy of the part of juicefs_tpu/metric/trace.py
-that the hash pipeline uses.
+"""Request-scoped span tracing for the port (a copy of
+juicefs_tpu/metric/trace.py).
 
 `span()` returns a shared no-op while no reader is attached, a timing-only
 shim when the call site binds a stage histogram, and a full span (emitted
 as one JSON line to every open reader) otherwise. The always-on rollup is
-`juicefs_torch_stage_seconds{layer,op,stage}` in the port's registry.
+`juicefs_torch_stage_seconds{layer,op,stage}` in the port's registry, the
+per-stage attribution that chip_smoke.py prints.
+
+Cross-thread propagation: span context rides a per-thread stack, so the
+synchronous read path links automatically; pool crossings (upload pool,
+download fan-out) capture `current_ref()` at submit time and pass it as
+`parent=`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import threading
 import time
 from collections import deque
+from typing import Optional
 
 from . import global_registry
 
-__all__ = ["NULL_SPAN", "Tracer", "global_tracer", "stage_hist"]
+__all__ = ["NULL_SPAN", "Tracer", "global_tracer", "stage_hist",
+           "stage_metrics_snapshot"]
 
 MAX_BUFFERED_EVENTS = 10240
 
@@ -29,12 +38,42 @@ _STAGE_SECONDS = global_registry().histogram(
 
 
 def stage_hist(layer: str, op: str, stage: str = "total"):
-    """Pre-resolve one (layer, op, stage) histogram child for hot paths."""
+    """Pre-resolve one (layer, op, stage) histogram child for hot paths
+    (labels() does a locked dict lookup; call sites bind once)."""
     return _STAGE_SECONDS.labels(layer, op, stage)
 
 
+def stage_metrics_snapshot() -> dict:
+    """Compact {layer.op.stage: {count, sum_seconds}} dump of the stage
+    rollup (chip_smoke.py prints it). The object layer's
+    per-backend request histogram is folded in as object.<method>.<backend>
+    so the snapshot attributes every stage without double-observing on the
+    object hot path."""
+    out = {}
+
+    def collect(hist, keyfn):
+        with hist._lock:
+            children = list(hist._children.values())
+        for c in children:
+            out[keyfn(c._label_dict())] = {
+                "count": c.total, "sum_seconds": round(c.sum, 6),
+            }
+
+    collect(_STAGE_SECONDS,
+            lambda l: f"{l.get('layer')}.{l.get('op')}.{l.get('stage')}")
+    obj = global_registry()._metrics.get(
+        "juicefs_object_request_durations_histogram_seconds"
+    )
+    if obj is not None:
+        collect(obj,
+                lambda l: f"object.{l.get('method', '?').lower()}"
+                          f".{l.get('backend', '?')}")
+    return out
+
+
 class _NullSpan:
-    """Shared no-op span: no consumer attached, no stage histogram."""
+    """Shared no-op span: the zero-cost path when no consumer is attached
+    and the call site carries no stage histogram."""
 
     __slots__ = ()
     active = False
@@ -48,12 +87,26 @@ class _NullSpan:
     def set(self, **kw) -> None:
         pass
 
+    def ref(self) -> None:
+        return None
+
 
 NULL_SPAN = _NullSpan()
 
 
+class _CarriedRef:
+    """Stack marker adopting a foreign (trace_id, span_id) as parent
+    (Tracer.carried); never emitted, only resolved against."""
+
+    __slots__ = ("trace_id", "span_id")
+
+    def __init__(self, ref: tuple[int, int]):
+        self.trace_id, self.span_id = ref
+
+
 class _TimedSpan:
-    """No consumer attached but a stage histogram bound: time and observe."""
+    """No consumer attached but a stage histogram bound: time the region
+    and observe — nothing else (the <5% no-reader overhead budget)."""
 
     __slots__ = ("_hist", "_t0")
     active = False
@@ -72,6 +125,9 @@ class _TimedSpan:
     def set(self, **kw) -> None:
         pass
 
+    def ref(self) -> None:
+        return None
+
 
 class Span:
     """One traced region; emitted as a JSON event line on exit."""
@@ -81,23 +137,28 @@ class Span:
     active = True
 
     def __init__(self, tracer: "Tracer", layer: str, op: str, stage: str,
-                 hist, attrs: dict):
+                 hist, parent, attrs: dict):
         self.tracer = tracer
         self.layer = layer
         self.op = op
         self.stage = stage
         self.hist = hist
         self.attrs = attrs
+        if parent is not None:  # explicit (trace_id, span_id) ref
+            self.trace_id, self.parent_id = parent
+        else:
+            self.trace_id = self.parent_id = -1  # resolve from stack on enter
 
     def __enter__(self):
         tr = self.tracer
         self.span_id = next(tr._ids)
         stack = tr._local.__dict__.setdefault("stack", [])
-        if stack:
-            top = stack[-1]
-            self.trace_id, self.parent_id = top.trace_id, top.span_id
-        else:  # root: the trace is named after its root span
-            self.trace_id, self.parent_id = self.span_id, 0
+        if self.parent_id < 0:
+            if stack:
+                top = stack[-1]
+                self.trace_id, self.parent_id = top.trace_id, top.span_id
+            else:  # root: the trace is named after its root span
+                self.trace_id, self.parent_id = self.span_id, 0
         stack.append(self)
         self._ts = time.time()
         self._t0 = time.perf_counter()
@@ -113,7 +174,7 @@ class Span:
                 stack.pop()
             elif self in stack:  # unbalanced exit: drop self only
                 stack.remove(self)
-        if et is not None:
+        if et is not None and "errno" not in self.attrs:
             self.attrs["error"] = et.__name__
         self.tracer._emit(self, dur)
         return False
@@ -121,9 +182,12 @@ class Span:
     def set(self, **kw) -> None:
         self.attrs.update(kw)
 
+    def ref(self) -> tuple[int, int]:
+        return (self.trace_id, self.span_id)
+
 
 class Tracer:
-    """Span hub: events reach every open reader's ring buffer."""
+    """Global span hub; reader bookkeeping mirrors AccessLogger."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -136,11 +200,44 @@ class Tracer:
     def active(self) -> bool:
         return self._active
 
-    def span(self, layer: str, op: str, stage: str = "", hist=None, **attrs):
+    # -- span construction -------------------------------------------------
+    def span(self, layer: str, op: str, stage: str = "", hist=None,
+             parent: Optional[tuple[int, int]] = None, **attrs):
         if not self._active:
             return _TimedSpan(hist) if hist is not None else NULL_SPAN
-        return Span(self, layer, op, stage, hist, attrs)
+        return Span(self, layer, op, stage, hist, parent, attrs)
 
+    def current_ref(self) -> Optional[tuple[int, int]]:
+        """(trace_id, span_id) of the innermost open span on this thread,
+        for crossing into worker pools; None when inactive/no span."""
+        stack = self._local.__dict__.get("stack")
+        if stack:
+            top = stack[-1]
+            return (top.trace_id, top.span_id)
+        return None
+
+    @contextlib.contextmanager
+    def carried(self, ref: Optional[tuple[int, int]]):
+        """Adopt a captured (trace_id, span_id) as this thread's current
+        parent — the pool-crossing adapter for code that opens spans
+        *internally* (the metered object wrapper under the resilience
+        layer's worker pool).  Emits nothing itself; spans opened inside
+        resolve their parent from the carried marker."""
+        if ref is None or not self._active:
+            yield
+            return
+        stack = self._local.__dict__.setdefault("stack", [])
+        marker = _CarriedRef(ref)
+        stack.append(marker)
+        try:
+            yield
+        finally:
+            if stack and stack[-1] is marker:
+                stack.pop()
+            elif marker in stack:  # unbalanced inner exits: drop self only
+                stack.remove(marker)
+
+    # -- event stream ------------------------------------------------------
     def _emit(self, span: Span, dur: float) -> None:
         ev = {
             "ts": round(span._ts, 6),
@@ -163,6 +260,7 @@ class Tracer:
             for buf in self._readers.values():
                 buf.append(line)
 
+    # -- reader lifecycle (one ring buffer per .trace open) ----------------
     def open_reader(self, fh: int) -> None:
         with self._lock:
             self._readers[fh] = deque(maxlen=MAX_BUFFERED_EVENTS)

@@ -16,6 +16,20 @@ class NotFoundError(KeyError):
     """Object does not exist (reference: os.ErrNotExist mapping)."""
 
 
+class PermanentError(IOError):
+    """Non-retryable backend response: the backend answered, and retrying
+    the identical request can never succeed (auth failures, 4xx analogs).
+    Drivers raise this (or attach a `status` int to a generic error) so the
+    resilience layer (object/resilient.py) never burns its retry budget on
+    a request that is wrong, not unlucky."""
+
+
+class ThrottleError(IOError):
+    """Backend throttling (429 / 503 SlowDown analogs): retryable, but the
+    resilience layer backs off longer and sheds concurrency instead of
+    hammering a backend that just asked for less traffic."""
+
+
 @dataclass
 class Obj:
     key: str

@@ -96,7 +96,7 @@ def test_port_scan_matches_reference_scan(volume, backend):
     for k in ("blocks", "bytes", "from_index", "hashed_now", "duplicate_blocks",
               "duplicate_bytes", "dedup_groups", "stale_index_rows_removed"):
         assert got[k] == ref[k], k
-    assert set(got) == set(ref) - {"resilience"}
+    assert set(got) == set(ref)
     assert sorted(ref_rows.values()) == sorted(jth256(b) for b in blocks)
     assert got["shard"]["devices"] == (1 if backend == "cuda" else 0)
 
