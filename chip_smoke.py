@@ -31,7 +31,10 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               degrade, one upload per hash batch, cold read-back byte for
               byte, then a cold `gc --dedup` scan that reproduces the
               ingest-time digests; the estimator on the card == the same
-              torch ops on the CPU (histograms exact, predictions 1e-5)
+              torch ops on the CPU (histograms exact, predictions 1e-5).
+              The ingest gates also hold the kernel to one launch per hash
+              batch. A second drive of the same leg has 4 writers of 8-block
+              slices, so hash batches hold many blocks
 
 It prints a `{"kernels": [...]}` line and, as its last line,
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or juicefs_tpu.
@@ -300,28 +303,34 @@ def digests_phase(rng: np.random.Generator) -> None:
     print(f"scan_step ok: dup {dup.tolist()} first {first.tolist()}")
 
 
-def write_volume(root: str, rng: np.random.Generator, n_full: int, bs: int,
-                 dup_ratio: float = 0.25):
-    """Write n_full blocks of bs bytes plus one ragged tail block under
-    block_key names; ~dup_ratio of the full blocks come from a 4-block
-    pool. Returns (live, keys in write order, planted duplicate count)."""
+def plan_blocks(rng: np.random.Generator, n_full: int, bs: int, tail: int,
+                dup_ratio: float = 0.25):
+    """n_full blocks of bs bytes, ~dup_ratio of them drawn from a 4-block
+    pool, plus one ragged tail block of `tail` bytes. The expected
+    duplicate count comes from the plan (pool entries are reused bytes
+    objects), as in __graft_entry__.py."""
+    pool = [rng.bytes(bs) for _ in range(4)]
+    blocks = [pool[int(rng.integers(0, len(pool)))] if rng.random() < dup_ratio
+              else rng.bytes(bs) for _ in range(n_full)]
+    blocks.append(rng.bytes(tail))
+    seen: set[int] = set()
+    expect_dups = 0
+    for b in blocks:
+        expect_dups += id(b) in seen
+        seen.add(id(b))
+    return blocks, expect_dups
+
+
+def write_volume(root: str, rng: np.random.Generator, n_full: int, bs: int):
+    """Write the planned blocks (ragged tail of 3 lanes + 777 B) under
+    block_key names. Returns (storage, live, keys in write order, planted
+    duplicate count)."""
     storage = FileStorage(root)
     storage.create()
-    pool = [rng.bytes(bs) for _ in range(4)]
+    blocks, dups = plan_blocks(rng, n_full, bs, 3 * LANE_BYTES + 777)
     live: dict[str, int] = {}
     order: list[str] = []
-    seen: set[int] = set()
-    dups = 0
-    for i in range(n_full + 1):
-        if i == n_full:
-            data = rng.bytes(3 * LANE_BYTES + 777)  # ragged tail block
-        elif rng.random() < dup_ratio:
-            p = int(rng.integers(0, len(pool)))
-            dups += p in seen
-            seen.add(p)
-            data = pool[p]
-        else:
-            data = rng.bytes(bs)
+    for i, data in enumerate(blocks):
         key = block_key(1000 + i, 0, len(data))
         storage.put(key, data)
         live[key] = len(data)
@@ -477,68 +486,72 @@ def stage_delta(before: dict, after: dict) -> dict:
     return out
 
 
-def plan_ingest(rng: np.random.Generator, n_full: int, bs: int, dup_ratio: float = 0.25):
-    """n_full blocks of bs bytes, ~dup_ratio drawn from a 4-block pool, plus a
-    1 MiB + 7 B tail; the expected duplicate count comes from the plan."""
-    pool = [rng.bytes(bs) for _ in range(4)]
-    blocks = [pool[int(rng.integers(0, len(pool)))] if rng.random() < dup_ratio
-              else rng.bytes(bs) for _ in range(n_full)]
-    blocks.append(rng.bytes((1 << 20) + 7))
-    seen: set[int] = set()
-    expect_dups = 0
-    for b in blocks:
-        expect_dups += id(b) in seen  # pool entries are reused bytes objects
-        seen.add(id(b))
-    return blocks, expect_dups
-
-
-def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
-    phase("main path: inline ingest, read-back, cold scan")
+def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
+                 writers: int) -> dict:
+    """Write the planned blocks through the port's CachedStore with an
+    inline-dedup IngestPipeline on the card, `slice_blocks` consecutive
+    blocks to a slice, `writers` slices in flight at once, then check
+    gates 1-4: elided == planted duplicates with no degrade and one hash
+    kernel launch per hash batch; one stored object per unique block; every
+    hashed block estimated with no compress degrade; one upload per hash
+    batch. Returns the open store, its meta and the run's numbers; the
+    caller closes the store."""
     bs = BLOCK_BYTES
-    blocks, expect_dups = plan_ingest(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs)
-    n_blocks = len(blocks)
+    slices = [(1 + k, blocks[i:i + slice_blocks])
+              for k, i in enumerate(range(0, len(blocks), slice_blocks))]
     nbytes = sum(len(b) for b in blocks)
-    base = tempfile.mkdtemp(prefix="jfs-torch-ingest-")
-    store = cold = None
+    storage = FileStorage(root)
+    storage.create()
+    meta = DictMeta()
+    refs = ContentRefs(meta)
+    store = CachedStore(storage, ChunkConfig(
+        block_size=bs, compress="lz4", compress_backend="cuda",
+        cache_dirs=("memory",), cache_size=1, max_upload=8))
     try:
-        storage = FileStorage(os.path.join(base, "blob"))
-        storage.create()
-        meta = DictMeta()
-        refs = ContentRefs(meta)
-        store = CachedStore(storage, ChunkConfig(
-            block_size=bs, compress="lz4", compress_backend="cuda",
-            cache_dirs=("memory",), cache_size=1, max_upload=8))
         store.content_refs = refs
         store.ingest = IngestPipeline(store, refs, backend="cuda", batch_blocks=32,
                                       bypass=False)
+
+        def write(item):
+            sid, chunk = item
+            w = store.new_writer(sid)
+            w.write_at(b"".join(chunk), 0)
+            w.finish(sum(len(b) for b in chunk))
+
         hashed0 = counter_value("juicefs_torch_blocks_hashed")
         h2d0 = counter_value("juicefs_torch_h2d_bytes")
         stages0 = stage_metrics_snapshot()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        for i, data in enumerate(blocks):
-            w = store.new_writer(1 + i)
-            w.write_at(data, 0)
-            w.finish(len(data))
+        if writers == 1:
+            for item in slices:
+                write(item)
+        else:
+            with ThreadPoolExecutor(writers, thread_name_prefix="smoke-writer") as ex:
+                list(ex.map(write, slices))
         store.ingest.flush()
         store.flush_all()
         torch.cuda.synchronize()
-        ingest_s = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         stages = stage_delta(stages0, stage_metrics_snapshot())
         hashed = int(counter_value("juicefs_torch_blocks_hashed") - hashed0)
         h2d = int(counter_value("juicefs_torch_h2d_bytes") - h2d0)
         st = store.ingest.stats()
         comp = st["compress"]
-        gibs = nbytes / (1 << 30) / ingest_s
+        n_blocks = len(blocks)
+        n_batches = stages["chunk.ingest.hash"]["count"]
+        gibs = nbytes / (1 << 30) / seconds
         print(f"ingest {n_blocks} blocks ({nbytes / (1 << 30):.4f} GiB, {expect_dups} "
-              f"planted duplicates) in {ingest_s:.3f} s = {gibs:.4f} GiB/s")
+              f"planted duplicates; {len(slices)} slices of {slice_blocks} blocks, "
+              f"{writers} writers) in {seconds:.3f} s = {gibs:.4f} GiB/s")
         print("ingest_stats " + json.dumps(st))
         print("ingest_stage_seconds " + json.dumps(stages))
-        print(f"ingest launches {launches}; blocks hashed {hashed}; "
+        print(f"ingest launches {launches}; blocks hashed {hashed} in {n_batches} "
+              f"hash batches ({hashed / max(1, n_batches):.3f} blocks per batch); "
               f"h2d bytes {h2d}; native available {native.available()}")
 
-        # gate 1: elision count and no degrade
+        # gate 1: elision count, no degrade, the kernel launched once per batch
         if st["put_elided"] != expect_dups:
             raise AssertionError(f"put_elided {st['put_elided']} != planted {expect_dups}")
         if st["uploaded"] != n_blocks - expect_dups:
@@ -546,8 +559,9 @@ def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         for k in ("passthrough", "errors", "race_collapsed"):
             if st[k] != 0:
                 raise AssertionError(f"ingest {k} = {st[k]}, want 0")
-        if launches["jth256_row_chain"] == 0:
-            raise AssertionError("ingest launched no jth256_row_chain kernel")
+        if n_batches == 0 or launches["jth256_row_chain"] != n_batches:
+            raise AssertionError(f"{launches['jth256_row_chain']} jth256_row_chain launches "
+                                 f"for {n_batches} ingest hash batches")
         # gate 2: one stored object per unique block
         n_objects = sum(1 for _ in storage.list_all("chunks/"))
         if n_objects != n_blocks - expect_dups:
@@ -556,10 +570,34 @@ def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         if comp["degraded"] != 0 or comp["estimated"] != hashed:
             raise AssertionError(f"compress plane {comp}: want degraded 0, "
                                  f"estimated == {hashed} hashed blocks")
-        # gate 4: one upload per hash batch (each batch padded to 64 lanes)
+        # gate 4: one upload per hash batch (each block padded to 64 lanes)
         pad = bs // LANE_BYTES * LANE_BYTES
         if h2d != hashed * pad:
             raise AssertionError(f"h2d bytes {h2d} != {hashed} hashed blocks x {pad}")
+        return {"store": store, "storage": storage, "meta": meta, "refs": refs,
+                "slices": slices, "blocks": n_blocks, "bytes": nbytes,
+                "seconds": seconds, "gibs": gibs, "stats": st, "stage_seconds": stages,
+                "launches": launches, "blocks_hashed": hashed, "hash_batches": n_batches,
+                "h2d_bytes": h2d, "objects": n_objects}
+    except BaseException:
+        store.close()
+        raise
+
+
+def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
+    phase("main path: inline ingest, read-back, cold scan")
+    bs = BLOCK_BYTES
+    blocks, expect_dups = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                      (1 << 20) + 7)
+    n_blocks = len(blocks)
+    base = tempfile.mkdtemp(prefix="jfs-torch-ingest-")
+    run = cold = None
+    try:
+        # one sequential writer, each block its own slice: every finish()
+        # waits for its block, so each hash batch holds one block
+        run = drive_ingest(os.path.join(base, "blob"), blocks, expect_dups,
+                           slice_blocks=1, writers=1)
+        storage, meta, refs = run["storage"], run["meta"], run["refs"]
         ingest_rows = {block_key(sid, indx, bsize): d
                        for sid, indx, bsize, d in meta.scan_block_digests()}
 
@@ -597,18 +635,43 @@ def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
             raise AssertionError(f"duplicate_blocks {scan['duplicate_blocks']} != {expect_dups}")
         if scan_launches["jth256_row_chain"] == 0:
             raise AssertionError("cold scan launched no jth256_row_chain kernel")
-        print(f"gates ok: {expect_dups} elided, {n_objects} objects, {hashed} blocks "
-              f"estimated, one upload per batch, read-back exact, cold scan "
-              f"{scan['gibs']} GiB/s reproduces {len(scan_rows)} ingest rows; "
-              f"scan launches {scan_launches}")
-        return {"blocks": n_blocks, "bytes": nbytes, "seconds": ingest_s, "gibs": gibs,
-                "stats": st, "stage_seconds": stages, "launches": launches,
-                "blocks_hashed": hashed, "h2d_bytes": h2d, "readback_s": readback_s,
-                "cold_scan": scan, "cold_scan_launches": scan_launches}
+        print(f"gates ok: {expect_dups} elided, {run['objects']} objects, "
+              f"{run['blocks_hashed']} blocks estimated, one upload and one kernel launch "
+              f"per batch, read-back exact, cold scan {scan['gibs']} GiB/s reproduces "
+              f"{len(scan_rows)} ingest rows; scan launches {scan_launches}")
+        run.update(readback_s=readback_s, cold_scan=scan, cold_scan_launches=scan_launches)
+        return run
     finally:
-        for s in (store, cold):
+        for s in (run["store"] if run else None, cold):
             if s is not None:
                 s.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def concurrent_ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
+    """The same write leg with 4 writers of 8-block (32 MiB) slices: blocks
+    of a slice reach the hash batcher back to back, so hash batches hold
+    many blocks and the shared pack and the estimator run on multi-block
+    batches. Gates 1-4, and some batch must hold more than one block."""
+    phase("main path: inline ingest, concurrent writers")
+    bs = BLOCK_BYTES
+    blocks, expect_dups = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                      (1 << 20) + 7)
+    base = tempfile.mkdtemp(prefix="jfs-torch-ingest-conc-")
+    run = None
+    try:
+        run = drive_ingest(os.path.join(base, "blob"), blocks, expect_dups,
+                           slice_blocks=8, writers=4)
+        if run["blocks_hashed"] <= run["hash_batches"]:
+            raise AssertionError(f"{run['blocks_hashed']} blocks in {run['hash_batches']} "
+                                 "batches: no hash batch held more than one block")
+        print(f"gates ok: {expect_dups} elided, {run['objects']} objects, "
+              f"{run['blocks_hashed']} blocks in {run['hash_batches']} batches, each "
+              "estimated and uploaded once, one kernel launch per batch")
+        return run
+    finally:
+        if run is not None:
+            run["store"].close()
         shutil.rmtree(base, ignore_errors=True)
 
 
@@ -678,13 +741,16 @@ def main(argv=None) -> int:
     timing = timing_phase(gen, smi)
     batch_breakdown_phase(rng)
     ingest = ingest_phase(rng, args.volume_gib)
+    conc = concurrent_ingest_phase(rng, args.volume_gib)
     estimator_phase(rng)
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
-               "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"]}
-    print(f"launches of jth256_row_chain: {by_path} "
-          f"({args.volume_gib} GiB scan, {args.volume_gib} GiB ingest and its cold scan)")
-    print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s, scan {scan['gibs']} GiB/s")
+               "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"],
+               "ingest_concurrent": conc["launches"]["jth256_row_chain"]}
+    print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
+          "ingest, its cold scan, concurrent ingest)")
+    print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s (1 writer), "
+          f"{conc['gibs']:.4f} GiB/s (4 writers); scan {scan['gibs']} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",

@@ -14,8 +14,13 @@ Block object key (reference cached_store.go:73-78), byte-identical to the
 JAX package's so either package reads a volume the other wrote:
     chunks/{id//1e6}/{id//1e3}/{id}_{indx}_{bsize}
 
-The only change from the reference: `ChunkConfig.device` is where the
-compress plane's `cuda` estimator runs (None: the card, which must exist).
+Changes from the reference: `ChunkConfig.compress_backend` defaults to
+`cuda` (the compress plane's estimator on the card), and
+`ChunkConfig.device` names the store's one device: the compress plane
+checks it at construction (None: the card, which must exist) and an
+`IngestPipeline` attached to the store hashes there unless it is given a
+device of its own. The estimator itself runs wherever the shared pack
+was uploaded, so the two can never disagree into a second upload.
 """
 
 from __future__ import annotations
@@ -174,13 +179,14 @@ class ChunkConfig:
     download_limit: float = 0.0
     limiter: Optional["Limiter"] = None
     scheduler: Optional[object] = None
-    # batched compression plane: backend registry cpu|cuda (a
+    # batched compression plane: backend registry cuda|cpu (a
     # reference volume's xla maps to cuda) and encode-lane width on the
     # qos slice lane (0 = host cores)
-    compress_backend: str = "cpu"
+    compress_backend: str = "cuda"
     compress_lanes: int = 0
-    # where the cuda compress estimator runs: None = the card (raises
-    # without one); "cpu" = the plain torch path (tests)
+    # the store's device, for the cuda compress plane and (by default) an
+    # attached IngestPipeline: None = the card (raises without one);
+    # "cpu" = the plain torch path (tests)
     device: Optional[object] = None
     # adaptive elision bypass (chunk/bypass.py) on --inline-dedup mounts:
     # sample the live dup density and skip hash+lookup when it is low

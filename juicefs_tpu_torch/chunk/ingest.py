@@ -25,14 +25,16 @@ A full hash queue, a hash failure, or a meta failure all degrade the
 block to the plain upload path (counted as passthrough/errors) — elision
 is an optimization, durability never waits for it.
 
-Changes from the reference: `device=` is where the `cuda` hash backend
-runs (None: the card; without one construction raises instead of falling
-back to the CPU), and backend names go through `pipeline_backend`, so a
+Changes from the reference: the default backend is `cuda`, and `device=`
+is where it runs (None: the store's `ChunkConfig.device`, and where that
+is None too, the card; without one construction raises instead of falling
+back to the CPU). Backend names go through `pipeline_backend`, so a
 reference mount's `xla` hashes on `cuda`. One packed upload per hash batch
 (`shard_packed`) feeds both the row-chain kernel (`hash_packed`) and the
 compress plane's estimator (`estimate_packed`), on the worker thread's
-stream. A hash or estimator failure still degrades instead of failing a
-write, but it is logged at WARNING and counted in `errors` / the compress
+stream. A failed upload, hash or estimate still degrades instead of
+failing a write, but it is logged at WARNING and counted: the batch's
+blocks in `errors` and `passthrough`, the estimator in the compress
 plane's `degraded`.
 
 Crash windows (repaired offline by `gc --dedup`, cmd/gc.py):
@@ -334,7 +336,7 @@ class IngestPipeline:
         self,
         store,
         refs: ContentRefs,
-        backend: str = "cpu",
+        backend: str = "cuda",
         batch_blocks: int = 32,
         queue_blocks: int = 64,
         flush_timeout: float = 0.005,
@@ -347,6 +349,8 @@ class IngestPipeline:
         from .indexer import pipeline_backend
 
         backend = pipeline_backend(backend)
+        if device is None:
+            device = getattr(store.conf, "device", None)
         self.store = store
         self.refs = refs
         self.backend = backend
@@ -553,19 +557,16 @@ class IngestPipeline:
         if raws and pipe.device_backend:
             # shared upload: ONE pack_blocks upload feeds the hash
             # digests AND the compress plane's estimator. `shard_packed`
-            # places the batch on the card once — passing host numpy
-            # arrays to both consumers would transfer the batch twice.
+            # places the batch on the card once; a failure here degrades
+            # the whole batch in `_loop` (logged and counted) rather than
+            # letting both consumers upload host arrays again
             from ..gpu.jth256 import pack_blocks
 
             with _TR.span("chunk", "ingest", stage="pack", hist=_H_PACK) as sp:
                 if sp.active:
                     sp.set(blocks=len(raws))
-                packed = pack_blocks(raws, pad_lanes=pipe.config.pad_lanes)
-                try:
-                    packed = pipe.shard_packed(packed)
-                except Exception as e:
-                    # host arrays still work, just without the shared upload
-                    logger.warning("shared pack placement degraded: %s", e)
+                packed = pipe.shard_packed(
+                    pack_blocks(raws, pad_lanes=pipe.config.pad_lanes))
         if raws:
             with _TR.span("chunk", "ingest", stage="hash",
                           hist=_H_HASH) as sp:

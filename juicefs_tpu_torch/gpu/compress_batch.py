@@ -8,14 +8,14 @@ gpu/pipeline.py):
         executor sized to the host cores, one zero-copy liblz4 call per
         block (ctypes releases the GIL, so lanes compress in parallel).
   cuda  the same CPU lane encode (output stays byte-identical to the
-        serial ctypes path), plus a compressibility estimator on the card
-        that reads the SAME packed words the ingest stage already uploaded
+        serial ctypes path), plus a compressibility estimator that reads
+        the SAME packed device tensors the ingest stage already uploaded
         for hashing (`HashPipeline.shard_packed`): one upload feeds the
         hash digests AND the per-block entropy predictions. The estimate
         is advisory (ratio telemetry); the encoded bytes come from liblz4
         either way, which keeps every volume readable by both packages.
 
-A volume's or mount's `xla` names the `cuda` backend here, as
+`cuda` is the default. A volume's or mount's `xla` names it too, as
 `chunk/indexer.py pipeline_backend` maps it for hashing.
 
 `estimate(words, lane_counts)` is the counterpart of the reference's
@@ -26,17 +26,19 @@ float32 256-bin byte histogram per block with lanes at or past
 run of torch ops on the tensors' own device: a strided view, the
 little-endian byte view of the sampled words, one `scatter_add_` into a
 (B, 256) float32 histogram, and the entropy. It reads 1/256 of the words
-and does no upload of its own. Every bin holds an integer count below
-2^24, so the float32 histogram is exact in any order; the entropy may
-differ from XLA's in the last ulp.
+and does no upload of its own: `estimate_packed` runs it where the
+shared pack already lies and refuses host arrays. Every bin holds an
+integer count below 2^24, so the float32 histogram is exact in any
+order; the entropy may differ from XLA's in the last ulp.
 
 Degrades: a lane fan-out that cannot place work (scheduler closed, queue
 full under `nowait`) degrades that batch to the serial in-thread encode,
 and an estimator failure is logged at WARNING and stops estimating. Both
 count in `degraded`. Unlike the reference, which falls back from its
-device backend to cpu at construction, the `cuda` backend raises when
-there is no card (`device=None` means the card; tests pass
-`device="cpu"` for the plain torch path).
+device backend to cpu at construction, an active `cuda` plane checks its
+device at construction and raises when there is no card (`device=None`
+means the card; tests pass `device="cpu"` for the plain torch path). The
+none-compressor plane does no device work and checks nothing.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 
 from ..metric import global_registry
 from ..utils import get_logger
-from .hash_torch import _as_int64, _as_words, resolve_device
+from .hash_torch import resolve_device
 
 logger = get_logger("gpu.compress")
 
@@ -81,7 +83,7 @@ SAMPLE_STRIDE = 16  # every 16th row and column: 64 words of a 128x128 lane
 
 @dataclass
 class CompressBatchConfig:
-    backend: str = "cpu"  # cpu | cuda (cuda adds the estimator on the card)
+    backend: str = "cuda"  # cuda (estimator on the card) | cpu
     # parallel encode lanes on the qos "slice" lane; 0 = host cores
     lanes: int = 0
     # batches below either floor encode serially: a lane hop costs more
@@ -137,9 +139,9 @@ class CompressPlane:
         self.config.backend = compress_backend(self.config.backend)
         self.device: Optional[torch.device] = None
         self._estimating = False
-        if self.config.backend == "cuda":
+        if self.config.backend == "cuda" and self.active:
             self.device = resolve_device(device)  # no card: raises
-            self._estimating = self.active
+            self._estimating = True
         self._exec = None
         self.lanes = 0
         if self.active:
@@ -179,21 +181,14 @@ class CompressPlane:
         return data
 
     # -- whole batch (the ingest-finalizer seam) ---------------------------
-    def compress_blocks(self, blocks: Sequence, packed=None) -> list[bytes]:
-        """Compress a batch, fanning out across the slice lane.
-
-        `packed` is the (words, lane_counts, lengths) triple the hash
-        dispatch already uploaded (`HashPipeline.shard_packed`): with the
-        cuda backend it feeds the estimator, with no second upload. Output
-        is byte-identical to [compressor.compress(b) for b in blocks].
-        """
+    def compress_blocks(self, blocks: Sequence) -> list[bytes]:
+        """Compress a batch, fanning out across the slice lane. Output is
+        byte-identical to [compressor.compress(b) for b in blocks]."""
         blocks = list(blocks)
         if not blocks:
             return []
         if not self.active:
             return [self.compressor.compress(b) for b in blocks]
-        if self._estimating and packed is not None:
-            self.estimate_packed(packed)
         nbytes = sum(len(b) for b in blocks)
         if (self._exec is None
                 or len(blocks) < self.config.min_fanout_blocks
@@ -239,16 +234,21 @@ class CompressPlane:
         return out
 
     def estimate_packed(self, packed) -> None:
-        """Advisory pass over the shared packed words (the ingest worker
-        calls this with the same triple the hash batch uploaded, on the
-        same thread and stream); a failure only costs the estimate, never
-        the batch, and is logged and counted."""
+        """Advisory pass over the shared packed words: the ingest worker
+        calls this with the (words, lane_counts, lengths) tensors that
+        `HashPipeline.shard_packed` placed for the hash batch, on the same
+        thread and stream, and the estimate runs on their device. Host
+        arrays are refused (they would need a second upload). A failure
+        only costs the estimate, never the batch, and is logged and
+        counted."""
         if not self._estimating:
             return
         try:
             words, counts, _lengths = packed
-            pred = estimate(_as_words(words, self.device),
-                            _as_int64(counts, self.device)).cpu()
+            if not isinstance(words, torch.Tensor):
+                raise TypeError("estimate_packed takes the device tensors of "
+                                "shard_packed, not host arrays")
+            pred = estimate(words, counts.to(words.device)).cpu()
             with self._lock:
                 self.estimated += len(pred)
                 self.last_estimate = [round(float(p), 4) for p in pred]

@@ -57,6 +57,8 @@ def _store(pkg, root, **kw):
     storage = pkg.File(str(root))
     storage.create()
     conf = dict(block_size=BS, compress="lz4", cache_dirs=("memory",), cache_size=1)
+    if pkg is PACKAGES["port"]:
+        conf["device"] = "cpu"  # the port's default cuda plane, on the CPU
     conf.update(kw)
     return pkg.cs.CachedStore(storage, pkg.cs.ChunkConfig(**conf)), storage
 
@@ -157,10 +159,18 @@ def test_writeback_ladder_stage_then_replay_on_reset(tmp_path, name):
 
 
 def test_chunk_config_device_reaches_the_compress_plane(tmp_path):
+    """The store's one device setting reaches its compress plane and, by
+    default, the IngestPipeline attached to it."""
+    from juicefs_tpu_torch.chunk import ContentRefs, IngestPipeline
+
     store, _ = _store(PACKAGES["port"], tmp_path / "blob", compress_backend="xla",
                       device="cpu")
     try:
+        assert port_cs.ChunkConfig().compress_backend == "cuda"
         assert store.compress_plane.backend == "cuda"
         assert str(store.compress_plane.device) == "cpu"
+        store.ingest = IngestPipeline(store, ContentRefs(meta=None), hot_bytes=0)
+        assert store.ingest.backend == "cuda"
+        assert str(store.ingest._batcher.pipe.device) == "cpu"
     finally:
         store.close()

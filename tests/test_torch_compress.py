@@ -55,6 +55,13 @@ ESTIMATE_CASES = {
 }
 
 
+def _tensors(packed):
+    """A packed triple as the tensors `HashPipeline.shard_packed` hands on."""
+    words, counts, lengths = packed
+    return (torch.from_numpy(words.view(np.int32)), torch.from_numpy(counts.astype(np.int64)),
+            torch.from_numpy(lengths.astype(np.int64)))
+
+
 @pytest.fixture
 def scheds():
     ref, port = RefScheduler(), Scheduler()
@@ -135,8 +142,8 @@ def test_cuda_plane_estimates_like_reference_xla_plane(scheds):
         assert port.backend == "cuda" and port.device == torch.device("cpu")
         blocks = [_rand(1 << 20), bytes(1 << 20), _text(1 << 20)]
         packed = pack_blocks(blocks, pad_lanes=16)
-        assert port.compress_blocks(blocks, packed=packed) == \
-            ref.compress_blocks(blocks, packed=packed)
+        port.estimate_packed(_tensors(packed))
+        assert port.compress_blocks(blocks) == ref.compress_blocks(blocks, packed=packed)
         assert port.estimated == ref.estimated == 3
         np.testing.assert_allclose(port.last_estimate, ref.last_estimate, atol=1e-4)
         assert port.stats()["degraded"] == 0
@@ -150,6 +157,9 @@ def test_cuda_plane_without_card_raises(scheds, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cb.CompressPlane(LZ4Compressor(), cb.CompressBatchConfig(backend="cuda"),
                          scheduler=scheds[1])
+    assert cb.CompressBatchConfig().backend == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cb.CompressPlane(LZ4Compressor(), scheduler=scheds[1])  # the default
 
 
 def test_unknown_backend_rejected(scheds):
@@ -167,13 +177,25 @@ def test_estimator_failure_is_logged_and_counted(scheds, monkeypatch, caplog):
 
     monkeypatch.setattr(cb, "estimate", boom)
     blocks = [_rand(LANE), _rand(LANE)]
+    packed = _tensors(pack_blocks(blocks, pad_lanes=1))
     with caplog.at_level(logging.WARNING):
-        out = plane.compress_blocks(blocks, packed=pack_blocks(blocks, pad_lanes=1))
-    assert out == [plane.compressor.compress(b) for b in blocks]
+        plane.estimate_packed(packed)
+    assert plane.compress_blocks(blocks) == [plane.compressor.compress(b) for b in blocks]
     assert plane.degraded == 1 and plane.estimated == 0
     assert "compress estimate degraded" in caplog.text
-    plane.estimate_packed(pack_blocks(blocks, pad_lanes=1))  # stopped: no retry
+    plane.estimate_packed(packed)  # stopped: no retry
     assert plane.degraded == 1
+    plane.close()
+
+
+def test_estimate_packed_refuses_host_arrays(scheds, caplog):
+    """Host arrays would cost a second upload: refused, logged and counted."""
+    plane = cb.CompressPlane(LZ4Compressor(), scheduler=scheds[1], device="cpu")
+    blocks = [_rand(LANE), bytes(LANE)]
+    with caplog.at_level(logging.WARNING):
+        plane.estimate_packed(pack_blocks(blocks, pad_lanes=1))
+    assert plane.degraded == 1 and plane.estimated == 0
+    assert "device tensors of shard_packed" in caplog.text
     plane.close()
 
 
@@ -195,8 +217,10 @@ def test_queue_full_degrades_to_serial_encode(pkg):
         sched.close()
 
 
-def test_none_compressor_passthrough(scheds):
-    plane = cb.CompressPlane(NoneCompressor(), scheduler=scheds[1])
+def test_none_compressor_passthrough(scheds, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plane = cb.CompressPlane(NoneCompressor(), scheduler=scheds[1])  # no device work
+    assert plane.backend == "cuda" and plane.device is None
     assert not plane.active and plane.stats()["algorithm"] == "none"
     assert plane.compress_blocks([b"abc", b""]) == [b"abc", b""]
     assert plane.compress_one(b"xyz") == b"xyz"

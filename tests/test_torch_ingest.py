@@ -386,6 +386,94 @@ def test_ingest_device_backend_shares_packed_upload(meta, tmp_path):
         store.close()
 
 
+def _device_store(meta, tmp_path, name, **ingest_kw):
+    """A store whose cuda compress plane and ingest run the plain torch path
+    on the CPU (the store's `device`, inherited by the IngestPipeline)."""
+    storage = FileStorage(str(tmp_path / name))
+    storage.create()
+    counting = CountingStore(storage)
+    store = CachedStore(counting, ChunkConfig(block_size=BS, cache_size=1, compress="lz4",
+                                              device="cpu"))
+    refs = ContentRefs(meta)
+    store.content_refs = refs
+    store.ingest = IngestPipeline(store, refs, flush_timeout=0.005, **ingest_kw)
+    assert store.ingest._batcher.pipe.device == torch.device("cpu")
+    return store, counting
+
+
+def test_shared_pack_upload_failure_degrades_counted(meta, tmp_path, caplog):
+    """A failed shared-pack upload degrades the batch to plain uploads (no
+    second upload of host arrays), logged and counted like a hash failure."""
+    store, counting = _device_store(meta, tmp_path, "blob-upload", batch_blocks=4,
+                                    hot_bytes=0)
+    try:
+        def lost(packed):
+            raise RuntimeError("upload lost")
+
+        store.ingest._batcher.pipe.shard_packed = lost
+        h2d0 = _counter("juicefs_torch_h2d_bytes")
+        datas = [os.urandom(BS), os.urandom(BS)]
+        with caplog.at_level(logging.WARNING):
+            _write(store, 980, *datas)
+            store.ingest.flush()
+        st = store.ingest.stats()
+        assert st["errors"] == 2 and st["passthrough"] == 2 and st["put_elided"] == 0
+        assert "ingest batch of 2 degraded: upload lost" in caplog.text
+        assert _counter("juicefs_torch_h2d_bytes") == h2d0
+        assert store.compress_plane.estimated == 0
+        assert set(counting.put_keys) == {block_key(980, 0, BS), block_key(980, 1, BS)}
+        r = store.new_reader(980, 2 * BS)
+        assert [bytes(r.read(j * BS, BS)) for j in range(2)] == datas
+    finally:
+        store.close()
+
+
+def test_concurrent_writers_fill_device_batches_and_elide_exactly(meta, tmp_path):
+    """Writers in parallel, each slice several blocks: blocks submitted back
+    to back share a hash batch, with one upload and one estimate per batch,
+    every planted duplicate elided and nothing degraded."""
+    store, counting = _device_store(meta, tmp_path, "blob-conc", batch_blocks=8,
+                                    bypass=False)
+    blocks, expect_dups = _plan(seed=3, n_full=24)
+    slices = {1 + k: blocks[i:i + 6] for k, i in enumerate(range(0, len(blocks), 6))}
+    batches = global_registry()._metrics["juicefs_torch_batch_blocks"]
+    try:
+        hashed0 = _counter("juicefs_torch_blocks_hashed")
+        h2d0 = _counter("juicefs_torch_h2d_bytes")
+        n_batches0 = batches.total
+        barrier = threading.Barrier(len(slices))
+
+        def writer(sid):
+            barrier.wait(10)
+            data = b"".join(slices[sid])
+            w = store.new_writer(sid)
+            w.write_at(data, 0)
+            w.finish(len(data))
+
+        threads = [threading.Thread(target=writer, args=(sid,)) for sid in slices]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        store.ingest.flush()
+        st = store.ingest.stats()
+        hashed = _counter("juicefs_torch_blocks_hashed") - hashed0
+        n_batches = batches.total - n_batches0
+        assert st["put_elided"] == expect_dups
+        assert st["uploaded"] == len(blocks) - expect_dups
+        assert st["passthrough"] == st["errors"] == st["race_collapsed"] == 0
+        assert len(counting.put_keys) == len(blocks) - expect_dups
+        assert store.compress_plane.estimated == hashed
+        assert store.compress_plane.degraded == 0
+        assert _counter("juicefs_torch_h2d_bytes") - h2d0 == hashed * BS  # once each
+        assert hashed > n_batches  # some batch held more than one block
+        for sid, chunk in slices.items():
+            data = b"".join(chunk)
+            assert bytes(store.new_reader(sid, len(data)).read(0, len(data))) == data
+    finally:
+        store.close()
+
+
 def test_hot_content_cache_persists_across_mounts(meta, tmp_path):
     storage = FileStorage(str(tmp_path / "blob-hot"))
     storage.create()
@@ -439,6 +527,14 @@ def test_cuda_backends_without_card_raise(meta, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CachedStore(storage, ChunkConfig(block_size=BS, compress="lz4",
                                          compress_backend="cuda"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CachedStore(storage, ChunkConfig(block_size=BS, compress="lz4"))  # the default
+    store = CachedStore(storage, ChunkConfig(block_size=BS, cache_size=1))
+    try:  # the default ingest backend is cuda too
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            IngestPipeline(store, ContentRefs(meta))
+    finally:
+        store.close()
 
 
 # -- the slice as a whole ------------------------------------------------------
@@ -529,7 +625,8 @@ def test_slice_matches_reference(tmp_path):
     # read-back through a cold port store (aliases resolved) and a cold
     # reference store on the port's volume
     live = {block_key(1 + i, 0, len(b)): len(b) for i, b in enumerate(blocks)}
-    cold = CachedStore(pstorage, ChunkConfig(block_size=BS, compress="lz4", cache_size=1))
+    cold = CachedStore(pstorage, ChunkConfig(block_size=BS, compress="lz4", cache_size=1,
+                                             device="cpu"))
     cold.content_refs = ContentRefs(pmeta)
     rcold = RefCachedStore(RefFileStorage(pstorage.root),
                            RefChunkConfig(block_size=BS, compress="lz4", cache_size=1))
