@@ -30,11 +30,29 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               unique block, every hashed block estimated with no compress
               degrade, one upload per hash batch, cold read-back byte for
               byte, then a cold `gc --dedup` scan that reproduces the
-              ingest-time digests; the estimator on the card == the same
-              torch ops on the CPU (histograms exact, predictions 1e-5).
+              ingest-time digests.
               The ingest gates also hold the kernel to one launch per hash
-              batch. A second drive of the same leg has 4 writers of 8-block
-              slices, so hash batches hold many blocks
+              batch.
+  9. ingest   a second drive of the same leg with 4 writers of 8-block
+              slices, so hash batches hold many blocks. Phases 5, 8 and 9
+              keep their meta in the port's sqlite3:// kv engine
+  10. estimator the compress estimator on one packed batch on the card ==
+              the same torch ops on the CPU (histograms exact, predictions
+              1e-5)
+  11. main    the admin path through the port's CLI on a sqlite3:// volume
+              of the same plan: `format --hash-backend pallas` (probes the
+              card), a write of every block as its own slice through
+              `build_store` with its BlockIndexer on the card, `gc --dedup`,
+              `fsck --verify-data`; gates: no indexer errors, indexed +
+              dropped == written, one launch per index batch; gc trusts the
+              index, backfills exactly the dropped blocks, finds the planted
+              duplicates and writes an index that matches the numpy spec;
+              with every fifth index row deleted, a second gc reads back and
+              hashes exactly those blocks (one launch per 32) and restores
+              the same index;
+              fsck verifies every block in one launch per 32 blocks with 0
+              mismatches, then exactly one after one object is overwritten;
+              a reopened meta client reads the same digest rows
 
 It prints a `{"kernels": [...]}` line and, as its last line,
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or juicefs_tpu.
@@ -43,23 +61,25 @@ It prints a `{"kernels": [...]}` line and, as its last line,
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import logging
 import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from juicefs_tpu_torch import native
+from juicefs_tpu_torch import cmd, native
 from juicefs_tpu_torch.chunk import CachedStore, ChunkConfig, ContentRefs, IngestPipeline
-from juicefs_tpu_torch.chunk.cached_store import block_key
+from juicefs_tpu_torch.chunk.cached_store import block_key, parse_block_key
 from juicefs_tpu_torch.cmd.gc import dedup_scan
 from juicefs_tpu_torch.compress import new_compressor
 from juicefs_tpu_torch.gpu import compress_batch, hash_torch, kernels
@@ -75,6 +95,8 @@ from juicefs_tpu_torch.gpu.jth256 import (
     pack_into,
 )
 from juicefs_tpu_torch.gpu.pipeline import HashPipeline, PipelineConfig
+from juicefs_tpu_torch.meta import CHUNK_SIZE, Format, Slice, new_client
+from juicefs_tpu_torch.meta.context import Context
 from juicefs_tpu_torch.metric import global_registry
 from juicefs_tpu_torch.metric.trace import stage_metrics_snapshot
 from juicefs_tpu_torch.object.file import FileStorage
@@ -99,105 +121,14 @@ def hbm_bytes_per_s(name: str) -> float:
     return 3.35e12  # H100 SXM (HBM3)
 
 
-class DictMeta:
-    """Stand-in for the meta engine that a later slice ports: the digest
-    index, the content-ref plane and the hot-fingerprint snapshot, in dicts
-    under one lock, with the semantics of the JAX package's kv engine
-    (meta/kv.py content_* and *_block_digests).
-
-    refs:    digest -> [sid, indx, bsize, refcount]  (canonical block)
-    aliases: (sid, indx) -> (digest, bsize, created_ts)
-    rows:    (sid, indx) -> (bsize, digest)          (digest index)
-    """
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.refs: dict[bytes, list] = {}
-        self.aliases: dict[tuple[int, int], tuple[bytes, int, float]] = {}
-        self.rows: dict[tuple[int, int], tuple[int, bytes]] = {}
-        self.hot: list[tuple[bytes, bytes]] = []
-
-    # -- digest index ------------------------------------------------------
-    def scan_block_digests(self):
-        with self._lock:
-            return [(sid, indx, bsize, d)
-                    for (sid, indx), (bsize, d) in self.rows.items()]
-
-    def set_block_digests(self, rows):
-        with self._lock:
-            for sid, indx, bsize, d in rows:
-                self.rows[(sid, indx)] = (bsize, d)
-
-    def delete_block_digests(self, pairs):
-        with self._lock:
-            for sid, indx in pairs:
-                self.rows.pop((sid, indx), None)
-
-    # -- content-ref plane -------------------------------------------------
-    def _add_ref(self, digest, sid, indx, bsize):
-        ref = self.refs[digest]
-        ref[3] += 1
-        self.aliases[(sid, indx)] = (digest, bsize, time.time())
-        return tuple(ref[:3])
-
-    def content_incref(self, entries):
-        with self._lock:
-            return [self._add_ref(d, sid, indx, bsize) if d in self.refs else None
-                    for d, sid, indx, bsize in entries]
-
-    def content_register(self, entries):
-        out = []
-        with self._lock:
-            for d, sid, indx, bsize in entries:
-                if d in self.refs:
-                    out.append(self._add_ref(d, sid, indx, bsize))
-                else:
-                    self.refs[d] = [sid, indx, bsize, 1]
-                    self.aliases[(sid, indx)] = (d, bsize, time.time())
-                    out.append(None)
-        return out
-
-    def content_decref(self, pairs):
-        out = []
-        with self._lock:
-            for sid, indx in pairs:
-                alias = self.aliases.pop((sid, indx), None)
-                if alias is None:
-                    out.append(("untracked", None))
-                    continue
-                ref = self.refs.get(alias[0])
-                if ref is None:
-                    out.append(("dangling", None))
-                elif ref[3] <= 1:
-                    del self.refs[alias[0]]
-                    out.append(("last", tuple(ref[:3])))
-                else:
-                    ref[3] -= 1
-                    out.append(("released", tuple(ref[:3])))
-        return out
-
-    def content_resolve(self, sid, indx):
-        with self._lock:
-            alias = self.aliases.get((sid, indx))
-            ref = self.refs.get(alias[0]) if alias is not None else None
-            return tuple(ref[:3]) if ref is not None else None
-
-    def scan_content_refs(self):
-        with self._lock:
-            return [(d, tuple(r[:3]), r[3]) for d, r in self.refs.items()]
-
-    def scan_content_aliases(self):
-        with self._lock:
-            return [(k, d, bsize, ts) for k, (d, bsize, ts) in self.aliases.items()]
-
-    # -- hot-content fingerprint snapshot ----------------------------------
-    def set_hot_fingerprints(self, rows):
-        with self._lock:
-            self.hot = list(rows)
-
-    def load_hot_fingerprints(self):
-        with self._lock:
-            return list(self.hot)
+def open_kv_meta(base: str, name: str):
+    """The port's own kv meta engine on a sqlite3:// file under `base`,
+    formatted with a fresh volume of `name`."""
+    m = new_client(f"sqlite3://{base}/meta.db")
+    if m.init(Format(name=name, trash_days=0), force=True) != 0:
+        raise AssertionError("meta init failed")
+    m.load()
+    return m
 
 
 class FileBlockStore:
@@ -350,7 +281,7 @@ def scan_phase(rng: np.random.Generator, volume_gib: float) -> dict:
             os.path.join(base, "blob"), rng, n_full, bs)
         print(f"wrote {len(live)} blocks ({sum(live.values()) / (1 << 30):.4f} GiB, "
               f"{planted} planted duplicates) in {time.perf_counter() - t0:.3f} s")
-        meta = DictMeta()
+        meta = open_kv_meta(base, "smoke-scan")
         store = FileBlockStore(storage, threads=16)
         kernels.reset_launches()
         scan = dedup_scan(meta, store, live, "cuda", "", bs, threads=16,
@@ -467,6 +398,11 @@ def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     return out
 
 
+# ingest/lookup and ingest/register seconds of the same drives (1 and 4
+# writers) over the in-script dict stand-in meta that the kv engine
+# replaced, on an H100 80GB HBM3 at 700 W (PERF.md section 5)
+DICT_META_SECONDS = {1: (0.0022, 0.0020), 4: (0.0006, 0.0007)}
+
 INGEST_STAGES = ("chunk.ingest.pack", "chunk.ingest.hash", "chunk.ingest.lookup",
                  "chunk.ingest.register", "chunk.upload.compress", "chunk.upload.put")
 
@@ -502,7 +438,7 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
     nbytes = sum(len(b) for b in blocks)
     storage = FileStorage(root)
     storage.create()
-    meta = DictMeta()
+    meta = open_kv_meta(os.path.dirname(root), "smoke-ingest")
     refs = ContentRefs(meta)
     store = CachedStore(storage, ChunkConfig(
         block_size=bs, compress="lz4", compress_backend="cuda",
@@ -547,6 +483,11 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
               f"{writers} writers) in {seconds:.3f} s = {gibs:.4f} GiB/s")
         print("ingest_stats " + json.dumps(st))
         print("ingest_stage_seconds " + json.dumps(stages))
+        lk, rg = stages["chunk.ingest.lookup"], stages["chunk.ingest.register"]
+        dict_lk, dict_rg = DICT_META_SECONDS[writers]
+        print(f"meta (sqlite3:// kv engine): ingest/lookup {lk['seconds']:.6f} s over "
+              f"{lk['count']} calls, ingest/register {rg['seconds']:.6f} s over "
+              f"{rg['count']} calls; the dict stand-in took {dict_lk} s and {dict_rg} s")
         print(f"ingest launches {launches}; blocks hashed {hashed} in {n_batches} "
               f"hash batches ({hashed / max(1, n_batches):.3f} blocks per batch); "
               f"h2d bytes {h2d}; native available {native.available()}")
@@ -723,6 +664,219 @@ def estimator_phase(rng: np.random.Generator) -> dict:
     return out
 
 
+class _Records(logging.Handler):
+    """Collects the messages a logger emits while attached."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def cli(argv: list[str]) -> tuple[int, str, list[str]]:
+    """Run one port CLI command as a user would; echo and return its rc,
+    stdout and the ERROR records of its loggers. cmd.main logs and returns
+    1 on an exception, so every caller checks the rc."""
+    buf, rec = io.StringIO(), _Records()
+    log = logging.getLogger("cmd")
+    log.addHandler(rec)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cmd.main(argv)
+    finally:
+        log.removeHandler(rec)
+    out = buf.getvalue()
+    print(f"$ {' '.join(argv[:1] + ['META'] + argv[2:])}\n{out.rstrip()}\n(rc {rc})")
+    for msg in rec.messages:
+        print(f"  log: {msg}")
+    return rc, out, rec.messages
+
+
+def launches() -> int:
+    torch.cuda.synchronize()
+    return kernels.LAUNCHES["jth256_row_chain"]
+
+
+def stage_count(name: str) -> int:
+    return stage_metrics_snapshot().get(name, {"count": 0})["count"]
+
+
+def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> dict:
+    """format -> indexed write through build_store -> gc --dedup -> fsck
+    --verify-data, all through the port's CLI and kv engine on a sqlite3://
+    volume, then planted bitrot and a cross-open of the meta file."""
+    phase("main path: format, indexed write, gc, fsck")
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                  (1 << 20) + 7)
+    n_blocks, nbytes = len(blocks), sum(len(b) for b in blocks)
+    base = tempfile.mkdtemp(prefix="jfs-torch-main-")
+    meta_url = f"sqlite3://{base}/meta.db"
+    store = None
+    try:
+        # 1. format: a device hash backend probes the card (or fails)
+        rc, out, _ = cli(["format", meta_url, "smoke", "--storage", "file", "--bucket",
+                          os.path.join(base, "blob"), "--compress", "none",
+                          "--hash-backend", "pallas", "--trash-days", "0"])
+        if rc != 0 or kind not in out:
+            raise AssertionError(f"format rc {rc}; probe line must name {kind}")
+
+        # 2. indexed write: one file, each block its own slice
+        m, fmt = cmd.open_meta(meta_url)
+        store = cmd.build_store(fmt, None, meta=m)
+        if store.indexer is None or store.indexer.backend != "cuda":
+            raise AssertionError("build_store attached no cuda BlockIndexer")
+        ctx = Context(uid=0, gid=0)
+        st, ino, _ = m.create(ctx, 1, b"smoke.bin", 0o644)
+        if st != 0:
+            raise AssertionError(f"create: errno {st}")
+        per_chunk = CHUNK_SIZE // bs
+        batches0 = stage_count("gpu.index.batch")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for i, data in enumerate(blocks):
+            sid = m.new_slice()
+            w = store.new_writer(sid)
+            w.write_at(data, 0)
+            w.finish(len(data))
+            indx, pos = divmod(i, per_chunk)
+            st = m.write_chunk(ino, indx, pos * bs, Slice(pos=pos * bs, id=sid,
+                                                         size=len(data), off=0,
+                                                         len=len(data)))
+            if st != 0:
+                raise AssertionError(f"write_chunk: errno {st}")
+        store.flush_all()
+        store.indexer.flush()
+        write_s = time.perf_counter() - t0
+        index_launches = launches()
+        index_batches = stage_count("gpu.index.batch") - batches0
+        ix = store.indexer.stats()
+        write_gibs = nbytes / (1 << 30) / write_s
+        print(f"indexed write of {n_blocks} blocks ({nbytes / (1 << 30):.4f} GiB, {planted} "
+              f"planted duplicates) in {write_s:.3f} s = {write_gibs:.4f} GiB/s; indexer "
+              f"{json.dumps(ix)}; {index_batches} index batches, {index_launches} launches")
+        if ix["errors"] != 0:
+            raise AssertionError(f"indexer errors {ix['errors']}")
+        if ix["blocks"] + ix["dropped"] != n_blocks:
+            raise AssertionError(f"indexer blocks {ix['blocks']} + dropped {ix['dropped']} "
+                                 f"!= {n_blocks} uploaded")
+        if index_batches == 0 or index_launches != index_batches:
+            raise AssertionError(f"{index_launches} launches for {index_batches} index batches")
+        indexed_rows = {block_key(sid, indx, bsize): d
+                        for sid, indx, bsize, d in m.scan_block_digests()}
+        order = [block_key(s.id, 0, s.size) for s in
+                 sorted((s for sl in m.list_slices().values() for s in sl),
+                        key=lambda s: s.id)]
+        store.close()
+        store = None
+        m.client.close()
+
+        # 3. gc --dedup: trusts the index, backfills what the indexer dropped
+        index_path = os.path.join(base, "dedup-index.json")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["gc", meta_url, "--dedup", "--threads", "16",
+                          "--compress-backend", "cuda", "--dedup-index", index_path])
+        gc_s = time.perf_counter() - t0
+        gc_launches = launches()
+        lines = out.strip().splitlines()
+        if rc != 0 or not lines[0].endswith("0 leaked, 0 missing"):
+            raise AssertionError(f"gc rc {rc}: {lines[:1]}")
+        gc = json.loads(lines[-1])
+        want = {"from_index": ix["blocks"], "hashed_now": ix["dropped"],
+                "duplicate_blocks": planted, "blocks": n_blocks}
+        got = {k: gc[k] for k in want}
+        if got != want:
+            raise AssertionError(f"gc {got} != {want}")
+        index = json.load(open(index_path))
+        for key in order[:: max(1, n_blocks // 8)][:8]:
+            i = order.index(key)
+            if index[key] != jth256(blocks[i]).hex():
+                raise AssertionError(f"{key}: dedup index digest != numpy spec")
+        # backfill on the card: rows lost as a client without an indexer
+        # loses them are read back, hashed in 32-block batches and restored
+        lost = sorted(indexed_rows)[::5]
+        m = new_client(meta_url)
+        m.delete_block_digests([parse_block_key(k)[:2] for k in lost])
+        m.client.close()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["gc", meta_url, "--dedup", "--threads", "16",
+                          "--compress-backend", "cuda", "--dedup-index", index_path])
+        backfill_s = time.perf_counter() - t0
+        gc_launches += launches()
+        backfill = json.loads(out.strip().splitlines()[-1])
+        if rc != 0 or backfill["hashed_now"] != len(lost) \
+                or launches() != -(-len(lost) // 32) \
+                or json.load(open(index_path)) != index:
+            raise AssertionError(f"gc backfill: rc {rc}, hashed_now "
+                                 f"{backfill['hashed_now']} of {len(lost)} lost rows, "
+                                 f"{launches()} launches; or the index changed")
+
+        # 4. fsck --verify-data: re-hash every block on the card
+        hash_path = os.path.join(base, "hash-index.json")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["fsck", meta_url, "--verify-data", "--hash-index", hash_path])
+        fsck_s = time.perf_counter() - t0
+        fsck_launches = launches()
+        want_batches = -(-n_blocks // 32)
+        if rc != 0 or f"verified {n_blocks} blocks (cuda)" not in out \
+                or "0 digest mismatches" not in out:
+            raise AssertionError(f"fsck rc {rc}")
+        if fsck_launches != want_batches:
+            raise AssertionError(f"fsck: {fsck_launches} launches, want {want_batches}")
+        if json.load(open(hash_path)) != index:
+            raise AssertionError("fsck hash index != gc dedup index")
+        fsck_gibs = nbytes / (1 << 30) / fsck_s
+        # planted bitrot: other bytes of the same size under one block key
+        victim = order[n_blocks // 2]
+        objects = cmd.storage_for(fmt)
+        objects.put(victim, rng.bytes(len(objects.get(victim))))
+        rc, out, errors = cli(["fsck", meta_url, "--verify-data"])
+        mismatched = [e for e in errors if "digest mismatch" in e]
+        if rc != 1 or "1 digest mismatches" not in out or len(mismatched) != 1 \
+                or victim not in mismatched[0]:
+            raise AssertionError(f"bitrot: rc {rc}, mismatch records {mismatched}, "
+                                 f"want 1 naming {victim}")
+
+        # 5. cross-open: a fresh client reads the rows the indexer wrote
+        # (and gc's backfill of what it dropped)
+        fresh = new_client(meta_url)
+        fresh.load()
+        rows = {block_key(sid, indx, bsize): d
+                for sid, indx, bsize, d in fresh.scan_block_digests()}
+        fresh.client.close()
+        if {k: rows.get(k) for k in indexed_rows} != indexed_rows:
+            raise AssertionError("reopened meta: indexer rows differ")
+        if {k: d.hex() for k, d in rows.items()} != index:
+            raise AssertionError("reopened meta: rows != gc dedup index")
+        print(f"gates ok: format probed {kind}; {ix['blocks']} blocks indexed in "
+              f"{index_batches} batches ({ix['dropped']} dropped, {ix['errors']} errors), "
+              f"one launch per batch; gc from_index {gc['from_index']}, hashed_now "
+              f"{gc['hashed_now']}, {planted} duplicates, sampled index == spec, "
+              f"{len(lost)} lost rows backfilled on the card; fsck "
+              f"verified {n_blocks} blocks in {fsck_launches} launches, 0 mismatches, then "
+              f"exactly {victim}; reopened meta rows == indexer rows")
+        print(f"main path: write {write_gibs:.4f} GiB/s; gc --dedup {gc_s:.3f} s "
+              f"({gc['from_index']} blocks from the index, {gc['hashed_now']} read and "
+              f"hashed), {backfill_s:.3f} s to backfill {len(lost)} lost rows "
+              f"({backfill['gibs']} GiB/s over the volume); fsck --verify-data {fsck_gibs:.4f} GiB/s ({fsck_s:.3f} s); "
+              f"indexer busy {ix['busy_seconds']} s = {ix['hash_mib_s']} MiB/s")
+        return {"blocks": n_blocks, "write_gibs": write_gibs, "gc_seconds": gc_s,
+                "backfill_seconds": backfill_s, "backfilled": len(lost),
+                "fsck_gibs": fsck_gibs, "indexer": ix, "index_batches": index_batches,
+                "launches": {"index": index_launches, "gc": gc_launches,
+                             "fsck": fsck_launches},
+                "gc": gc}
+    finally:
+        if store is not None:
+            store.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -743,14 +897,20 @@ def main(argv=None) -> int:
     ingest = ingest_phase(rng, args.volume_gib)
     conc = concurrent_ingest_phase(rng, args.volume_gib)
     estimator_phase(rng)
+    main_path = main_path_phase(rng, args.volume_gib, kind)
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
                "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"],
-               "ingest_concurrent": conc["launches"]["jth256_row_chain"]}
+               "ingest_concurrent": conc["launches"]["jth256_row_chain"],
+               **main_path["launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
-          "ingest, its cold scan, concurrent ingest)")
+          "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck)")
+    if by_path["index"] == 0 or by_path["fsck"] == 0:
+        raise AssertionError("the indexed write or fsck launched no row-chain kernel")
     print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s (1 writer), "
-          f"{conc['gibs']:.4f} GiB/s (4 writers); scan {scan['gibs']} GiB/s")
+          f"{conc['gibs']:.4f} GiB/s (4 writers); scan {scan['gibs']} GiB/s; indexed "
+          f"write {main_path['write_gibs']:.4f} GiB/s, gc --dedup {main_path['gc_seconds']:.3f} "
+          f"s, fsck --verify-data {main_path['fsck_gibs']:.4f} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",

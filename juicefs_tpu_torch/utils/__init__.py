@@ -1,4 +1,6 @@
-"""Cross-cutting utilities (a copy of juicefs_tpu/utils: the logger)."""
+"""Cross-cutting utilities (a copy of juicefs_tpu/utils: the logger). The
+txn rerun harness and the lock watchdog are the `txnwatch` and `lockwatch`
+submodules; importing them installs neither."""
 
 from __future__ import annotations
 

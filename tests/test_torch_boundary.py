@@ -54,7 +54,10 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
                          env=env, timeout=300, check=True, cwd=REPO)
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert "juicefs_tpu_torch.gpu.hash_torch" in doc["imported"]
-    assert "juicefs_tpu_torch.cmd.gc" in doc["imported"]
+    for name in ("cmd.gc", "cmd.fsck", "cmd.format", "meta.kv", "meta.redis_kv",
+                 "utils.txnwatch", "utils.lockwatch", "object.sharding",
+                 "chunk.indexer"):
+        assert "juicefs_tpu_torch." + name in doc["imported"]
     bad = [n for n in doc["loaded"] if _forbidden(n)]
     assert bad == []
 
