@@ -398,11 +398,6 @@ def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     return out
 
 
-# ingest/lookup and ingest/register seconds of the same drives (1 and 4
-# writers) over the in-script dict stand-in meta that the kv engine
-# replaced, on an H100 80GB HBM3 at 700 W (PERF.md section 5)
-DICT_META_SECONDS = {1: (0.0022, 0.0020), 4: (0.0006, 0.0007)}
-
 INGEST_STAGES = ("chunk.ingest.pack", "chunk.ingest.hash", "chunk.ingest.lookup",
                  "chunk.ingest.register", "chunk.upload.compress", "chunk.upload.put")
 
@@ -484,10 +479,9 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
         print("ingest_stats " + json.dumps(st))
         print("ingest_stage_seconds " + json.dumps(stages))
         lk, rg = stages["chunk.ingest.lookup"], stages["chunk.ingest.register"]
-        dict_lk, dict_rg = DICT_META_SECONDS[writers]
         print(f"meta (sqlite3:// kv engine): ingest/lookup {lk['seconds']:.6f} s over "
               f"{lk['count']} calls, ingest/register {rg['seconds']:.6f} s over "
-              f"{rg['count']} calls; the dict stand-in took {dict_lk} s and {dict_rg} s")
+              f"{rg['count']} calls")
         print(f"ingest launches {launches}; blocks hashed {hashed} in {n_batches} "
               f"hash batches ({hashed / max(1, n_batches):.3f} blocks per batch); "
               f"h2d bytes {h2d}; native available {native.available()}")

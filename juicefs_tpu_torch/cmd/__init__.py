@@ -55,43 +55,15 @@ def storage_for(fmt: Format):
 
 
 def chunk_conf(fmt: Format, args=None) -> ChunkConfig:
-    cache_dirs = ("memory",)
-    writeback = False
-    if args is not None:
-        if getattr(args, "cache_dir", None):
-            cache_dirs = tuple(str(args.cache_dir).split(":"))
-        writeback = bool(getattr(args, "writeback", False))
-    conf = ChunkConfig(
-        block_size=fmt.block_size * 1024,
-        compress=fmt.compression,
-        cache_dirs=cache_dirs,
-        writeback=writeback,
-    )
+    """The chunk store's config from the volume Format and the options of
+    the ported commands (`--compress-backend`; `cache_size` MiB for a
+    caller that builds a store itself). The reference's mount options
+    (cache dirs, writeback, limits, resilience knobs) come with `mount`."""
+    conf = ChunkConfig(block_size=fmt.block_size * 1024, compress=fmt.compression)
     if getattr(args, "cache_size", None):
         conf.cache_size = int(args.cache_size) << 20
-    # command concurrency (`--threads`) routes through the unified
-    # scheduler's BACKGROUND class: build_store widens the download/bulk
-    # lanes to the command's width without touching foreground config.
-    # bandwidth shaping (qos/limiter.py): CLI limits are Mbps, the
-    # config carries bytes/s
-    if getattr(args, "upload_limit", None):
-        conf.upload_limit = float(args.upload_limit) * 1e6 / 8
-    if getattr(args, "download_limit", None):
-        conf.download_limit = float(args.download_limit) * 1e6 / 8
-    # object-plane resilience knobs (object/resilient.py)
-    if getattr(args, "op_deadline", None):
-        conf.op_deadline = float(args.op_deadline)
-    if getattr(args, "attempt_timeout", None):
-        conf.attempt_timeout = float(args.attempt_timeout)
-    if getattr(args, "no_hedge", False):
-        conf.hedge = False
-    # batched compression plane + elision bypass
     if getattr(args, "compress_backend", None):
         conf.compress_backend = str(args.compress_backend)
-    if getattr(args, "compress_lanes", None):
-        conf.compress_lanes = int(args.compress_lanes)
-    if getattr(args, "no_dedup_bypass", False):
-        conf.dedup_bypass = False
     return conf
 
 
@@ -106,10 +78,11 @@ def build_store(fmt: Format, args=None, meta=None,
 
     Any meta-attached store also gets the content-ref plane: reads resolve
     elided blocks through aliases and deletes decref — required for
-    correctness on any volume another --inline-dedup client may have
-    written to. The ingest elision stage itself is opt-in via the mount
-    flag. Read-only admin commands (fsck/gc) pass with_indexer=False: they
-    need alias resolution but never upload."""
+    correctness on any volume an inline-dedup writer may have written to.
+    The ingest elision stage itself (`store.ingest`) comes with `mount`'s
+    --inline-dedup, which is not ported. Read-only admin commands
+    (fsck/gc) pass with_indexer=False: they need alias resolution but
+    never upload."""
     conf = chunk_conf(fmt, args)
     store = CachedStore(storage_for(fmt), conf)
     try:
@@ -121,12 +94,11 @@ def build_store(fmt: Format, args=None, meta=None,
             store.scheduler.widen("download", threads)
             store.scheduler.widen("bulk", threads)
         if meta is not None:
-            from ..chunk.indexer import pipeline_backend
-            from ..chunk.ingest import ContentRefs, IngestPipeline
+            from ..chunk.ingest import ContentRefs
 
             store.content_refs = ContentRefs(meta)
             if fmt.hash_backend and with_indexer:
-                from ..chunk.indexer import BlockIndexer
+                from ..chunk.indexer import BlockIndexer, pipeline_backend
 
                 store.indexer = BlockIndexer(
                     meta=meta,
@@ -135,17 +107,6 @@ def build_store(fmt: Format, args=None, meta=None,
                     device=conf.device,
                 )
                 conf.fingerprint = store.indexer.submit
-            if getattr(args, "inline_dedup", False):
-                flush_ms = getattr(args, "ingest_flush_ms", None)
-                if flush_ms is None:
-                    flush_ms = 5.0  # explicit 0 means "flush immediately"
-                store.ingest = IngestPipeline(
-                    store,
-                    store.content_refs,
-                    backend=pipeline_backend(fmt.hash_backend),
-                    flush_timeout=max(0.0, float(flush_ms)) / 1e3,
-                    bypass=conf.dedup_bypass,
-                )
     except BaseException:
         # a device backend with no card raises here: release the store's
         # pools instead of leaking them with the half-built store

@@ -9,6 +9,8 @@ also opens in the JAX package. Changes from the reference: a device hash
 backend (tpu | xla | pallas: the card, for the port) is probed with a
 pageable host-to-card copy, and with no card `format` fails instead of
 warning and formatting a volume whose writers would hash on the CPU.
+`--encrypt-rsa-key` and `--encrypt-algo` are not offered: object/encrypt.py
+is not ported.
 """
 
 from __future__ import annotations
@@ -43,13 +45,6 @@ def add_parser(sub):
                    help="fingerprint every written block into the meta "
                         "content index using this hash plane (tpu, xla "
                         "and pallas all hash on the CUDA card)")
-    p.add_argument("--encrypt-rsa-key", default="",
-                   help="PEM private key path (RSA -> OAEP wrap, EC P-256 "
-                        "-> ECIES wrap)")
-    p.add_argument("--encrypt-algo", default=None,
-                   choices=["aes256gcm-rsa", "aes256ctr-rsa"],
-                   help="object body cipher (reference encrypt.go variants); "
-                        "requires --encrypt-rsa-key")
     p.add_argument("--force", action="store_true", help="overwrite existing format")
     p.set_defaults(func=run)
 
@@ -68,13 +63,6 @@ def run(args) -> int:
         enable_acl=args.enable_acl,
         hash_backend="" if args.hash_backend == "none" else args.hash_backend,
     )
-    if args.encrypt_algo and not args.encrypt_rsa_key:
-        logger.error("--encrypt-algo has no effect without --encrypt-rsa-key")
-        return 1
-    if args.encrypt_rsa_key:
-        with open(args.encrypt_rsa_key) as f:
-            fmt.encrypt_key = f.read()
-        fmt.encrypt_algo = args.encrypt_algo or "aes256gcm-rsa"
 
     # before anything is written: a device backend needs the card
     if fmt.hash_backend in DEVICE_BACKENDS:

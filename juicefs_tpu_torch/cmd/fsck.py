@@ -12,7 +12,8 @@ as JSON.
 Changes from the reference: `--compress-backend` (default cuda) picks where
 the compress plane of the command's store runs, as it does for `mount`;
 `--hash-backend` takes cpu | cuda (tpu | xla | pallas map to cuda), and the
-cuda backend raises without a card.
+cuda backend raises without a card; a volume formatted with no hash backend
+is hashed on the card, not on the host.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def add_parser(sub):
                    help="also hash every block; write content index JSON here")
     p.add_argument("--hash-backend", default=None,
                    help="cpu|cuda (tpu|xla|pallas map to cuda; default: "
-                        "volume format hash_backend)")
+                        "volume format hash_backend, cuda where it has none)")
     p.add_argument("--compress-backend", default="cuda", choices=["cpu", "cuda"],
                    help="where the compress plane of the command's store runs")
     p.set_defaults(func=run)
@@ -101,7 +102,9 @@ def _run(args, m, fmt, store) -> int:
         from ..gpu.jth256 import LANE_BYTES, digest_hex
         from ..gpu.pipeline import HashPipeline, PipelineConfig
 
-        backend = pipeline_backend(args.hash_backend or fmt.hash_backend)
+        # a volume formatted without a hash backend is verified on the
+        # card too: only an explicit cpu hashes on the host
+        backend = pipeline_backend(args.hash_backend or fmt.hash_backend or "cuda")
         pipe = HashPipeline(
             PipelineConfig(backend=backend, pad_lanes=max(1, bs // LANE_BYTES))
         )

@@ -15,7 +15,8 @@ package is read as it stands: same block keys, same uint32-LE digest rows.
 
 Changes from the reference: `--compact` is not offered (vfs/compact.py is
 not ported); `--compress-backend` (default cuda) picks where the compress
-plane of the command's store runs, as it does for `mount`.
+plane of the command's store runs, as it does for `mount`; a volume
+formatted with no hash backend is hashed on the card, not on the host.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def add_parser(sub):
     p.add_argument("--dedup", action="store_true", help="content-addressed dedup scan")
     p.add_argument("--hash-backend", default=None,
                    help="cpu|cuda (tpu|xla|pallas map to cuda; default: "
-                        "volume format hash_backend)")
+                        "volume format hash_backend, cuda where it has none)")
     p.add_argument("--compress-backend", default="cuda", choices=["cpu", "cuda"],
                    help="where the compress plane of the command's store runs")
     p.add_argument("--threads", type=int, default=10)
@@ -134,7 +135,9 @@ def _run(args, m, fmt, store) -> int:
     if args.dedup:
         from ..chunk.indexer import pipeline_backend
 
-        backend = pipeline_backend(args.hash_backend or fmt.hash_backend)
+        # a volume formatted without a hash backend is scanned on the
+        # card too: only an explicit cpu hashes on the host
+        backend = pipeline_backend(args.hash_backend or fmt.hash_backend or "cuda")
         stats = dedup_scan(m, store, live, backend, args.dedup_index, bs,
                            threads=args.threads)
         # offline complement of the inline ingest stage: repair refcounts

@@ -25,6 +25,7 @@ from juicefs_tpu.meta.context import Context as RefContext
 from juicefs_tpu.tpu.jth256 import jth256
 from juicefs_tpu_torch import cmd
 from juicefs_tpu_torch.chunk.cached_store import block_key
+from juicefs_tpu_torch.chunk.ingest import IngestPipeline
 from juicefs_tpu_torch.meta import CHUNK_SIZE, Slice, new_client
 from juicefs_tpu_torch.meta.context import Context
 
@@ -53,12 +54,12 @@ def _format(tmp_path, name: str, compress: str, hash_backend: str = "cpu") -> st
     return meta_url
 
 
-def _port_write(meta_url: str, blocks, inline_dedup: bool = False) -> dict:
+def _port_write(meta_url: str, blocks) -> dict:
     """Each block its own slice of one file, through the port's build_store
     (BlockIndexer on the volume's cpu backend); returns the indexer stats."""
     m, fmt = cmd.open_meta(meta_url)
-    store = cmd.build_store(fmt, types.SimpleNamespace(
-        compress_backend="cpu", inline_dedup=inline_dedup, cache_size=1), meta=m)
+    store = cmd.build_store(fmt, types.SimpleNamespace(compress_backend="cpu", cache_size=1),
+                            meta=m)
     try:
         assert store.indexer is not None and store.indexer.backend == "cpu"
         ctx = Context(uid=0, gid=0)
@@ -75,8 +76,6 @@ def _port_write(meta_url: str, blocks, inline_dedup: bool = False) -> dict:
                 pos=pos * BS, id=sid, size=len(data), off=0, len=len(data))) == 0
         assert m.close(ctx, ino) == 0
         store.flush_all()
-        if store.ingest is not None:
-            store.ingest.flush()
         store.indexer.flush()
         return store.indexer.stats()
     finally:
@@ -188,8 +187,9 @@ def test_gc_delete_removes_leak_and_keeps_aliased_canonical(tmp_path, capsys):
     meta_url = _format(tmp_path, "gcdel", "none")
     blob = _plan(2)[0]
     m, fmt = cmd.open_meta(meta_url)
-    store = cmd.build_store(fmt, types.SimpleNamespace(
-        compress_backend="cpu", inline_dedup=True), meta=m)
+    store = cmd.build_store(fmt, types.SimpleNamespace(compress_backend="cpu"), meta=m)
+    # the inline-dedup ingest stage, as mount --inline-dedup attaches it
+    store.ingest = IngestPipeline(store, store.content_refs, backend="cpu")
     ctx = Context(uid=0, gid=0)
     try:
         for name in (b"a.bin", b"b.bin"):
@@ -257,3 +257,29 @@ def test_device_hash_backend_without_card_raises(tmp_path, capsys, entry):
             assert cmd.main(["gc", meta_url, "--dedup"] + CPU) == 0
     finally:
         m.client.close()
+
+
+@pytest.mark.parametrize("command", ["gc", "fsck"])
+def test_unindexed_volume_hashes_on_the_card(tmp_path, capsys, caplog, command):
+    """A volume formatted with no hash backend is scanned on the card as
+    well: with none, `gc --dedup` and `fsck --verify-data` fail, and only
+    an explicit `--hash-backend cpu` hashes on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    meta_url = f"sqlite3://{tmp_path}/plain.db"
+    assert cmd.main(["format", meta_url, "plain", "--storage", "file", "--bucket",
+                     str(tmp_path / "blob"), "--block-size", str(BS >> 10),
+                     "--trash-days", "0"]) == 0
+    m, fmt = cmd.open_meta(meta_url)
+    m.client.close()
+    assert fmt.hash_backend == ""
+    argv = [command, meta_url, "--dedup" if command == "gc" else "--verify-data"]
+    with caplog.at_level("ERROR", logger="cmd"):
+        assert _run(cmd.main, argv + ["--compress-backend", "cpu"], capsys)[0] == 1
+    assert any("no CUDA device" in r.getMessage() for r in caplog.records)
+    rc, lines = _run(cmd.main, argv + CPU, capsys)
+    assert rc == 0
+    if command == "gc":
+        assert json.loads(lines[-1])["backend"] == "cpu"
+    else:
+        assert lines[0].startswith("verified 0 blocks (cpu)")
