@@ -53,6 +53,24 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               fsck verifies every block in one launch per 32 blocks with 0
               mismatches, then exactly one after one object is overwritten;
               a reopened meta client reads the same digest rows
+  12. serve   the port's S3 gateway on a `format --hash-backend pallas
+              --compress lz4` sqlite3:// volume, built as the `gateway`
+              subcommand builds it (BlockIndexer on the card, SigV4, one
+              tenant key): 4 signed clients PUT 32 objects of 32 MiB from
+              the same plan (1 GiB), a multipart upload whose part 3
+              repeats part 1, a 1 MiB + 7 B object and a copy; gates: every
+              PUT 200, ETags == StreamingEtag from the numpy spec, full and
+              Range GETs exact, a paginated listing (max-keys 7) == the key
+              set, unsigned 403, a lying payload hash 400 with no object
+              left, no indexer errors, indexed + dropped == written, one
+              launch per index batch. Then the SDK (`jfs_init` on the same
+              volume) reads every object back and writes a file as 64
+              flushed 1 MiB pieces; `gc --compact --dedup` compacts the
+              fragmented chunks, hashes exactly the blocks the index lacks
+              (one launch per 32), finds the planted duplicates and writes
+              the spec's index; `fsck --verify-data` finds 0 mismatches;
+              last, `python -m juicefs_tpu_torch.cmd gateway` runs as a
+              process: a signed PUT and GET, /metrics, exit 0 on SIGTERM
 
 It prints a `{"kernels": [...]}` line and, as its last line,
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or juicefs_tpu.
@@ -62,24 +80,32 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
+import http.client
 import io
 import json
 import logging
 import os
+import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.parse
+import xml.etree.ElementTree as ET
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from juicefs_tpu_torch import cmd, native
+from juicefs_tpu_torch import cmd, native, sdk
 from juicefs_tpu_torch.chunk import CachedStore, ChunkConfig, ContentRefs, IngestPipeline
 from juicefs_tpu_torch.chunk.cached_store import block_key, parse_block_key
+from juicefs_tpu_torch.cmd import gateway as gateway_cmd
 from juicefs_tpu_torch.cmd.gc import dedup_scan
 from juicefs_tpu_torch.compress import new_compressor
 from juicefs_tpu_torch.gpu import compress_batch, hash_torch, kernels
@@ -89,6 +115,8 @@ from juicefs_tpu_torch.gpu.jth256 import (
     COLS,
     LANE_BYTES,
     ROWS,
+    digest_hex,
+    hash_blocks_np,
     hash_packed_np,
     jth256,
     pack_blocks,
@@ -97,9 +125,11 @@ from juicefs_tpu_torch.gpu.jth256 import (
 from juicefs_tpu_torch.gpu.pipeline import HashPipeline, PipelineConfig
 from juicefs_tpu_torch.meta import CHUNK_SIZE, Format, Slice, new_client
 from juicefs_tpu_torch.meta.context import Context
+from juicefs_tpu_torch.meta.slice import build_slice
 from juicefs_tpu_torch.metric import global_registry
 from juicefs_tpu_torch.metric.trace import stage_metrics_snapshot
 from juicefs_tpu_torch.object.file import FileStorage
+from juicefs_tpu_torch.object.s3 import SigV4
 
 MASK = 0xFFFFFFFF
 TIMING_LANES = 16384  # 1 GiB of words
@@ -119,6 +149,16 @@ def hbm_bytes_per_s(name: str) -> float:
     if "H100" in name and "NVL" in name:
         return 3.9e12
     return 3.35e12  # H100 SXM (HBM3)
+
+
+def row_chain_bound_ms(n_lanes: int, smi: str) -> tuple[float, str]:
+    """Least time the card could take for row_chain over n_lanes: each
+    input word read once and each lane state written once at the memory
+    rate, or the integer operations at the ALU rate, whichever is larger."""
+    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * COLS * 4
+    bytes_ms = (in_bytes + out_bytes) / hbm_bytes_per_s(smi) * 1e3
+    ops_ms = in_bytes // 4 * OPS_PER_WORD / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def open_kv_meta(base: str, name: str):
@@ -337,18 +377,15 @@ def timing_phase(gen: torch.Generator, smi: str) -> dict:
     hash_torch.row_chain_ref(words, m, 1)  # warm-up
     plain_ms = time_cuda(lambda i: hash_torch.row_chain_ref(words, m, 0x2000 + i), 3)
     in_bytes = TIMING_LANES * LANE_BYTES
-    out_bytes = TIMING_LANES * COLS * 4
     rate = hbm_bytes_per_s(smi)
-    bytes_ms = (in_bytes + out_bytes) / rate * 1e3
-    ops_ms = in_bytes // 4 * OPS_PER_WORD / INT32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = row_chain_bound_ms(TIMING_LANES, smi)
     out = {
         "lanes": TIMING_LANES,
         "ms": ms,
         "gibs": in_bytes / (1 << 30) / (ms / 1e3),
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "hbm_bytes_per_s": rate,
     }
     print(f"row_chain 1 GiB ({TIMING_LANES} lanes): {ms:.4f} ms = "
@@ -406,10 +443,10 @@ def counter_value(name: str) -> float:
     return global_registry()._metrics[name].value
 
 
-def stage_delta(before: dict, after: dict) -> dict:
+def stage_delta(before: dict, after: dict, names=INGEST_STAGES) -> dict:
     """{stage: {count, seconds}} moved between two stage snapshots."""
     out = {}
-    for name in INGEST_STAGES:
+    for name in names:
         a = after.get(name, {"count": 0, "sum_seconds": 0.0})
         b = before.get(name, {"count": 0, "sum_seconds": 0.0})
         out[name] = {"count": a["count"] - b["count"],
@@ -871,6 +908,503 @@ def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> d
         shutil.rmtree(base, ignore_errors=True)
 
 
+SERVE_STAGES = ("chunk.upload.compress", "chunk.upload.put", "gpu.index.batch")
+SERVE_AK, SERVE_SK = "AKSMOKE", "smoke-secret"
+TENANT_AK, TENANT_SK = "AKTENANT", "tenant-secret"
+S3_NS = {"s3": "http://s3.amazonaws.com/doc/2006-03-01/"}
+
+
+class S3Client:
+    """One signed S3 client on its own http.client connection."""
+
+    def __init__(self, port: int, ak: str, sk: str):
+        self.host = f"127.0.0.1:{port}"
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        self.signer = SigV4(ak, sk)
+
+    def call(self, method: str, path: str, body: bytes = b"", query=None, headers=None,
+             sign: bool = True, payload_hash: str | None = None):
+        query, headers = query or {}, dict(headers or {})
+        if sign:
+            ph = payload_hash or hashlib.sha256(body).hexdigest()
+            headers.update(self.signer.sign(method, self.host, path, query, ph,
+                                            extra_headers=headers))
+        url = path + ("?" + urllib.parse.urlencode(query) if query else "")
+        self.conn.request(method, url, body=body or None, headers=headers)
+        r = self.conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+
+    def close(self):
+        self.conn.close()
+
+
+def span_digests(data: bytes, span: int) -> list[bytes]:
+    """The numpy spec's digests of `data` cut into `span`-byte spans,
+    hashed 16 at a time."""
+    spans = [data[i:i + span] for i in range(0, len(data), span)] or [b""]
+    out: list[bytes] = []
+    for i in range(0, len(spans), 16):
+        out += hash_blocks_np(spans[i:i + 16])
+    return out
+
+
+def streaming_etag(data: bytes, span: int) -> str:
+    """The gateway's ETag (gateway/serve.py StreamingEtag) recomputed from
+    the numpy spec: one span hashes as jth256(body); more fold their span
+    digests through sha256 and hash the fold."""
+    digests = span_digests(data, span)
+    if len(digests) == 1:
+        return digest_hex(digests[0])[:32]
+    return digest_hex(jth256(hashlib.sha256(b"".join(digests)).digest()))[:32]
+
+
+def put_count() -> int:
+    """Object PUTs so far, every backend (the metered layer's histogram)."""
+    h = global_registry()._metrics["juicefs_object_request_durations_histogram_seconds"]
+    return sum(c.total for labels, c in list(h._children.items()) if labels[0] == "PUT")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def gateway_cli_run(meta_url: str, rng: np.random.Generator) -> dict:
+    """`python -m juicefs_tpu_torch.cmd gateway` as a process on the volume:
+    one signed 4 MiB PUT and GET, the juicefs_gateway_* counters on
+    /metrics, then SIGTERM and exit code 0."""
+    port, mport = free_port(), free_port()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "juicefs_tpu_torch.cmd", "gateway", meta_url, "--port",
+         str(port), "--access-key", SERVE_AK, "--secret-key", SERVE_SK, "--metrics",
+         f"127.0.0.1:{mport}"],
+        cwd=repo, stdout=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 180
+        while time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"gateway process exited with {proc.wait()}")
+            if "listening on port" in line:
+                break
+        else:
+            raise AssertionError("gateway process did not start listening")
+        ready_s = time.perf_counter() - t0
+        client = S3Client(port, SERVE_AK, SERVE_SK)
+        body = rng.bytes(BLOCK_BYTES)
+        st, hdrs, _ = client.call("PUT", "/bkt/cli.bin", body=body)
+        if st != 200 or hdrs["ETag"].strip('"') != streaming_etag(body, BLOCK_BYTES):
+            raise AssertionError(f"gateway process PUT: {st} {hdrs.get('ETag')}")
+        st, _, got = client.call("GET", "/bkt/cli.bin")
+        client.close()
+        if st != 200 or got != body:
+            raise AssertionError(f"gateway process GET: {st}, {len(got)} bytes")
+        mconn = http.client.HTTPConnection("127.0.0.1", mport, timeout=60)
+        mconn.request("GET", "/metrics")
+        text = mconn.getresponse().read().decode()
+        mconn.close()
+        moved = {op: float(m[1]) for op, m in (
+            (op, re.search(r'juicefs_gateway_requests\{op="%s"\} (\S+)' % op, text))
+            for op in ("put", "get")) if m}
+        if moved.get("put", 0) < 1 or moved.get("get", 0) < 1:
+            raise AssertionError(f"/metrics juicefs_gateway_requests: {moved}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    if rc != 0:
+        raise AssertionError(f"gateway process exited with {rc} on SIGTERM")
+    return {"ready_seconds": ready_s, "metrics_requests": moved, "rc": rc}
+
+
+def serve_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
+    """Phase 12: the S3 gateway serving a volume, then the SDK, then the
+    admin path, all through the port's entry points on one `sqlite3://` +
+    file:// volume formatted `--hash-backend pallas --compress lz4`."""
+    phase("serve: S3 gateway, SDK, gc --compact --dedup, fsck")
+    t_phase = time.perf_counter()
+    bs = BLOCK_BYTES
+    per_object = 8  # 32 MiB objects
+    blocks, planted = plan_blocks(rng, max(per_object, int(volume_gib * (1 << 30)) // bs
+                                           // per_object * per_object), bs, (1 << 20) + 7)
+    ragged = blocks.pop()
+    objects = {f"bkt/c{j % 4}/obj{j:03d}.bin": blocks[per_object * j:per_object * (j + 1)]
+               for j in range(len(blocks) // per_object)}
+    nbytes = sum(len(b) for b in blocks)
+    base = tempfile.mkdtemp(prefix="jfs-torch-serve-")
+    meta_url = f"sqlite3://{base}/meta.db"
+    gw = vfs = m = None
+    try:
+        rc, _out, _ = cli(["format", meta_url, "serve", "--storage", "file", "--bucket",
+                           os.path.join(base, "blob"), "--compress", "lz4",
+                           "--hash-backend", "pallas", "--trash-days", "0"])
+        if rc != 0:
+            raise AssertionError(f"format rc {rc}")
+
+        # 1. the gateway, built in-process as `gateway` builds it
+        parser = argparse.ArgumentParser()
+        gateway_cmd.add_parser(parser.add_subparsers())
+        args = parser.parse_args(["gateway", meta_url, "--port", "0", "--access-key",
+                                  SERVE_AK, "--secret-key", SERVE_SK, "--tenant-key",
+                                  f"{TENANT_AK}:{TENANT_SK}"])
+        gw, vfs, m = gateway_cmd.start_gateway(args)
+        store = vfs.store
+        if store.indexer is None or store.indexer.backend != "cuda" \
+                or store.compress_plane.config.backend != "cuda":
+            raise AssertionError("the gateway's store has no cuda BlockIndexer or plane")
+        span = gw.plane.span
+        keys = list(objects)
+        shas = {}
+        for key in keys:
+            h = hashlib.sha256()
+            for b in objects[key]:
+                h.update(b)
+            shas[key] = h.hexdigest()
+        creds = [(SERVE_AK, SERVE_SK), (SERVE_AK, SERVE_SK), (TENANT_AK, TENANT_SK),
+                 (TENANT_AK, TENANT_SK)]
+        clients = [S3Client(gw.port, ak, sk) for ak, sk in creds]
+        if clients[0].call("PUT", "/bkt")[0] != 200:
+            raise AssertionError("PUT bucket")
+        statuses, etags = {}, {}
+
+        def put_all(c):
+            for key in keys[c::len(clients)]:
+                st, hdrs, _ = clients[c].call("PUT", "/" + key, body=b"".join(objects[key]),
+                                              payload_hash=shas[key])
+                statuses[key], etags[key] = st, hdrs.get("ETag", "").strip('"')
+
+        batches0 = stage_count("gpu.index.batch")
+        puts0 = put_count()
+        stages0 = stage_metrics_snapshot()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(clients), thread_name_prefix="smoke-s3") as ex:
+            list(ex.map(put_all, range(len(clients))))
+        put_s = time.perf_counter() - t0
+        put_stages = stage_delta(stages0, stage_metrics_snapshot(), SERVE_STAGES)
+
+        # multipart (part 3 repeats part 1), a ragged object, a copy
+        c0 = clients[0]
+        st, _, body = c0.call("POST", "/bkt/mp.bin", query={"uploads": ""})
+        upload = ET.fromstring(body).findtext(".//s3:UploadId", namespaces=S3_NS)
+        parts = [rng.bytes(2 * bs), rng.bytes(2 * bs)]
+        parts.append(parts[0])
+        part_etags = []
+        for num, part in enumerate(parts, 1):
+            st, hdrs, _ = c0.call("PUT", "/bkt/mp.bin", body=part,
+                                  query={"partNumber": str(num), "uploadId": upload})
+            statuses[f"part {num}"] = st
+            part_etags.append(hdrs.get("ETag", "").strip('"'))
+        st, _, body = c0.call("POST", "/bkt/mp.bin", body=b"<CompleteMultipartUpload/>",
+                              query={"uploadId": upload})
+        statuses["complete"] = st
+        mp_etag = ET.fromstring(body).findtext(".//s3:ETag", namespaces=S3_NS).strip('"')
+        st, hdrs, _ = clients[2].call("PUT", "/bkt/ragged.bin", body=ragged)
+        statuses["bkt/ragged.bin"], etags["bkt/ragged.bin"] = st, hdrs["ETag"].strip('"')
+        src = keys[1]
+        st, _, body = c0.call("PUT", "/bkt/copy/of.bin",
+                              headers={"x-amz-copy-source": "/" + src})
+        statuses["copy"] = st
+        copy_etag = ET.fromstring(body).findtext(".//s3:ETag", namespaces=S3_NS).strip('"')
+        bad = [k for k, st in statuses.items() if st != 200]
+        if bad:
+            raise AssertionError(f"PUTs not 200: {[(k, statuses[k]) for k in bad]}")
+
+        # ETags == StreamingEtag recomputed from the numpy spec
+        want_etags = {k: streaming_etag(b"".join(objects[k]), span) for k in keys}
+        want_etags["bkt/ragged.bin"] = streaming_etag(ragged, span)
+        if etags != want_etags:
+            wrong = [k for k in want_etags if etags.get(k) != want_etags[k]]
+            raise AssertionError(f"ETags differ from the spec for {wrong[:5]}")
+        if part_etags != [streaming_etag(p, span) for p in parts]:
+            raise AssertionError(f"part ETags {part_etags} differ from the spec")
+        if mp_etag != digest_hex(jth256("".join(part_etags).encode()))[:32] + "-3":
+            raise AssertionError(f"multipart ETag {mp_etag}")
+        if copy_etag != etags[src]:
+            raise AssertionError("copy ETag != its source's")
+
+        # reads: full GETs (timed), then 3 Range GETs per object
+        everything = {k: b"".join(v) for k, v in objects.items()}
+        everything.update({"bkt/mp.bin": b"".join(parts), "bkt/ragged.bin": ragged,
+                           "bkt/copy/of.bin": b"".join(objects[src])})
+        wrong = []
+
+        def get_all(c):
+            for key in keys[c::len(clients)]:
+                st, _, got = clients[c].call("GET", "/" + key)
+                if st != 200 or got != everything[key]:
+                    wrong.append((key, st))
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(clients), thread_name_prefix="smoke-s3") as ex:
+            list(ex.map(get_all, range(len(clients))))
+        get_s = time.perf_counter() - t0
+        for key, data in everything.items():
+            if key in objects:
+                continue
+            st, _, got = c0.call("GET", "/" + key)
+            if st != 200 or got != data:
+                wrong.append((key, st))
+        for key, data in everything.items():
+            for _ in range(3):
+                a = int(rng.integers(0, len(data)))
+                b = int(rng.integers(a, min(len(data), a + 3 * bs)))
+                st, _, got = c0.call("GET", "/" + key, headers={"Range": f"bytes={a}-{b}"})
+                if st != 206 or got != data[a:b + 1]:
+                    wrong.append((f"{key} {a}-{b}", st))
+        if wrong:
+            raise AssertionError(f"reads differ: {wrong[:5]}")
+
+        # paginated ListObjectsV2
+        listed, token, pages = [], None, 0
+        while True:
+            q = {"list-type": "2", "max-keys": "7"}
+            if token:
+                q["continuation-token"] = token
+            st, _, body = clients[3].call("GET", "/bkt", query=q)
+            root = ET.fromstring(body)
+            listed += [el.text for el in root.findall(".//s3:Contents/s3:Key", S3_NS)]
+            token = root.findtext(".//s3:NextContinuationToken", namespaces=S3_NS)
+            pages += 1
+            if root.findtext(".//s3:IsTruncated", namespaces=S3_NS) != "true":
+                break
+        if sorted(listed) != sorted(k[len("bkt/"):] for k in everything) \
+                or len(listed) != len(set(listed)):
+            raise AssertionError(f"listing: {len(listed)} keys in {pages} pages")
+        # refused: unsigned, and a lying payload hash (its object must not exist)
+        if c0.call("GET", "/" + keys[0], sign=False)[0] != 403:
+            raise AssertionError("an unsigned GET was not refused")
+        st, _, _ = c0.call("PUT", "/bkt/liar.bin", body=rng.bytes(1000),
+                           payload_hash=hashlib.sha256(b"other").hexdigest())
+        if st != 400 or c0.call("HEAD", "/bkt/liar.bin")[0] != 404:
+            raise AssertionError(f"lying payload hash: {st}, or its object exists")
+        for c in clients:
+            c.close()
+        tenants = gw.plane.stats()["tenants"]
+
+        # stop the gateway, close its vfs, store (the indexer drains) and session
+        gw.stop()
+        ix = store.indexer.stats()
+        vfs.close()
+        store.close()
+        m.close_session()
+        m.client.close()
+        gw = vfs = m = None
+        serve_launches = launches()
+        index_batches = stage_count("gpu.index.batch") - batches0
+        written = put_count() - puts0
+        print(f"gateway: {len(keys)} PUTs of {per_object * bs >> 20} MiB from {len(clients)} "
+              f"clients in {put_s:.3f} s = {nbytes / (1 << 30) / put_s:.4f} GiB/s, "
+              f"{len(keys) / put_s:.2f} ops/s; GET {nbytes / (1 << 30) / get_s:.4f} GiB/s; "
+              f"listing {len(listed)} keys in {pages} pages; tenants {tenants}; card {smi}")
+        print(f"gateway indexer {json.dumps(ix)}; {written} blocks written, "
+              f"{index_batches} index batches, {serve_launches} launches; card {smi}")
+        print(f"gateway PUT stage seconds {json.dumps(put_stages)}; card {smi}")
+        if ix["errors"] != 0:
+            raise AssertionError(f"indexer errors {ix['errors']}")
+        if ix["blocks"] + ix["dropped"] != written or written < len(blocks) + 7:
+            raise AssertionError(f"indexer blocks {ix['blocks']} + dropped {ix['dropped']} "
+                                 f"!= {written} written")
+        if index_batches == 0 or serve_launches != index_batches:
+            raise AssertionError(f"{serve_launches} launches for {index_batches} index batches")
+
+        # 2. the SDK on the same volume: read every object back, then write
+        # one file as 64 flushed 1 MiB pieces (one slice each)
+        kernels.reset_launches()
+        batches0 = stage_count("gpu.index.batch")
+        puts0 = put_count()
+        mid = sdk.jfs_init(meta_url)
+        if mid <= 0:
+            raise AssertionError(f"jfs_init: {mid}")
+        t0 = time.perf_counter()
+        sdk_bytes = 0
+        for key, data in everything.items():
+            fd = sdk.jfs_open(mid, "/" + key, os.O_RDONLY, 0)
+            got = sdk.jfs_pread(mid, fd, 0, len(data) + 1)
+            sdk.jfs_close(mid, fd)
+            st = sdk.jfs_stat(mid, "/" + key)
+            if fd <= 0 or got != data or st[0] != len(data):
+                raise AssertionError(f"SDK read of {key} differs")
+            sdk_bytes += len(data)
+        sdk_read_s = time.perf_counter() - t0
+        pieces = rng.bytes(64 << 20)
+        if sdk.jfs_mkdir(mid, "/bkt/sdk", 0o755) != 0:
+            raise AssertionError("jfs_mkdir")
+        fd = sdk.jfs_open(mid, "/bkt/sdk/pieces.bin", os.O_CREAT | os.O_RDWR, 0o644)
+        if fd <= 0:
+            raise AssertionError(f"jfs_open: {fd}")
+        t0 = time.perf_counter()
+        for i in range(64):
+            if sdk.jfs_pwrite(mid, fd, i << 20, pieces[i << 20:(i + 1) << 20]) != 1 << 20 \
+                    or sdk.jfs_flush(mid, fd) != 0:
+                raise AssertionError(f"SDK write of piece {i}")
+        sdk_write_s = time.perf_counter() - t0
+        sdk.jfs_close(mid, fd)
+        sdk_ix = sdk._mounts[mid][1].store.indexer
+        if sdk.jfs_term(mid) != 0:
+            raise AssertionError("jfs_term")
+        sdk_ix = sdk_ix.stats()
+        sdk_launches = launches()
+        sdk_batches = stage_count("gpu.index.batch") - batches0
+        sdk_written = put_count() - puts0
+        print(f"SDK: read {sdk_bytes / (1 << 30):.4f} GiB in {sdk_read_s:.3f} s = "
+              f"{sdk_bytes / (1 << 30) / sdk_read_s:.4f} GiB/s; 64 flushed 1 MiB pieces in "
+              f"{sdk_write_s:.3f} s; indexer {json.dumps(sdk_ix)}, {sdk_batches} batches, "
+              f"{sdk_launches} launches; card {smi}")
+        if sdk_ix["errors"] or sdk_ix["blocks"] + sdk_ix["dropped"] != sdk_written \
+                or sdk_written != 64 or sdk_launches != sdk_batches:
+            raise AssertionError(f"SDK indexer {sdk_ix}: {sdk_written} written, "
+                                 f"{sdk_launches} launches for {sdk_batches} batches")
+        everything["bkt/sdk/pieces.bin"] = pieces
+
+        # 3. what gc --compact --dedup must do, read from the meta first:
+        # fragmented chunks merge into new slices the index lacks; the other
+        # live blocks the index lacks are the ones the indexers dropped.
+        # Files the gateway removed (multipart parts, the lying PUT's temp)
+        # keep their slices until the session's cleanup runs: run it now,
+        # so that gc sees only what the volume's files hold
+        meta = new_client(meta_url)
+        meta.cleanup_deleted_files()
+        indexed = {(sid, indx) for sid, indx, _b, _d in meta.scan_block_digests()}
+        fragmented, missing = 0, set()
+        merged_blocks = 0
+        for _key, slcs in meta.list_chunks():
+            if len(slcs) >= 2:
+                view = build_slice(slcs)
+                fragmented += 1
+                merged_blocks += -(-(view[-1].pos + view[-1].len) // bs)
+                continue
+            for s in slcs:
+                for i in range(-(-s.size // bs) if s.id else 0):
+                    if (s.id, i) not in indexed:
+                        missing.add((s.id, i))
+        meta.client.close()
+        want_hashed = merged_blocks + len(missing)
+        index_path = os.path.join(base, "dedup-index.json")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["gc", meta_url, "--compact", "--dedup", "--threads", "16",
+                          "--dedup-index", index_path])
+        gc_s = time.perf_counter() - t0
+        gc_launches = launches()
+        lines = out.strip().splitlines()
+        if rc != 0 or lines[0] != f"compacted {fragmented} chunks" or fragmented < 1 \
+                or not lines[1].endswith(" 0 missing"):
+            raise AssertionError(f"gc rc {rc}: {lines[:2]}; {fragmented} fragmented chunks")
+        gc = json.loads(lines[-1])
+        if gc["hashed_now"] != want_hashed or gc_launches != -(-want_hashed // 32):
+            raise AssertionError(f"gc hashed {gc['hashed_now']} in {gc_launches} launches; want "
+                                 f"{merged_blocks} merged + {len(missing)} dropped blocks, "
+                                 f"one launch per 32")
+        if gc["duplicate_blocks"] != planted + 2:  # part 3 repeats part 1's 2 blocks
+            raise AssertionError(f"gc found {gc['duplicate_blocks']} duplicates, planted "
+                                 f"{planted} + 2")
+
+        # the index == the numpy spec for every live block; every file is
+        # now one slice per chunk, so a block's bytes are the file's
+        meta = new_client(meta_url)
+        live_bytes = {}
+        ctx = Context(uid=0, gid=0)
+        for key, data in everything.items():
+            ino = 1
+            for part in key.split("/"):
+                st, ino, _ = meta.lookup(ctx, ino, part.encode())
+                if st:
+                    raise AssertionError(f"lookup {key}: errno {st}")
+            for indx in range(-(-len(data) // CHUNK_SIZE)):
+                st, slcs = meta.read_chunk(ino, indx)
+                if st or len(slcs) != 1 or slcs[0].pos or slcs[0].off:
+                    raise AssertionError(f"{key} chunk {indx}: {len(slcs)} slices after gc")
+                s = slcs[0]
+                for i in range(-(-s.size // bs)):
+                    chunk = data[indx * CHUNK_SIZE + i * bs:indx * CHUNK_SIZE + (i + 1) * bs]
+                    live_bytes[block_key(s.id, i, len(chunk))] = chunk
+        meta.client.close()
+        index = json.load(open(index_path))
+        keys_sorted = sorted(live_bytes)
+        spec = {}
+        for i in range(0, len(keys_sorted), 16):
+            group = keys_sorted[i:i + 16]
+            for k, d in zip(group, hash_blocks_np([live_bytes[k] for k in group])):
+                spec[k] = d.hex()
+        if index != spec:
+            raise AssertionError(f"dedup index ({len(index)} rows) != numpy spec "
+                                 f"({len(spec)} live blocks)")
+        # the compacted file reads back the same bytes
+        mid = sdk.jfs_init(meta_url)
+        fd = sdk.jfs_open(mid, "/bkt/sdk/pieces.bin", os.O_RDONLY, 0)
+        same = sdk.jfs_pread(mid, fd, 0, len(pieces) + 1) == pieces
+        sdk.jfs_close(mid, fd)
+        sdk.jfs_term(mid)
+        if not same:
+            raise AssertionError("the compacted file reads back other bytes")
+
+        # 4. fsck --verify-data
+        hash_path = os.path.join(base, "hash-index.json")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["fsck", meta_url, "--verify-data", "--hash-index", hash_path])
+        fsck_s = time.perf_counter() - t0
+        fsck_launches = launches()
+        n_live = len(live_bytes)
+        if rc != 0 or f"verified {n_live} blocks (cuda)" not in out \
+                or "0 digest mismatches" not in out or fsck_launches != -(-n_live // 32) \
+                or json.load(open(hash_path)) != index:
+            raise AssertionError(f"fsck rc {rc}, {fsck_launches} launches for {n_live} blocks")
+
+        # 5. the gateway subcommand as a process
+        proc = gateway_cli_run(meta_url, rng)
+
+        # the kernel at the gateway's mean index batch, resident, timed alone
+        m_lanes = bs // LANE_BYTES
+        batch_blocks = max(1, round(ix["blocks"] / max(1, index_batches)))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(int(rng.integers(1 << 31)))
+        words = random_words(gen, batch_blocks * m_lanes)
+        hash_torch.row_chain(words, m_lanes, 1)  # warm-up
+        batch_ms = time_cuda(lambda i: hash_torch.row_chain(words, m_lanes, 0x3000 + i), 10)
+        batch_bound_ms, batch_bound_by = row_chain_bound_ms(batch_blocks * m_lanes, smi)
+        del words
+        print(f"gates ok: every PUT 200, ETags == spec, GET/Range/SDK reads exact, "
+              f"{len(listed)} keys listed, 403 unsigned, 400 + absent on a lying hash; "
+              f"indexed + dropped == written, one launch per index batch; compacted "
+              f"{fragmented} chunks, gc hashed {want_hashed} ({merged_blocks} merged + "
+              f"{len(missing)} dropped) in {gc_launches} launches, {gc['duplicate_blocks']} "
+              f"duplicates, index == spec; fsck {n_live} blocks, 0 mismatches; gateway "
+              f"process ready in {proc['ready_seconds']:.3f} s, exit 0 on SIGTERM")
+        print(f"serve: gc --compact --dedup {gc_s:.3f} s (dedup_scan {gc['seconds']} s, so "
+              f"compaction and listing {gc_s - gc['seconds']:.3f} s), fsck --verify-data "
+              f"{fsck_s:.3f} s ({n_live} blocks); indexer busy {ix['busy_seconds']} s, "
+              f"{ix['dropped']} dropped; row_chain on a resident {batch_blocks}-block "
+              f"batch {batch_ms:.4f} ms, bound {batch_bound_ms:.4f} ms ({batch_bound_by}) = "
+              f"{batch_bound_ms / batch_ms:.3f} of bound; phase "
+              f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"put_gibs": nbytes / (1 << 30) / put_s, "put_ops": len(keys) / put_s,
+                "get_gibs": nbytes / (1 << 30) / get_s,
+                "sdk_read_gibs": sdk_bytes / (1 << 30) / sdk_read_s,
+                "indexer": ix, "index_batches": index_batches, "gc_seconds": gc_s,
+                "fsck_seconds": fsck_s, "gc": gc, "batch_kernel_ms": batch_ms,
+                "launches": {"serve_index": serve_launches, "serve_sdk": sdk_launches,
+                             "serve_gc": gc_launches, "serve_fsck": fsck_launches}}
+    finally:
+        if gw is not None:
+            gw.stop()
+        if vfs is not None:
+            vfs.close()
+            vfs.store.close()
+        if m is not None:
+            m.close_session()
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -892,19 +1426,24 @@ def main(argv=None) -> int:
     conc = concurrent_ingest_phase(rng, args.volume_gib)
     estimator_phase(rng)
     main_path = main_path_phase(rng, args.volume_gib, kind)
+    serve = serve_phase(rng, args.volume_gib, smi)
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
                "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"],
                "ingest_concurrent": conc["launches"]["jth256_row_chain"],
-               **main_path["launches"]}
+               **main_path["launches"], **serve["launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
-          "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck)")
-    if by_path["index"] == 0 or by_path["fsck"] == 0:
-        raise AssertionError("the indexed write or fsck launched no row-chain kernel")
+          "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck; then the "
+          "gateway's index batches, the SDK's, gc --compact --dedup, fsck); card " + smi)
+    if by_path["index"] == 0 or by_path["fsck"] == 0 or by_path["serve_index"] == 0:
+        raise AssertionError("the indexed write, fsck or the gateway launched no row-chain "
+                             "kernel")
     print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s (1 writer), "
           f"{conc['gibs']:.4f} GiB/s (4 writers); scan {scan['gibs']} GiB/s; indexed "
           f"write {main_path['write_gibs']:.4f} GiB/s, gc --dedup {main_path['gc_seconds']:.3f} "
-          f"s, fsck --verify-data {main_path['fsck_gibs']:.4f} GiB/s")
+          f"s, fsck --verify-data {main_path['fsck_gibs']:.4f} GiB/s; gateway PUT "
+          f"{serve['put_gibs']:.4f} GiB/s ({serve['put_ops']:.2f} ops/s), GET "
+          f"{serve['get_gibs']:.4f} GiB/s, SDK read {serve['sdk_read_gibs']:.4f} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",

@@ -1,8 +1,8 @@
 """Command line of the port (a copy of juicefs_tpu/cmd/__init__.py;
 reference: cmd/).
 
-`python -m juicefs_tpu_torch.cmd <command>` runs the admin commands ported
-so far: `format`, `gc` and `fsck`. Each command module exposes
+`python -m juicefs_tpu_torch.cmd <command>` runs the commands ported so
+far: `format`, `gc`, `fsck` and `gateway`. Each command module exposes
 `add_parser(sub)` and a `run(args)`.
 
 Shared plumbing here: open the meta client, load the volume Format, build
@@ -56,10 +56,21 @@ def storage_for(fmt: Format):
 
 def chunk_conf(fmt: Format, args=None) -> ChunkConfig:
     """The chunk store's config from the volume Format and the options of
-    the ported commands (`--compress-backend`; `cache_size` MiB for a
-    caller that builds a store itself). The reference's mount options
-    (cache dirs, writeback, limits, resilience knobs) come with `mount`."""
-    conf = ChunkConfig(block_size=fmt.block_size * 1024, compress=fmt.compression)
+    the ported commands (`--cache-dir`, `--cache-size` MiB, `--writeback`,
+    `--compress-backend`). The reference's other mount options (limits,
+    resilience knobs, compress lanes, the dedup bypass) come with `mount`."""
+    cache_dirs = ("memory",)
+    writeback = False
+    if args is not None:
+        if getattr(args, "cache_dir", None):
+            cache_dirs = tuple(str(args.cache_dir).split(":"))
+        writeback = bool(getattr(args, "writeback", False))
+    conf = ChunkConfig(
+        block_size=fmt.block_size * 1024,
+        compress=fmt.compression,
+        cache_dirs=cache_dirs,
+        writeback=writeback,
+    )
     if getattr(args, "cache_size", None):
         conf.cache_size = int(args.cache_size) << 20
     if getattr(args, "compress_backend", None):
@@ -116,7 +127,7 @@ def build_store(fmt: Format, args=None, meta=None,
 
 
 def main(argv: list[str] | None = None) -> int:
-    from . import format as format_cmd, fsck, gc
+    from . import format as format_cmd, fsck, gateway, gc
 
     parser = argparse.ArgumentParser(
         prog="juicefs-tpu-torch",
@@ -124,7 +135,7 @@ def main(argv: list[str] | None = None) -> int:
                     "content hashing on an NVIDIA GPU",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    for mod in (format_cmd, gc, fsck):
+    for mod in (format_cmd, gc, fsck, gateway):
         mod.add_parser(sub)
     args = parser.parse_args(argv)
     try:

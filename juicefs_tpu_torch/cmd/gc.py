@@ -13,10 +13,14 @@ content index of the meta engine); `store` needs `_load_block(key, bsize,
 cache_after=)` and `_bulk_pool` (an executor). A volume written by the JAX
 package is read as it stands: same block keys, same uint32-LE digest rows.
 
-Changes from the reference: `--compact` is not offered (vfs/compact.py is
-not ported); `--compress-backend` (default cuda) picks where the compress
-plane of the command's store runs, as it does for `mount`; a volume
-formatted with no hash backend is hashed on the card, not on the host.
+`--compact` first merges every fragmented chunk into one slice
+(vfs/compact.py); the merged slice's blocks are new to the content index,
+so a `--dedup` in the same run reads them back and hashes them.
+
+Changes from the reference: `--compress-backend` (default cuda) picks
+where the compress plane of the command's store runs, as it does for
+`mount`; a volume formatted with no hash backend is hashed on the card,
+not on the host.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def add_parser(sub):
     p = sub.add_parser("gc", help="collect leaked objects / dedup scan")
     p.add_argument("meta_url")
     p.add_argument("--delete", action="store_true", help="delete leaked objects")
+    p.add_argument("--compact", action="store_true", help="compact fragmented chunks")
     p.add_argument("--dedup", action="store_true", help="content-addressed dedup scan")
     p.add_argument("--hash-backend", default=None,
                    help="cpu|cuda (tpu|xla|pallas map to cuda; default: "
@@ -69,6 +74,12 @@ def run(args) -> int:
 
 def _run(args, m, fmt, store) -> int:
     bs = fmt.block_size * 1024
+
+    if args.compact:
+        from ..vfs.compact import compact_all
+
+        n = compact_all(m, store)
+        print(f"compacted {n} chunks")
 
     # live slice -> expected blocks
     slices = m.list_slices()

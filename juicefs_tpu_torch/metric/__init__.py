@@ -2,17 +2,20 @@
 
 A copy of the three meter types of juicefs_tpu/metric (counter, gauge
 with lazily evaluated values, histogram with a timer) and the registry
-that renders them in the text exposition format. The port registers its meters here, in a registry of its own, so
-its `juicefs_torch_*` series never mix with the reference's.
+that renders them in the text exposition format, with the process gauges
+and the `/metrics` HTTP endpoint (`MetricsServer`) that `gateway
+--metrics` serves. The port registers its meters here, in a registry of
+its own, so its series never mix with the reference's.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Iterable
+from typing import Iterable, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry", "global_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsServer", "Registry",
+           "global_registry"]
 
 _DEFAULT_BUCKETS = (
     0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 60,
@@ -218,3 +221,86 @@ _global = Registry()
 
 def global_registry() -> Registry:
     return _global
+
+
+def register_process_metrics(reg: Optional[Registry] = None) -> None:
+    """CPU / memory / uptime gauges (reference pkg/metric/metrics.go:34-56)."""
+    import os
+    import resource
+
+    reg = reg or global_registry()
+    t0 = time.time()
+    reg.gauge("juicefs_uptime", "Seconds since process start").set_function(
+        lambda: time.time() - t0
+    )
+    reg.gauge("juicefs_cpu_usage", "Accumulated process CPU seconds").set_function(
+        lambda: (lambda r: r.ru_utime + r.ru_stime)(
+            resource.getrusage(resource.RUSAGE_SELF)
+        )
+    )
+    reg.gauge("juicefs_memory", "Peak RSS in bytes").set_function(
+        lambda: resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    )
+    reg.gauge("juicefs_pid", "Process id").set_function(os.getpid)
+
+
+class MetricsServer:
+    """HTTP /metrics endpoint for a registry
+    (reference exposeMetrics cmd/mount.go:84: pull-based Prometheus).
+
+    Binds host:port (port 0 picks a free one — exposed via .port) and
+    serves the text exposition format from a daemon thread.
+    """
+
+    @classmethod
+    def from_addr(cls, addr: str, registry: Optional[Registry] = None,
+                  with_process_metrics: bool = True) -> "MetricsServer":
+        """Parse 'host:port' / ':port' / 'port', validate, register the
+        process gauges, and start serving."""
+        host, _, port = addr.rpartition(":")
+        if not port.isdigit():
+            raise ValueError(
+                f"--metrics expects host:port or port, got {addr!r}"
+            )
+        if with_process_metrics:
+            register_process_metrics(registry)
+        return cls(registry, host=host or "127.0.0.1", port=int(port)).start()
+
+    def __init__(self, registry: Optional[Registry] = None,
+                 host: str = "127.0.0.1", port: int = 0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        reg = registry or global_registry()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib API)
+                if self.path.split("?")[0] not in ("/metrics", "/"):
+                    self.send_error(404)
+                    return
+                body = reg.render().encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type", "text/plain; version=0.0.4; charset=utf-8"
+                )
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):  # quiet
+                pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self.host, self.port = self._httpd.server_address[:2]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="metrics", daemon=True
+        )
+
+    def start(self) -> "MetricsServer":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()  # blocks until serve_forever exits
+        if self._thread.is_alive():
+            self._thread.join(timeout=10.0)
+        self._httpd.server_close()
