@@ -7,9 +7,16 @@ Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. device   require CUDA; print the card's name and power limit; load
               liblz4 (the ingest phase compresses with it)
-  2. build    compile the row-chain kernel from the repo's sources (sm_90a)
+  2. build    compile the row-chain kernel from the repo's sources (sm_90a);
+              the process-wide sharding plane (gpu/sharding.py get_plane)
+              must be the one-card rung: devices 1, no mesh, no degrade
+              counted. Phases 5-13 run through it (gc, ingest, the
+              estimator, the indexer, fsck, the gateway and the mount all
+              take device=None), and their one-launch-per-batch gates hold
+              on that rung
   3. kernel   row_chain (CUDA) == row_chain_ref (plain torch) bit for bit,
-              on the main path's batch shapes and on ragged lane counts
+              on the main path's batch shapes and on ragged lane counts,
+              at lane offsets 0, 32 and 1000
   4. digests  verify_backend() on the card == numpy spec; scan_step on a
               packed batch == numpy spec + dedup_digests
   5. scan     the main path: `gc --dedup` scan (cmd/gc.py dedup_scan, cuda
@@ -87,6 +94,21 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               `umount` and the process exit 0. Every request reaches the
               server through the kernel: /dev/fuse, mounted by fusermount
               where it exists, else by mount(2) as root; the run prints which.
+  14. shard   the sharding plane's programs on meshes that list the one
+              card several times, on phase 5's plan (257 x 4 MiB, ragged
+              tail, ~25% duplicates) packed once: hash, scan (digests, dup,
+              first) and estimator on ShardPlane([cuda:0] * k), k = 2, 4, 8
+              (2x1, 2x2, 4x2 meshes), each equal bit for bit to the
+              one-card plane, one placement per batch and one launch per
+              mesh device per batch; k = 3 degrades (counted) and still
+              agrees; sharded_scan_many (10 iterations, tweak in the
+              kernel) on 1x1 and 2x2 meshes of the first 256 blocks gives
+              one checksum; then multichip.dryrun_multichip on the 2x2 mesh
+              at the same size: inline ingest into an lz4 volume and a cold
+              gc --dedup scan with its three gates (scan rows == ingest
+              rows, sampled rows == numpy spec, duplicates == planted),
+              every hashed block estimated from the pack split over the
+              mesh with no compress degrade, and 4 launches per hash batch
 
 It prints a `{"kernels": [...]}` line and, as its last line,
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or juicefs_tpu.
@@ -127,7 +149,7 @@ from juicefs_tpu_torch.cmd import mount as mount_cmd
 from juicefs_tpu_torch.cmd.gc import dedup_scan
 from juicefs_tpu_torch.compress import new_compressor
 from juicefs_tpu_torch.fuse.mount import umount as fuse_umount
-from juicefs_tpu_torch.gpu import compress_batch, hash_torch, kernels
+from juicefs_tpu_torch.gpu import compress_batch, hash_torch, kernels, sharding
 from juicefs_tpu_torch.gpu.dedup import dedup_digests, scan_step
 from juicefs_tpu_torch.gpu.jth256 import (
     BLOCK_BYTES,
@@ -135,6 +157,7 @@ from juicefs_tpu_torch.gpu.jth256 import (
     LANE_BYTES,
     ROWS,
     digest_hex,
+    digests_to_bytes,
     hash_blocks_np,
     hash_packed_np,
     jth256,
@@ -147,6 +170,7 @@ from juicefs_tpu_torch.meta.context import Context
 from juicefs_tpu_torch.meta.slice import build_slice
 from juicefs_tpu_torch.metric import global_registry
 from juicefs_tpu_torch.metric.trace import stage_metrics_snapshot
+from juicefs_tpu_torch.multichip import dryrun_multichip
 from juicefs_tpu_torch.object.file import FileStorage
 from juicefs_tpu_torch.object.s3 import SigV4
 
@@ -257,21 +281,40 @@ def kernel_phase(gen: torch.Generator) -> int:
     phase("kernel vs plain")
     worst = 0
     # (lanes, m): the main path's full batch (32 blocks x 64 lanes) and its
-    # one-block tail batch, then lane counts that are not multiples of 16
+    # one-block tail batch, then lane counts that are not multiples of 16;
+    # each with lane offsets as the lane-split meshes of phase 14 pass them
     for n_lanes, m in ((2048, 64), (64, 64), (37, 1), (150, 2), (201, 64)):
         words = random_words(gen, n_lanes)
+        errs = []
         for tweak in (0, 0x5BD1E995):
-            got = hash_torch.row_chain(words, m, tweak)
-            torch.cuda.synchronize()
-            if hash_torch.last_kernel_mode() != "cuda":
-                raise AssertionError("row_chain on a CUDA tensor did not run the kernel")
-            want = hash_torch.row_chain_ref(words, m, tweak)
-            err = max_abs_err(got, want)
-            print(f"row_chain L={n_lanes} m={m} tweak={tweak:#x}: max_abs_err {err}")
-            if err != 0:
-                raise AssertionError(f"row_chain != row_chain_ref at L={n_lanes} m={m}")
-            worst = max(worst, err)
+            for loff in (0, 32, 1000):
+                got = hash_torch.row_chain(words, m, tweak, loff)
+                torch.cuda.synchronize()
+                if hash_torch.last_kernel_mode() != "cuda":
+                    raise AssertionError("row_chain on a CUDA tensor did not run the kernel")
+                want = hash_torch.row_chain_ref(words, m, tweak, loff)
+                err = max_abs_err(got, want)
+                if err != 0:
+                    raise AssertionError(f"row_chain != row_chain_ref at L={n_lanes} m={m} "
+                                         f"tweak={tweak:#x} lane_offset={loff}")
+                errs.append(err)
+        print(f"row_chain L={n_lanes} m={m}, tweak 0 / 0x5bd1e995 x lane_offset "
+              f"0 / 32 / 1000: max_abs_err {max(errs)}")
+        worst = max(worst, max(errs))
     return worst
+
+
+def plane_phase() -> dict:
+    """The process-wide sharding plane that phases 5-13 run through must be
+    the one-card rung: one device, no mesh, nothing degraded."""
+    plane = sharding.get_plane()
+    snap = plane.snapshot()
+    print(f"shard plane over {[str(d) for d in plane.devices]}: {json.dumps(snap)}")
+    if snap != {"devices": 1, "mesh": None, "degraded": True, "reason": "single device"} \
+            or counter_value("juicefs_torch_shard_degraded") != 0:
+        raise AssertionError(f"the process plane is not the one-card rung: {snap} "
+                             "(phases 5-13 gate one launch per hash batch on it)")
+    return snap
 
 
 def digests_phase(rng: np.random.Generator) -> None:
@@ -361,6 +404,8 @@ def scan_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         if scan["duplicate_blocks"] != planted:
             raise AssertionError(
                 f"duplicate_blocks {scan['duplicate_blocks']} != planted {planted}")
+        if scan["shard"] != sharding.get_plane().snapshot():
+            raise AssertionError(f"gc --dedup ran off the process plane: {scan['shard']}")
         print(f"gates ok: {len(live)} blocks hashed, sampled rows == spec, "
               f"{planted} duplicates found; scan {scan['gibs']} GiB/s, "
               f"stage_seconds {json.dumps(scan['stage_seconds'])}")
@@ -498,6 +543,8 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
         store.content_refs = refs
         store.ingest = IngestPipeline(store, refs, backend="cuda", batch_blocks=32,
                                       bypass=False)
+        if store.ingest._batcher.pipe.plane is not sharding.get_plane():
+            raise AssertionError("inline ingest does not hash on the process plane")
 
         def write(item):
             sid, chunk = item
@@ -1209,11 +1256,13 @@ def serve_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
             c.close()
         tenants = gw.plane.stats()["tenants"]
 
-        # stop the gateway, close its vfs, store (the indexer drains) and session
+        # stop the gateway, close its vfs, store (the indexer drains) and
+        # session; the indexer's counts are read after the drain, so blocks
+        # still queued at the stop are counted
         gw.stop()
-        ix = store.indexer.stats()
         vfs.close()
         store.close()
+        ix = store.indexer.stats()
         m.close_session()
         m.client.close()
         gw = vfs = m = None
@@ -1762,6 +1811,152 @@ def mount_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
+                smi: str) -> dict:
+    """Phase 14: the plane's programs on meshes that list the one card
+    several times, held bit for bit against the one-card plane on one
+    packed batch of phase 5's plan; sharded_scan_many at 1x1 and 2x2; the
+    multichip run on the 2x2 mesh. Returns launches by path and times."""
+    phase("shard: meshes over the card")
+    t_phase = time.perf_counter()
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                  3 * LANE_BYTES + 777)
+    n = len(blocks)
+    t0 = time.perf_counter()
+    packed = pack_blocks(blocks, pad_lanes=bs // LANE_BYTES)
+    print(f"packed {n} blocks ({packed[0].nbytes / (1 << 30):.4f} GiB of words, {planted} "
+          f"planted duplicates) in {time.perf_counter() - t0:.3f} s")
+
+    # the one-card plane's outputs, the reference of every mesh below
+    one = sharding.get_plane()
+    sp1 = one.put_packed(*packed)
+    want_h = one.hash_packed(*sp1, n=n)
+    want_d, want_dup, want_first = one.scan_packed(*sp1, n=n)
+    want_est = one.make_estimator()(sp1[0], sp1[1])[:n]
+    torch.cuda.synchronize()
+    del sp1
+    want_bytes = digests_to_bytes(want_h)
+    for i in list(range(0, n, max(1, n // 8))) + [n - 1]:
+        if want_bytes[i] != jth256(blocks[i]):
+            raise AssertionError(f"block {i}: one-card digest != numpy spec")
+    hdup, hfirst = dedup_digests(want_bytes)
+    if int(want_dup.sum()) != planted or not (np.array_equal(want_dup, hdup)
+                                               and np.array_equal(want_first, hfirst)):
+        raise AssertionError(f"one-card scan: {int(want_dup.sum())} duplicates, "
+                             f"planted {planted}")
+
+    card = torch.device("cuda", 0)
+    by_path = {"shard_hash": 0, "shard_scan": 0}
+    meshes = {}
+    deg0 = counter_value("juicefs_torch_shard_degraded")
+    for k in (2, 4, 8, 3):
+        plane = sharding.ShardPlane([card] * k)
+        snap = plane.snapshot()
+        want_mesh = {2: {"data": 2, "lane": 1}, 4: {"data": 2, "lane": 2},
+                     8: {"data": 4, "lane": 2}, 3: None}[k]
+        if snap["mesh"] != want_mesh:
+            raise AssertionError(f"[cuda:0] * {k}: mesh {snap['mesh']}, want {want_mesh}")
+        ndev = k if plane.mesh is not None else 1
+        h2d0 = counter_value("juicefs_torch_shard_h2d_batches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp = plane.put_packed(*packed)
+        torch.cuda.synchronize()
+        put_ms = (time.perf_counter() - t0) * 1e3
+        if counter_value("juicefs_torch_shard_h2d_batches") != h2d0 + 1 or sp.batch != n:
+            raise AssertionError(f"[cuda:0] * {k}: not one placement of {n} blocks")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got_h = plane.hash_packed(*sp, n=n)
+        hash_ms = (time.perf_counter() - t0) * 1e3
+        hash_launches = launches()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got_d, got_dup, got_first = plane.scan_packed(*sp, n=n)
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        scan_launches = launches()
+        t0 = time.perf_counter()
+        got_est = plane.make_estimator()(sp[0], sp[1])[:n]
+        torch.cuda.synchronize()
+        est_ms = (time.perf_counter() - t0) * 1e3
+        if hash_launches != ndev or scan_launches != ndev:
+            raise AssertionError(f"[cuda:0] * {k}: {hash_launches} / {scan_launches} launches "
+                                 f"for one hash / scan batch on {ndev} mesh devices")
+        if not (np.array_equal(got_h, want_h) and np.array_equal(got_d, want_d)
+                and np.array_equal(got_dup, want_dup)
+                and np.array_equal(got_first, want_first)):
+            raise AssertionError(f"[cuda:0] * {k}: digests or verdicts != the one-card plane")
+        if not torch.equal(got_est, want_est):
+            raise AssertionError(f"[cuda:0] * {k}: estimator != the one-card plane")
+        by_path["shard_hash"] += hash_launches
+        by_path["shard_scan"] += scan_launches
+        meshes[k] = {"snapshot": snap, "put_ms": put_ms, "hash_ms": hash_ms,
+                     "scan_ms": scan_ms, "estimate_ms": est_ms,
+                     "launches": hash_launches + scan_launches}
+        print(f"[cuda:0] * {k}: {json.dumps(snap)}; place {put_ms:.3f} ms, hash "
+              f"{hash_ms:.3f} ms, scan {scan_ms:.3f} ms, estimate {est_ms:.3f} ms; "
+              f"{hash_launches} + {scan_launches} launches; == one-card plane")
+        del sp
+    if counter_value("juicefs_torch_shard_degraded") != deg0 + 1:
+        raise AssertionError("the odd count must be the one counted degrade")
+
+    # sharded_scan_many: the benchmark form, tweak k inside the kernel;
+    # 256 blocks (1 GiB) split evenly over both meshes, so no pad row
+    # enters the checksum
+    n_even = n - n % 4
+    sub = tuple(a[:n_even] for a in packed)
+    many = {}
+    for d, lane in ((1, 1), (2, 2)):
+        mesh = sharding.make_mesh(d, lane, [card] * (d * lane))
+        placed = sharding.shard_batch(mesh, *sub)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        chk = sharding.sharded_scan_many(mesh)(*placed, 10)
+        ms = (time.perf_counter() - t0) * 1e3 / 10
+        nl = launches()
+        if nl != 10 * d * lane:
+            raise AssertionError(f"scan_many {d}x{lane}: {nl} launches, want {10 * d * lane}")
+        many[f"{d}x{lane}"] = {"checksum": chk, "ms_per_iter": ms, "launches": nl}
+        del placed
+    if many["1x1"]["checksum"] != many["2x2"]["checksum"]:
+        raise AssertionError(f"sharded_scan_many checksums differ: {many}")
+    by_path["shard_many"] = sum(v["launches"] for v in many.values())
+    print(f"sharded_scan_many over {n_even} blocks, 10 iterations: checksum "
+          f"{many['1x1']['checksum']:#010x} at 1x1 and 2x2; "
+          f"{many['1x1']['ms_per_iter']:.3f} ms / iteration at 1x1, "
+          f"{many['2x2']['ms_per_iter']:.3f} at 2x2 (phase 6 kernel alone: "
+          f"{timing['ms']:.4f} ms per 1 GiB); card {smi}")
+
+    # the multichip run on the 2x2 mesh over the card, at the same size
+    kernels.reset_launches()
+    mc = dryrun_multichip([card] * 4, gib=volume_gib, block_mib=bs >> 20)
+    total = launches()
+    scan_batches = -(-mc["blocks"] // 32)
+    ingest_batches = mc["h2d_batches"] - scan_batches
+    if mc["mesh"] != {"data": 2, "lane": 2} or mc["degraded"] or not mc["identity_ok"]:
+        raise AssertionError(f"multichip: {mc}")
+    ing = mc["ingest"]
+    if ing["estimated"] != ing["hashed"] or ing["compress_degraded"] != 0:
+        raise AssertionError(f"multichip estimator: {ing}")
+    if mc["ingest"]["launches"] + mc["scan"]["launches"] != total \
+            or mc["scan"]["launches"] != 4 * scan_batches \
+            or mc["ingest"]["launches"] != 4 * ingest_batches or ingest_batches <= 0:
+        raise AssertionError(f"multichip launches {mc['ingest']['launches']} + "
+                             f"{mc['scan']['launches']} (of {total}) for {ingest_batches} "
+                             f"ingest and {scan_batches} scan batches on 4 mesh devices")
+    by_path["multichip_ingest"] = mc["ingest"]["launches"]
+    by_path["multichip_scan"] = mc["scan"]["launches"]
+    print(f"gates ok: meshes 2x1, 2x2, 4x2 == one-card plane bit for bit, odd count "
+          f"degraded and counted, scan_many checksums equal; multichip 2x2: ingest "
+          f"{mc['ingest']['gibs']} GiB/s in {ingest_batches} batches ({ing['estimated']} "
+          f"of {ing['hashed']} hashed blocks estimated on the mesh), cold scan "
+          f"{mc['scan']['gibs']} GiB/s, {mc['duplicate_blocks']} duplicates; phase "
+          f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
+    return {"launches": by_path, "meshes": meshes, "scan_many": many, "multichip": mc}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1771,6 +1966,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi, kind = device_phase()
     build_phase()
+    plane_phase()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -1785,15 +1981,23 @@ def main(argv=None) -> int:
     main_path = main_path_phase(rng, args.volume_gib, kind)
     serve = serve_phase(rng, args.volume_gib, smi)
     mount = mount_phase(rng, args.volume_gib, smi)
+    placements = counter_value("juicefs_torch_shard_h2d_batches")
+    if counter_value("juicefs_torch_shard_degraded") != 0:
+        raise AssertionError("the process plane degraded during phases 5-13")
+    print(f"phases 5-13 on the one-card plane: {int(placements)} placements, 0 degraded")
+    shard = shard_phase(rng, args.volume_gib, timing, smi)
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
                "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"],
                "ingest_concurrent": conc["launches"]["jth256_row_chain"],
-               **main_path["launches"], **serve["launches"], **mount["launches"]}
+               **main_path["launches"], **serve["launches"], **mount["launches"],
+               **shard["launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
           "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck; then the "
           "gateway's index batches, the SDK's, gc --compact --dedup, fsck; then the "
-          "mount's ingest and index batches, fsck and the mount process); card " + smi)
+          "mount's ingest and index batches, fsck and the mount process; then the "
+          "sharded hash and scan over 2x1, 2x2, 4x2 and the odd 3, scan_many, and the "
+          "multichip ingest and scan on 2x2); card " + smi)
     if by_path["index"] == 0 or by_path["fsck"] == 0 or by_path["serve_index"] == 0 \
             or by_path["mount_ingest"] == 0 or by_path["mount_process"] == 0:
         raise AssertionError("the indexed write, fsck, the gateway or a mount launched "

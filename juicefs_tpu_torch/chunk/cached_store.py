@@ -17,7 +17,8 @@ JAX package's so either package reads a volume the other wrote:
 Changes from the reference: `ChunkConfig.compress_backend` defaults to
 `cuda` (the compress plane's estimator on the card), and
 `ChunkConfig.device` names the store's one device: the compress plane
-checks it at construction (None: the card, which must exist) and an
+checks it at construction (None: the process-wide sharding plane over
+every card, which must exist) and an
 `IngestPipeline` attached to the store hashes there unless it is given a
 device of its own. The estimator itself runs wherever the shared pack
 was uploaded, so the two can never disagree into a second upload.
@@ -185,7 +186,8 @@ class ChunkConfig:
     compress_backend: str = "cuda"
     compress_lanes: int = 0
     # the store's device, for the cuda compress plane and (by default) an
-    # attached IngestPipeline: None = the card (raises without one);
+    # attached IngestPipeline: None = the sharding plane over every card
+    # (gpu/sharding.py get_plane; raises without one);
     # "cpu" = the plain torch path (tests)
     device: Optional[object] = None
     # adaptive elision bypass (chunk/bypass.py) on --inline-dedup mounts:

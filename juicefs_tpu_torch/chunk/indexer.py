@@ -19,9 +19,10 @@ are counted in stats()["dropped"], failed batches in stats()["errors"]
 (and logged at WARNING).
 
 Changes from the reference: the default backend is `cuda`, and `device=`
-is where it runs (None: the card; without one construction raises instead
-of falling back to the CPU). `device="cpu"` is the explicit request for
-the plain torch path, `backend="cpu"` for the host hash.
+is where it runs (None: the process-wide sharding plane over every card;
+without one construction raises instead of falling back to the CPU).
+`device="cpu"` is the explicit request for the plain torch path,
+`backend="cpu"` for the host hash.
 
 A volume formatted by the JAX package stores `hash_backend` as one of
 "" | cpu | tpu | xla | pallas. The port reads such a volume as it stands:

@@ -27,12 +27,13 @@ is an optimization, durability never waits for it.
 
 Changes from the reference: the default backend is `cuda`, and `device=`
 is where it runs (None: the store's `ChunkConfig.device`, and where that
-is None too, the card; without one construction raises instead of falling
-back to the CPU). Backend names go through `pipeline_backend`, so a
-reference mount's `xla` hashes on `cuda`. One packed upload per hash batch
-(`shard_packed`) feeds both the row-chain kernel (`hash_packed`) and the
-compress plane's estimator (`estimate_packed`), on the worker thread's
-stream. A failed upload, hash or estimate still degrades instead of
+is None too, the process-wide sharding plane over every card; without one
+construction raises instead of falling back to the CPU; `plane=` gives a
+plane of its own). Backend names go through `pipeline_backend`, so a
+reference mount's `xla` hashes on `cuda`. One packed placement per hash
+batch (`shard_packed`, through the sharding plane) feeds both the
+row-chain kernel (`hash_packed`) and the compress plane's estimator
+(`estimate_packed`), on the worker thread's stream. A failed upload, hash or estimate still degrades instead of
 failing a write, but it is logged at WARNING and counted: the batch's
 blocks in `errors` and `passthrough`, the estimator in the compress
 plane's `degraded`.
@@ -344,6 +345,7 @@ class IngestPipeline:
         governor: Optional[ElisionGovernor] = None,
         hot_bytes: int = 64 << 20,
         device=None,
+        plane=None,
     ):
         from ..gpu.pipeline import HashBatcher, HashPipeline, PipelineConfig
         from .indexer import pipeline_backend
@@ -369,6 +371,7 @@ class IngestPipeline:
                     pad_lanes=max(1, store.conf.block_size // 65536),
                 ),
                 device=device,
+                plane=plane,
             ),
             queue_blocks=queue_blocks,
             flush_timeout=flush_timeout,
@@ -557,7 +560,7 @@ class IngestPipeline:
         if raws and pipe.device_backend:
             # shared upload: ONE pack_blocks upload feeds the hash
             # digests AND the compress plane's estimator. `shard_packed`
-            # places the batch on the card once; a failure here degrades
+            # places the batch on the plane once; a failure here degrades
             # the whole batch in `_loop` (logged and counted) rather than
             # letting both consumers upload host arrays again
             from ..gpu.jth256 import pack_blocks

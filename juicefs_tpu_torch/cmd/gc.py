@@ -164,15 +164,16 @@ def _run(args, m, fmt, store) -> int:
 
 def dedup_scan(meta, store, live: dict[str, int], backend: str,
                index_path: str, block_size: int, threads: int = 8,
-               device=None, batch_blocks: int = 32) -> dict:
+               device=None, batch_blocks: int = 32, plane=None) -> dict:
     """Content-dedup scan over all live blocks.
 
     Incremental: digests already in the meta content index are trusted;
     only blocks missing from it are read back (up to `threads` GETs in
     flight, in input order) and hashed, and their rows are backfilled.
     Index rows of dead slices are pruned. `backend` is a pipeline backend
-    (cpu | cuda); `device` is where the cuda backend runs (None: the card,
-    which must exist).
+    (cpu | cuda); `device` is where the cuda backend runs (None: the
+    process-wide sharding plane over every card, which must exist; `plane`
+    a given plane). `shard` reports the plane's snapshot.
 
     Returns the reference's keys, `resilience` (the object plane's retry,
     breaker and hedge counters) included.
@@ -198,6 +199,7 @@ def dedup_scan(meta, store, live: dict[str, int], backend: str,
         PipelineConfig(backend=backend, batch_blocks=batch_blocks,
                        pad_lanes=max(1, block_size // LANE_BYTES)),
         device=device,
+        plane=plane,
     )
     window = max(1, threads)
     fstats = FetchStats()
@@ -267,6 +269,8 @@ def dedup_scan(meta, store, live: dict[str, int], backend: str,
             "meta_backfill": round(t_meta, 3),
             "dup_group": round(t_group, 3),
         },
+        # the sharding-plane geometry the hash batches ran on: device
+        # count, mesh axes, and whether the plane degraded to one device
         "shard": pipe.shard_snapshot(),
         "resilience": resilience_snapshot(),
     }

@@ -29,7 +29,12 @@ little-endian byte view of the sampled words, one `scatter_add_` into a
 and does no upload of its own: `estimate_packed` runs it where the
 shared pack already lies and refuses host arrays. Every bin holds an
 integer count below 2^24, so the float32 histogram is exact in any
-order; the entropy may differ from XLA's in the last ulp.
+order; the entropy may differ from XLA's in the last ulp. The estimator
+comes from the sharding plane (`ShardPlane.make_estimator`) and follows
+the pack it is given: for a pack split over a mesh each device
+histograms its own lanes (`byte_histogram`'s lane offset), the
+histograms are summed over the lane axis and `entropy_ratio` runs on the
+sum, so the sharded advisory equals the one-device one bit for bit.
 
 Degrades: a lane fan-out that cannot place work (scheduler closed, queue
 full under `nowait`) degrades that batch to the serial in-thread encode,
@@ -37,8 +42,9 @@ and an estimator failure is logged at WARNING and stops estimating. Both
 count in `degraded`. Unlike the reference, which falls back from its
 device backend to cpu at construction, an active `cuda` plane checks its
 device at construction and raises when there is no card (`device=None`
-means the card; tests pass `device="cpu"` for the plain torch path). The
-none-compressor plane does no device work and checks nothing.
+means the process-wide sharding plane over every card; tests pass
+`device="cpu"` for the plain torch path). The none-compressor
+plane does no device work and checks nothing.
 """
 
 from __future__ import annotations
@@ -52,7 +58,6 @@ import torch
 
 from ..metric import global_registry
 from ..utils import get_logger
-from .hash_torch import resolve_device
 
 logger = get_logger("gpu.compress")
 
@@ -92,31 +97,41 @@ class CompressBatchConfig:
     min_fanout_bytes: int = 64 << 10
 
 
-def byte_histogram(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
+def byte_histogram(words: torch.Tensor, lane_counts: torch.Tensor,
+                   lane_offset: int = 0) -> torch.Tensor:
     """Sampled byte histogram: int32 words (B, M, 128, 128) and lane counts
-    (B,) -> float32 (B, 256), on the words' device."""
+    (B,) -> float32 (B, 256), on the words' device. The M lanes are lanes
+    [lane_offset, lane_offset + M) of each block: a lane is counted when
+    its global index is below the block's lane count, so per-shard
+    histograms of a lane-split batch sum to the whole batch's."""
     b, m = words.shape[0], words.shape[1]
     sub = words[:, :, ::SAMPLE_STRIDE, ::SAMPLE_STRIDE].reshape(b, -1)
     # little-endian bytes of each sampled word, in word order: the same
     # order as the reference's stack of (w >> 8i) & 0xFF over i
     by = sub.contiguous().view(torch.uint8).to(torch.int64)  # (B, M*256)
     per_lane = by.shape[1] // m
-    lane = torch.arange(by.shape[1], device=words.device) // per_lane
+    first = lane_offset * per_lane
+    lane = torch.arange(first, first + by.shape[1], device=words.device) // per_lane
     counts = lane_counts.to(device=words.device, dtype=torch.int64)
     w = (lane[None, :] < counts[:, None]).to(torch.float32)
     h = torch.zeros((b, 256), dtype=torch.float32, device=words.device)
     return h.scatter_add_(1, by, w)
 
 
-def estimate(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
-    """Per-block compressibility estimate of a packed batch already on its
-    device: int32 words (B, M, 128, 128), lane counts (B,) -> float32 (B,)
-    predicted compressed-size fractions min(entropy / 8, 1)."""
-    h = byte_histogram(words, lane_counts)
+def entropy_ratio(h: torch.Tensor) -> torch.Tensor:
+    """float32 byte histograms (B, 256) -> predicted compressed-size
+    fractions min(entropy / 8, 1), float32 (B,)."""
     p = h / torch.clamp(h.sum(-1, keepdim=True), min=1.0)
     # 0 * log2(0) is NaN in the branch not taken; the where discards it
     ent = -torch.where(p > 0, p * torch.log2(p), torch.zeros_like(p)).sum(-1)
     return torch.clamp(ent / 8.0, max=1.0)
+
+
+def estimate(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
+    """Per-block compressibility estimate of a packed batch already on its
+    device: int32 words (B, M, 128, 128), lane counts (B,) -> float32 (B,)
+    predicted compressed-size fractions min(entropy / 8, 1)."""
+    return entropy_ratio(byte_histogram(words, lane_counts))
 
 
 def compress_backend(name: str) -> str:
@@ -138,10 +153,18 @@ class CompressPlane:
         self.config = config or CompressBatchConfig()
         self.config.backend = compress_backend(self.config.backend)
         self.device: Optional[torch.device] = None
-        self._estimating = False
+        self._est_fn = None
         if self.config.backend == "cuda" and self.active:
-            self.device = resolve_device(device)  # no card: raises
-            self._estimating = True
+            # the estimator comes off the sharding plane and follows the
+            # pack: sharded over the mesh the shared pack was split over
+            # (whichever plane split it), the one-device estimate
+            # otherwise, advisories identical either way. device=None is
+            # the process-wide plane, which raises without a card
+            from .sharding import plane_for
+
+            plane = plane_for(device)
+            self.device = plane.home
+            self._est_fn = plane.make_estimator()
         self._exec = None
         self.lanes = 0
         if self.active:
@@ -235,20 +258,28 @@ class CompressPlane:
 
     def estimate_packed(self, packed) -> None:
         """Advisory pass over the shared packed words: the ingest worker
-        calls this with the (words, lane_counts, lengths) tensors that
-        `HashPipeline.shard_packed` placed for the hash batch, on the same
-        thread and stream, and the estimate runs on their device. Host
-        arrays are refused (they would need a second upload). A failure
-        only costs the estimate, never the batch, and is logged and
-        counted."""
-        if not self._estimating:
+        calls this with the triple that `HashPipeline.shard_packed` placed
+        for the hash batch (device tensors, or a `ShardedPack` split over a
+        mesh), on the same thread and stream, and the estimate runs where
+        the words lie. Host arrays are refused (they would need a second
+        upload). A failure only costs the estimate, never the batch, and is
+        logged and counted."""
+        if self._est_fn is None:
             return
         try:
+            from .sharding import ShardedTensor
+
             words, counts, _lengths = packed
-            if not isinstance(words, torch.Tensor):
+            if not isinstance(words, (torch.Tensor, ShardedTensor)):
                 raise TypeError("estimate_packed takes the device tensors of "
                                 "shard_packed, not host arrays")
-            pred = estimate(words, counts.to(words.device)).cpu()
+            pred = self._est_fn(words, counts)
+            # a plane-placed pack was padded to the mesh's data-axis
+            # extent; slice the advisory back to the real batch
+            n = getattr(packed, "batch", None)
+            if n is not None:
+                pred = pred[:n]
+            pred = pred.cpu()
             with self._lock:
                 self.estimated += len(pred)
                 self.last_estimate = [round(float(p), 4) for p in pred]
@@ -256,7 +287,7 @@ class CompressPlane:
             logger.warning("compress estimate degraded: %s", e)
             self.degraded += 1
             _DEGRADED.inc()
-            self._estimating = False  # broken device: stop paying for retries
+            self._est_fn = None  # broken device: stop paying for retries
 
     def _account(self, sizes_in: list, sizes_out: list, batch=True) -> None:
         n_in, n_out = sum(sizes_in), sum(sizes_out)

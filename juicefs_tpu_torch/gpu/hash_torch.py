@@ -55,14 +55,22 @@ def last_kernel_mode() -> str | None:
     return _LAST_KERNEL_MODE
 
 
+def cuda_device_count() -> int:
+    """The number of local cards; without one this raises instead of
+    running on the CPU."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError(
+            "no CUDA device: the port does not fall back to the CPU; "
+            "pass device='cpu' to run the plain torch path")
+    return n
+
+
 def resolve_device(device=None) -> torch.device:
     """None means the card; without one that raises instead of running on
     the CPU. Pass device='cpu' to run the plain torch path."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port does not fall back to the CPU; "
-                "pass device='cpu' to run the plain torch path")
+        cuda_device_count()
         return torch.device("cuda")
     return torch.device(device)
 
@@ -105,15 +113,19 @@ def _check_words(words_flat: torch.Tensor, m: int) -> None:
         raise ValueError(f"m must be >= 1, got {m}")
 
 
-def row_chain_ref(words_flat: torch.Tensor, m: int, tweak: int = 0) -> torch.Tensor:
+def row_chain_ref(words_flat: torch.Tensor, m: int, tweak: int = 0,
+                  lane_offset: int = 0) -> torch.Tensor:
     """Plain torch row chain: int32 (L, 128, 128) -> int32 (L, 128) states.
 
-    Lane l starts from s[j] = P5 ^ j*P1 ^ (l mod m)*P3 and takes 128 row
-    steps s = (s ^ (W[r] ^ tweak))*P1; s = rotl(s,13)*P2; s ^= s>>15.
+    Lane l starts from s[j] = P5 ^ j*P1 ^ (lane_offset + l mod m)*P3 and
+    takes 128 row steps s = (s ^ (W[r] ^ tweak))*P1; s = rotl(s,13)*P2;
+    s ^= s>>15. `lane_offset` gives a device holding lanes
+    [lane_offset, lane_offset + m) of each block their global indices.
     """
     _check_words(words_flat, m)
     dev = words_flat.device
-    lanes = torch.arange(words_flat.shape[0], dtype=torch.int64, device=dev) % m
+    # _mul keeps the low 32 bits, so an offset past 2^32 wraps as in uint32
+    lanes = torch.arange(words_flat.shape[0], dtype=torch.int64, device=dev) % m + lane_offset
     j = torch.arange(COLS, dtype=torch.int64, device=dev)
     s = _P5 ^ _mul(j, _P1)[None, :] ^ _mul(lanes, _P3)[:, None]
     tw = int(tweak) & MASK
@@ -125,8 +137,10 @@ def row_chain_ref(words_flat: torch.Tensor, m: int, tweak: int = 0) -> torch.Ten
     return _narrow(s)
 
 
-def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0) -> torch.Tensor:
-    """Row chain: int32 (L, 128, 128) -> int32 (L, 128) lane states.
+def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0,
+              lane_offset: int = 0) -> torch.Tensor:
+    """Row chain: int32 (L, 128, 128) -> int32 (L, 128) lane states, lane l
+    hashing as lane `lane_offset + l mod m` of its block.
 
     A CUDA tensor goes through the hand kernel (one launch, counted in
     kernels.LAUNCHES); a CPU tensor through `row_chain_ref`. Any other
@@ -136,7 +150,7 @@ def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0) -> torch.Tensor:
     _check_words(words_flat, m)
     if words_flat.device.type == "cpu":
         _LAST_KERNEL_MODE = "torch-cpu"
-        return row_chain_ref(words_flat, m, tweak)
+        return row_chain_ref(words_flat, m, tweak, lane_offset)
     if words_flat.device.type != "cuda":
         raise ValueError(f"row_chain runs on cuda or cpu, not {words_flat.device}")
     n_lanes = words_flat.shape[0]
@@ -146,7 +160,7 @@ def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0) -> torch.Tensor:
         with torch.cuda.device(words_flat.device):
             stream = torch.cuda.current_stream(words_flat.device).cuda_stream
             rc = fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
-                    int(tweak) & MASK, stream)
+                    int(lane_offset) & MASK, int(tweak) & MASK, stream)
         if rc != 0:
             raise RuntimeError(f"jth256_row_chain launch failed: CUDA error {rc}")
         kernels.LAUNCHES["jth256_row_chain"] += 1
@@ -154,12 +168,13 @@ def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0) -> torch.Tensor:
     return out
 
 
-def lane_accs(s: torch.Tensor) -> torch.Tensor:
-    """Fold lane states (B, M, 128) -> per-lane digests (B, M, 8), int64."""
+def lane_accs(s: torch.Tensor, lane_offset: int = 0) -> torch.Tensor:
+    """Fold lane states (B, M, 128) -> per-lane digests (B, M, 8), int64;
+    the M lanes are lanes [lane_offset, lane_offset + M) of each block."""
     s = _widen(s)
     b, m = s.shape[0], s.shape[1]
     dev = s.device
-    lanes = torch.arange(m, dtype=torch.int64, device=dev)
+    lanes = torch.arange(lane_offset, lane_offset + m, dtype=torch.int64, device=dev)
     k8 = torch.arange(8, dtype=torch.int64, device=dev)
     g = s.reshape(b, m, 16, 8)
     acc = (_P4 ^ _mul(lanes, _P2)[:, None] ^ _mul(k8, _P1)[None, :]).expand(b, m, 8)
@@ -186,9 +201,13 @@ def combine_accs(acc: torch.Tensor, lane_counts: torch.Tensor,
 
 
 def _as_words(words, dev: torch.device) -> torch.Tensor:
+    """Packed words (a numpy array or a tensor of 32-bit words) as an int32
+    tensor on `dev`. A tensor bound for a card is copied without blocking,
+    so the upload of a pinned staging slot queues behind earlier batches'
+    work instead of waiting for it."""
     if isinstance(words, torch.Tensor):
         t = words if words.dtype == torch.int32 else words.view(torch.int32)
-        return t.to(dev).contiguous()
+        return t.to(dev, non_blocking=dev.type == "cuda").contiguous()
     arr = np.ascontiguousarray(words)
     if arr.dtype.itemsize != 4:
         raise TypeError(f"words must hold 32-bit words, got {arr.dtype}")
@@ -196,18 +215,28 @@ def _as_words(words, dev: torch.device) -> torch.Tensor:
 
 
 def _as_int64(a, dev: torch.device) -> torch.Tensor:
+    """Lane counts or lengths as an int64 tensor on `dev` (a tensor bound
+    for a card is copied without blocking, as `_as_words` does)."""
     if isinstance(a, torch.Tensor):
-        return a.to(device=dev, dtype=torch.int64)
+        return a.to(device=dev, dtype=torch.int64, non_blocking=dev.type == "cuda")
     return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+
+
+def lane_digests(words: torch.Tensor, tweak: int = 0,
+                 lane_offset: int = 0) -> torch.Tensor:
+    """Per-lane digests of packed words on their device: int32 (B, M, 128,
+    128), lanes [lane_offset, lane_offset + M) of each block -> int64
+    (B, M, 8). One row-chain launch, then the fold."""
+    b, m = words.shape[0], words.shape[1]
+    s = row_chain(words.reshape(b * m, ROWS, COLS), m, tweak, lane_offset)
+    return lane_accs(s.reshape(b, m, COLS), lane_offset)
 
 
 def hash_device(words: torch.Tensor, lane_counts: torch.Tensor,
                 lengths: torch.Tensor, tweak: int = 0) -> torch.Tensor:
     """Digests of a packed batch already on its device: int32 words
     (B, M, 128, 128) -> int64 (B, 8) holding the uint32 digest words."""
-    b, m = words.shape[0], words.shape[1]
-    s = row_chain(words.reshape(b * m, ROWS, COLS), m, tweak).reshape(b, m, COLS)
-    return combine_accs(lane_accs(s), lane_counts, lengths)
+    return combine_accs(lane_digests(words, tweak), lane_counts, lengths)
 
 
 def digests_to_numpy(h: torch.Tensor) -> np.ndarray:

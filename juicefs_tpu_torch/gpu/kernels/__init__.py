@@ -107,7 +107,7 @@ def row_chain_function():
     """The C entry point of jth256_row_chain.cu, with its ctypes signature."""
     fn = load_library("jth256_row_chain").jth256_row_chain
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,7 +115,8 @@ def row_chain_function():
 def load_twin():
     """Build the CPU twin (jth256_twin.cpp, g++) with
     torch.utils.cpp_extension.load and return its module;
-    `row_chain(words, m, tweak)` takes int32 (L, 128, 128) words on the CPU."""
+    `row_chain(words, m, tweak, lane_offset=0)` takes int32 (L, 128, 128)
+    words on the CPU."""
     from torch.utils.cpp_extension import load
 
     build = os.path.join(REPO_ROOT, "build", "torch_ext", "twin")

@@ -3,8 +3,12 @@
 // Replaces the Pallas kernel juicefs_tpu/tpu/hash_jax.py _pallas_row_chain
 // (pl.pallas_call at hash_jax.py:228): words (L, 128, 128) uint32, L = B*M
 // lanes of 64 KiB, -> (L, 128) uint32 lane states. Lane l runs with the
-// tweak lane = l mod m; `tweak` is xor'ed into every word in registers so
-// a timing loop can vary it without an extra copy of the batch.
+// lane index lane_offset + l mod m (uint32 arithmetic), as
+// _lane_states(words, lane_offset) does: a device that holds lanes
+// [lane_offset, lane_offset + m) of each block passes its offset so that
+// its lanes hash with their global indices. `tweak` is xor'ed into every
+// word in registers so a timing loop can vary it without an extra copy of
+// the batch.
 //
 // What bounds it: every input word is read exactly once and takes ~9
 // integer operations, so the kernel is bound by device-memory bytes
@@ -30,11 +34,13 @@ constexpr int kUnroll = 8;
 
 __global__ void __launch_bounds__(jth256::kCols)
 row_chain_kernel(const uint32_t* __restrict__ words,
-                 uint32_t* __restrict__ out, uint32_t m, uint32_t tweak) {
+                 uint32_t* __restrict__ out, uint32_t m,
+                 uint32_t lane_offset, uint32_t tweak) {
   const long long lane = blockIdx.x;
   const uint32_t col = threadIdx.x;
   const uint32_t* w = words + lane * (jth256::kRows * jth256::kCols) + col;
-  uint32_t s = jth256::init_state(col, static_cast<uint32_t>(lane % m));
+  uint32_t s = jth256::init_state(
+      col, lane_offset + static_cast<uint32_t>(lane % m));
 #pragma unroll 1
   for (int r = 0; r < jth256::kRows; r += kUnroll) {
     uint32_t v[kUnroll];
@@ -57,13 +63,14 @@ row_chain_kernel(const uint32_t* __restrict__ words,
 // other value. It does not synchronise.
 extern "C" int jth256_row_chain(const void* words, void* out,
                                 long long n_lanes, unsigned int m,
-                                unsigned int tweak, void* stream) {
+                                unsigned int lane_offset, unsigned int tweak,
+                                void* stream) {
   if (n_lanes <= 0 || n_lanes > 0x7FFFFFFFLL || m == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   row_chain_kernel<<<static_cast<unsigned int>(n_lanes), jth256::kCols, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), m,
-      tweak);
+      lane_offset, tweak);
   return static_cast<int>(cudaGetLastError());
 }

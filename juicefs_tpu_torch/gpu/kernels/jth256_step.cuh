@@ -4,7 +4,8 @@
 // nvcc compiles for the card.
 //
 // Spec: juicefs_tpu_torch/gpu/jth256.py (lane_compress). Per lane, column
-// j starts at s = P5 ^ j*P1 ^ lane*P3, then 128 row steps
+// j starts at s = P5 ^ j*P1 ^ lane*P3 (lane: the lane's index within its
+// block, offset by the lanes held on other devices), then 128 row steps
 //   s = (s ^ w) * P1;  s = rotl(s, 13) * P2;  s ^= s >> 15
 // All arithmetic is on uint32_t: it wraps mod 2^32 as the spec requires
 // (signed overflow would be undefined behaviour).
@@ -34,7 +35,8 @@ __host__ __device__ inline uint32_t rotl32(uint32_t x, int k) {
   return (x << k) | (x >> (32 - k));
 }
 
-// Initial state of column `col` of lane `lane` (lane = global lane mod m).
+// Initial state of column `col` of lane `lane` (lane = lane_offset +
+// local lane mod m, wrapping mod 2^32).
 __host__ __device__ inline uint32_t init_state(uint32_t col, uint32_t lane) {
   return kP5 ^ (col * kP1) ^ (lane * kP3);
 }

@@ -14,8 +14,15 @@ buffer is never overwritten while its copy is still in flight.
 
 Backends: "cpu" (the host: `native.jth256_batch`, the C++ library with
 the numpy spec as its fallback, as the reference hashes on its cpu
-backend) and "cuda" (the row chain kernel plus torch fold ops on
-`device`; None means the card).
+backend) and "cuda" (the row chain kernel plus torch fold ops). The
+"cuda" backend rides the sharding plane (gpu/sharding.py): every upload
+is one counted placement and every batch runs the plane's hash program.
+`device=None` takes the process-wide plane over every local card (one
+card: the one-device path, the same pinned upload, one launch and fold
+as without a plane); an explicit `device` a one-device plane over it;
+`plane=` a given plane (the CPU tests pass `ShardPlane([cpu] * n)`). The
+port has one device backend, so "cuda" stands for both the reference's
+"xla" (on the plane) and its "pallas" (one device).
 Unlike the reference, which logs and degrades to the CPU when its device
 backend is unavailable, the "cuda" backend raises: a digest computed on
 the CPU must never be reported as a device run. `device="cpu"` is the
@@ -33,13 +40,7 @@ import torch
 
 from ..metric import global_registry
 from ..metric.trace import global_tracer, stage_hist
-from .hash_torch import (
-    _as_int64,
-    _as_words,
-    hash_device,
-    hash_packed as _hash_packed_device,
-    resolve_device,
-)
+from .sharding import ShardedTensor, plane_for
 from .jth256 import (
     BLOCK_BYTES,
     COLS,
@@ -94,20 +95,23 @@ class _Slot:
                                   pin_memory=pinned)
         self.lengths = torch.empty((cfg.batch_blocks,), dtype=torch.int64,
                                    pin_memory=pinned)
-        self.uploaded = None  # torch.cuda.Event of the last upload
+        self.uploaded: list = []  # CUDA events behind the last upload
 
 
 class HashPipeline:
     """hash_stream(iter[(key, bytes)]) -> iter[(key, 32-byte digest)]."""
 
-    def __init__(self, config: Optional[PipelineConfig] = None, device=None):
+    def __init__(self, config: Optional[PipelineConfig] = None, device=None,
+                 plane=None):
         self.config = config or PipelineConfig()
         if self.config.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.config.backend!r} (want cpu|cuda)")
+        self.plane = None
         self.device: Optional[torch.device] = None
         if self.config.backend == "cuda":
-            self.device = resolve_device(device)
+            self.plane = plane if plane is not None else plane_for(device)
+            self.device = self.plane.home
         self._slots: list[_Slot] = []
         self._next_slot = 0
 
@@ -124,34 +128,33 @@ class HashPipeline:
                            for _ in range(max(1, cfg.max_inflight_batches) + 1)]
         slot = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
-        if slot.uploaded is not None:
-            slot.uploaded.synchronize()
-            slot.uploaded = None
+        for ev in slot.uploaded:
+            ev.synchronize()
+        slot.uploaded = []
         return slot
 
     def _dispatch_device(self, blocks: list[bytes]):
-        """Pack into a staging slot, upload, hash; returns the pending
-        (host digests tensor, completion event or None)."""
+        """Pack into a staging slot, place it through the plane (one
+        placement), hash; returns the pending (host digests tensor,
+        completion event or None)."""
         n = len(blocks)
         slot = self._slot()
         counts, lengths = pack_into(slot.words.numpy(), blocks)
         slot.counts.numpy()[:n] = counts
         slot.lengths.numpy()[:n] = lengths
         cuda = self.device.type == "cuda"
-        words = slot.words[:n].to(self.device, non_blocking=True)
-        dcounts = slot.counts[:n].to(self.device, non_blocking=True)
-        dlengths = slot.lengths[:n].to(self.device, non_blocking=True)
+        packed = self.plane.put_packed(slot.words[:n], slot.counts[:n],
+                                       slot.lengths[:n])
         if cuda:
-            slot.uploaded = torch.cuda.Event()
-            slot.uploaded.record()
-        _H2D_BYTES.inc(words.numel() * 4)
-        h = hash_device(words, dcounts, dlengths)
+            slot.uploaded = self.plane.record_events()
+        _H2D_BYTES.inc(slot.words[:n].numel() * 4)
+        h = self.plane.hash_async(*packed)
         if not cuda:
             return h, None
         out = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
         out.copy_(h, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(h.device))
         return out, done
 
     def hash_stream(
@@ -220,21 +223,21 @@ class HashPipeline:
         return [d for _, d in self.hash_stream((str(i), b) for i, b in enumerate(blocks))]
 
     def shard_packed(self, packed):
-        """Place a packed (words, counts, lengths) triple on the device once,
-        so several consumers share one upload. Single device: no mesh. The
-        cpu backend returns the host arrays unchanged."""
-        if self.device is None:
+        """Place a packed (words, counts, lengths) triple on the plane once,
+        so several consumers share one placement (`ShardPlane.put_packed`:
+        a `ShardedPack` whose `batch` is the size before padding). The cpu
+        backend returns the host arrays unchanged."""
+        if self.plane is None:
             return packed
-        words, counts, lengths = packed
-        dwords = _as_words(words, self.device)
-        _H2D_BYTES.inc(dwords.numel() * 4)
-        return (dwords, _as_int64(counts, self.device),
-                _as_int64(lengths, self.device))
+        _H2D_BYTES.inc(int(np.prod(packed[0].shape)) * 4)
+        return self.plane.put_packed(*packed)
 
     def shard_snapshot(self) -> dict:
-        """Placement stats (gc --dedup output): one device, no mesh."""
+        """Sharding-plane stats (gc --dedup output)."""
+        if self.plane is not None:
+            return self.plane.snapshot()
         return {
-            "devices": 1 if self.device is not None else 0,
+            "devices": 0,
             "mesh": None,
             "degraded": False,
             "reason": f"{self.config.backend} backend",
@@ -242,24 +245,27 @@ class HashPipeline:
 
     def hash_packed(self, words, counts, lengths,
                     n: int | None = None) -> list[bytes]:
-        """Digest a pre-packed batch (host arrays, or tensors from
+        """Digest a pre-packed batch (host arrays, or the placed tensors of
         `shard_packed`); `n` slices the outputs back to the original batch
         size when the input was padded."""
         if n is None:
             n = int(words.shape[0])
-        lens = lengths.cpu().numpy() if isinstance(lengths, torch.Tensor) else np.asarray(lengths)
+        if isinstance(lengths, (torch.Tensor, ShardedTensor)):
+            lens = lengths.cpu().numpy()
+        else:
+            lens = np.asarray(lengths)
         nbytes = int(lens[:n].astype(np.int64).sum())
         with _TR.span("gpu", "hash", stage="dispatch",
                       hist=_H_DISPATCH) as sp:
             if sp.active:
                 sp.set(batch=n, bytes=nbytes, backend=self.config.backend)
-            if self.device is None:
+            if self.plane is None:
                 out = hash_packed_np(np.asarray(words), np.asarray(counts),
                                      np.asarray(lengths))
             else:
-                if not isinstance(words, torch.Tensor):
-                    _H2D_BYTES.inc(np.asarray(words).nbytes)
-                out = _hash_packed_device(words, counts, lengths, device=self.device)
+                if isinstance(words, np.ndarray):
+                    _H2D_BYTES.inc(words.nbytes)
+                out = self.plane.hash_packed(words, counts, lengths, n=n)
         _BATCH_BLOCKS.observe(n)
         _BLOCKS_HASHED.inc(n)
         _HASH_BYTES.inc(nbytes)

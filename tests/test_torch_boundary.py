@@ -59,7 +59,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
                  "chunk.indexer", "vfs.vfs", "vfs.internal", "vfs.compact", "fs",
                  "sdk", "gateway.s3", "gateway.serve", "object.s3", "cmd.gateway",
                  "fuse", "fuse.kernel", "fuse.mount", "fuse.passfd", "fuse.server",
-                 "cmd.mount", "cmd.dump", "vfs.backup", "meta.dump", "metric.usage"):
+                 "cmd.mount", "cmd.dump", "vfs.backup", "meta.dump", "metric.usage",
+                 "gpu.sharding", "multichip"):
         assert "juicefs_tpu_torch." + name in doc["imported"]
     bad = [n for n in doc["loaded"] if _forbidden(n)]
     assert bad == []
@@ -204,5 +205,39 @@ print(json.dumps(sorted(sys.modules)))
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("fuse.server", "fuse.passfd", "fuse.mount", "vfs.backup", "vfs.compact",
                  "meta.interface", "meta.dump", "metric.usage", "cmd.dump", "chunk.ingest"):
+        assert "juicefs_tpu_torch." + name in loaded
+    assert [n for n in loaded if _forbidden(n)] == []
+
+
+def test_lazy_imports_of_the_sharding_plane_load_no_jax():
+    """The imports inside the sharding plane's and the multichip run's
+    function bodies (the estimator's compress_batch, the chunk store, the
+    meta engine, gc) are reached by calling them: `gpu.ShardPlane` over a
+    2 x 2 mesh of CPU devices hashes, scans and estimates a batch, and
+    `dryrun_multichip` ingests and scans a small volume on it. None of
+    them may load jax or a juicefs_tpu module."""
+    code = f"""
+import json, sys
+sys.path.insert(0, {REPO!r})
+import torch
+from juicefs_tpu_torch import gpu
+from juicefs_tpu_torch.gpu.jth256 import pack_blocks
+from juicefs_tpu_torch.multichip import dryrun_multichip
+plane = gpu.ShardPlane([torch.device("cpu")] * 4)
+packed = pack_blocks([b"a" * 70000, b"b", b"a" * 70000], pad_lanes=2)
+sp = plane.put_packed(*packed)
+assert plane.hash_packed(*sp, n=sp.batch).shape == (3, 8)
+assert plane.scan_packed(*packed)[1].tolist() == [False, False, True]
+assert plane.make_estimator()(sp[0], sp[1]).shape == (4,)
+assert dryrun_multichip([torch.device("cpu")] * 4, gib=9 / 1024)["identity_ok"]
+print(json.dumps(sorted(sys.modules)))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("gpu.sharding", "gpu.compress_batch", "multichip", "cmd.gc",
+                 "chunk.ingest", "meta.kv"):
         assert "juicefs_tpu_torch." + name in loaded
     assert [n for n in loaded if _forbidden(n)] == []

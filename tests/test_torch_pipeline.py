@@ -79,9 +79,11 @@ def test_hash_packed_and_shard_packed():
         assert pipe.hash_packed(*packed) == want
         assert pipe.hash_packed(*pipe.shard_packed(packed)) == want
         assert pipe.hash_packed(*packed, n=3) == want[:3]
+    # the cuda backend rides the sharding plane: one explicit device is the
+    # reference's uncounted single-device rung
     snap = HashPipeline(PipelineConfig(backend="cuda"), device="cpu").shard_snapshot()
-    assert snap == {"devices": 1, "mesh": None, "degraded": False,
-                    "reason": "cuda backend"}
+    assert snap == {"devices": 1, "mesh": None, "degraded": True,
+                    "reason": "single device"}
 
 
 def test_unknown_backend_rejected():

@@ -191,7 +191,7 @@ def test_breaker_open_half_open_reset_with_on_reset(pkg):
     resets = []
     br.on_reset(lambda: resets.append(1))
     down = {"down": True}
-    real_get = inner.get
+    real_get, real_head = inner.get, inner.head
 
     def flappy(key, off=0, limit=-1):
         if down["down"]:
@@ -199,7 +199,16 @@ def test_breaker_open_half_open_reset_with_on_reset(pkg):
             raise IOError("backend down")
         return real_get(key, off, limit)
 
+    def flappy_head(key):
+        # the half-open probe HEADs the backend: while it is down the probe
+        # fails too, so the breaker stays OPEN however long the asserts
+        # below are delayed (the probe is not the call under test: uncounted)
+        if down["down"]:
+            raise IOError("backend down")
+        return real_head(key)
+
     inner.get = flappy
+    inner.head = flappy_head
     rs = r.resilient(inner, policy=r.RetryPolicy(max_attempts=2, base=0.001, jitter=0.0),
                      breaker=br, hedge=False)
     try:
