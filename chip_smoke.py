@@ -81,8 +81,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
   13. mount   `mount --inline-dedup --no-dedup-bypass` of a `format
               --hash-backend pallas --compress lz4` sqlite3:// volume,
               started in-process with `cmd.mount.start_mount` and served on
-              a thread: 4 writers write 32 files of 32 MiB of the same plan
-              plus a 1 MiB + 7 B file in 1 MiB pieces, each fsynced and
+              a thread: 4 writers write 8 files of 32 MiB (256 MiB: MOUNT_GIB)
+              of the same plan plus a 1 MiB + 7 B file in 1 MiB pieces, each
+              fsynced and
               closed; gates: elided == planted with no passthrough, errors
               or compress degrade, every hashed block estimated, stored
               objects == unique blocks, launches == ingest hash batches +
@@ -109,9 +110,40 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               rows, sampled rows == numpy spec, duplicates == planted),
               every hashed block estimated from the pack split over the
               mesh with no compress degrade, and 4 launches per hash batch
+  15. objbench `objbench file://... --block-size 4 --big-object-size 1024
+              --compress lz4 --hash-backend pallas --threads 4` (BASELINE #5
+              at 1 GiB); gates: rc 0, "functional: all checks passed",
+              indexed + dropped == 256 with 0 errors, sampled in-memory
+              digests == numpy spec, launches == index batches; then the
+              functional suite and a 64 MiB objbench over s3:// into the
+              port's gateway on a `--hash-backend pallas` volume (multipart
+              and abort included): rc 0, every check passed, one launch per
+              index batch of the gateway's indexer
+  16. bench   `bench MP --big-file-size 1024 --json` (BASELINE #1) on an
+              ordinary `mount` (through the kernel) of a `--hash-backend
+              pallas --compress lz4` sqlite3:// + file:// volume; gates:
+              rc 0, all five numbers > 0, no indexer errors, indexed +
+              dropped == blocks uploaded, launches == index batches,
+              `umount` rc 0
+  17. sync    `sync file://SRC s3://AK:SK@127.0.0.1:P/bkt --check-new
+              --threads 16` of 64 x 4 MiB objects (256 MiB, duplicates
+              included) into the port's gateway on a `--hash-backend pallas`
+              volume (BASELINE #4); gates: copied 64, 0 mismatches; a second
+              run copies 0; --check-all checks 64 with 0 mismatches; after a
+              same-size overwrite of one destination object --check-all
+              finds exactly it and returns 1; cluster mode (a manager and 2
+              worker processes of juicefs_tpu_torch.cmd) copies all 64; then
+              the gateway into the `webdav` subcommand run as a process,
+              --check-new with 0 mismatches, the process exits 0 on SIGTERM;
+              each server launches once per index batch
+  18. config  a `--hash-backend cpu` volume of phase 5's plan, written by a
+              client with no indexer: `config --hash-backend pallas` (probes
+              the card), then `gc --dedup` hashes every block on the card in
+              one launch per 32 blocks and finds the planted duplicates
 
-It prints a `{"kernels": [...]}` line and, as its last line,
-`{"ok": true, "device": {...}}`. It imports nothing of JAX or juicefs_tpu.
+Each phase prints its seconds. It prints a `{"kernels": [...]}` line and,
+as its last line, `{"ok": true, "device": {...}}`. It imports nothing of
+JAX or juicefs_tpu.
 """
 
 from __future__ import annotations
@@ -143,6 +175,7 @@ import torch
 
 from juicefs_tpu_torch import cmd, native, sdk
 from juicefs_tpu_torch.chunk import CachedStore, ChunkConfig, ContentRefs, IngestPipeline
+from juicefs_tpu_torch.chunk import indexer as indexer_mod
 from juicefs_tpu_torch.chunk.cached_store import block_key, parse_block_key
 from juicefs_tpu_torch.cmd import gateway as gateway_cmd
 from juicefs_tpu_torch.cmd import mount as mount_cmd
@@ -174,7 +207,12 @@ from juicefs_tpu_torch.multichip import dryrun_multichip
 from juicefs_tpu_torch.object.file import FileStorage
 from juicefs_tpu_torch.object.s3 import SigV4
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 MASK = 0xFFFFFFFF
+# phase 13 writes 256 MiB (8 of the 32-MiB files) where it wrote 1 GiB:
+# the machine's FUSE device splits each write(2) into 4 KiB WRITEs, and the
+# time saved pays for phase 16's 1 GiB `bench` big file through the kernel
+MOUNT_GIB = 0.25
 TIMING_LANES = 16384  # 1 GiB of words
 # Integer ALU rate for the operations bound: Hopper runs 64 INT32
 # operations per SM per clock, half its FP32 lanes, so the H100 SXM's
@@ -231,8 +269,20 @@ class FileBlockStore:
         self._bulk_pool.shutdown(wait=True)
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
 def phase(name: str) -> None:
+    """Start a phase, printing the seconds the one before took."""
+    end_phase()
     print(f"== {name}", flush=True)
+    _PHASE.update(name=name, t0=time.perf_counter())
+
+
+def end_phase() -> None:
+    if _PHASE["name"] is not None:
+        print(f"== {_PHASE['name']}: {time.perf_counter() - _PHASE['t0']:.3f} s", flush=True)
+        _PHASE["name"] = None
 
 
 def device_phase() -> tuple[str, str]:
@@ -785,10 +835,21 @@ def cli(argv: list[str]) -> tuple[int, str, list[str]]:
     finally:
         log.removeHandler(rec)
     out = buf.getvalue()
-    print(f"$ {' '.join(argv[:1] + ['META'] + argv[2:])}\n{out.rstrip()}\n(rc {rc})")
+    shown = [a if "://" not in a else a.split("://", 1)[0] + "://..." for a in argv]
+    print(f"$ {' '.join(shown)}\n{out.rstrip()}\n(rc {rc})")
     for msg in rec.messages:
         print(f"  log: {msg}")
     return rc, out, rec.messages
+
+
+def format_device_volume(meta_url: str, base: str, name: str) -> None:
+    """`format --compress lz4 --hash-backend pallas` of a sqlite3:// +
+    file:// volume under `base`."""
+    rc, _out, _ = cli(["format", meta_url, name, "--storage", "file", "--bucket",
+                       os.path.join(base, "blob"), "--compress", "lz4",
+                       "--hash-backend", "pallas", "--trash-days", "0"])
+    if rc != 0:
+        raise AssertionError(f"format rc {rc}")
 
 
 def launches() -> int:
@@ -1109,11 +1170,7 @@ def serve_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
     meta_url = f"sqlite3://{base}/meta.db"
     gw = vfs = m = None
     try:
-        rc, _out, _ = cli(["format", meta_url, "serve", "--storage", "file", "--bucket",
-                           os.path.join(base, "blob"), "--compress", "lz4",
-                           "--hash-backend", "pallas", "--trash-days", "0"])
-        if rc != 0:
-            raise AssertionError(f"format rc {rc}")
+        format_device_volume(meta_url, base, "serve")
 
         # 1. the gateway, built in-process as `gateway` builds it
         parser = argparse.ArgumentParser()
@@ -1531,15 +1588,21 @@ class MountDrive:
                     return bytes(out)
                 out += got
 
-    def umount(self) -> None:
-        """Unmount, wait for the request loops, then close the vfs, the
-        store and the session."""
-        self.mounted.srv.unmount()
+    def umount(self, via_cli: bool = False) -> int:
+        """Unmount (through the `umount` subcommand with `via_cli`), wait
+        for the request loops, then close the vfs, the store and the
+        session. Returns umount's rc (0 for the in-process unmount)."""
+        rc = 0
+        if via_cli:
+            rc = cli(["umount", self.mp])[0]
+        else:
+            self.mounted.srv.unmount()
         self._thread.join(120)
         if self._thread.is_alive():
             raise AssertionError("the FUSE server did not stop")
         self.mounted.close()
         self.mounted.meta.client.close()
+        return rc
 
 
 def fuse_ops(method: str) -> int:
@@ -1646,11 +1709,7 @@ def mount_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
             "--no-watchdog", "--no-kernel-writeback"]
     drive = None
     try:
-        rc, _out, _ = cli(["format", meta_url, "mount", "--storage", "file", "--bucket",
-                           os.path.join(base, "blob"), "--compress", "lz4",
-                           "--hash-backend", "pallas", "--trash-days", "0"])
-        if rc != 0:
-            raise AssertionError(f"format rc {rc}")
+        format_device_volume(meta_url, base, "mount")
 
         # 1. writes: 4 writers, 1 MiB pieces, fsync and close per file
         drive = MountDrive(argv)
@@ -1957,6 +2016,455 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
     return {"launches": by_path, "meshes": meshes, "scan_many": many, "multichip": mc}
 
 
+def recording_indexer(sample_every: int):
+    """A BlockIndexer subclass that keeps every indexer it builds and the
+    raw bytes of each `sample_every`-th block submitted to it, so that the
+    digests an indexer with no meta keeps in memory can be held against the
+    numpy spec. Returns (the class, the list of indexers built)."""
+    built = []
+
+    class Recording(indexer_mod.BlockIndexer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.raw = {}
+            built.append(self)
+
+        def submit_raw(self, sid, indx, bsize, raw):
+            if indx % sample_every == 0:
+                self.raw[(sid, indx)] = bytes(raw)
+            super().submit_raw(sid, indx, bsize, raw)
+
+    return Recording, built
+
+
+def start_gateway_on(meta_url: str):
+    """The `gateway` subcommand's S3 gateway on a volume, in-process."""
+    parser = argparse.ArgumentParser()
+    gateway_cmd.add_parser(parser.add_subparsers())
+    args = parser.parse_args(["gateway", meta_url, "--port", "0", "--access-key", SERVE_AK,
+                              "--secret-key", SERVE_SK])
+    return gateway_cmd.start_gateway(args)
+
+
+def last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def objbench_phase(volume_gib: float, smi: str) -> dict:
+    """Phase 15: `objbench` with the hash on the card over file://
+    (BASELINE #5 at 1 GiB), then objbench over s3:// into the port's
+    gateway on a `--hash-backend pallas` volume."""
+    phase("objbench: file:// with --hash-backend pallas, then s3:// into the gateway")
+    t_phase = time.perf_counter()
+    mib = max(4, int(volume_gib * 1024) // 4 * 4)
+    n = mib // 4
+    base = tempfile.mkdtemp(prefix="jfs-torch-objbench-")
+    gw = vfs = m = None
+    real = indexer_mod.BlockIndexer
+    recording, built = recording_indexer(sample_every=16)
+    try:
+        indexer_mod.BlockIndexer = recording
+        batches0 = stage_count("gpu.index.batch")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["objbench", f"file://{base}/ob", "--block-size", "4",
+                          "--big-object-size", str(mib), "--compress", "lz4",
+                          "--hash-backend", "pallas", "--threads", "4"])
+        ob_s = time.perf_counter() - t0
+        ob_launches = launches()
+        index_batches = stage_count("gpu.index.batch") - batches0
+        indexer_mod.BlockIndexer = real
+        if rc != 0 or "functional: all checks passed" not in out:
+            raise AssertionError(f"objbench rc {rc}")
+        res = last_json(out)
+        ix = res["hash"]
+        if len(built) != 1 or ix["backend"] != "cuda" or ix["errors"] != 0 \
+                or ix["blocks"] + ix["dropped"] != n:
+            raise AssertionError(f"objbench hash {ix}: want cuda, 0 errors, indexed + "
+                                 f"dropped == {n}")
+        indexer = built[0]
+        sampled = sorted(k for k in indexer.raw if k in indexer.digests)
+        if len(indexer.digests) != ix["blocks"] or not sampled:
+            raise AssertionError(f"{len(indexer.digests)} digests kept for {ix['blocks']} "
+                                 f"blocks, {len(sampled)} sampled")
+        for k in sampled:
+            if indexer.digests[k] != jth256(indexer.raw[k]):
+                raise AssertionError(f"objbench block {k}: digest != numpy spec")
+        if index_batches == 0 or ob_launches != index_batches:
+            raise AssertionError(f"{ob_launches} launches for {index_batches} index batches")
+        del built[:], indexer
+
+        # the functional suite and a 64 MiB objbench over s3:// (multipart and
+        # abort included) into the gateway of a --hash-backend pallas volume
+        meta_url = f"sqlite3://{base}/meta.db"
+        format_device_volume(meta_url, base, "objbench")
+        gw, vfs, m = start_gateway_on(meta_url)
+        batches0 = stage_count("gpu.index.batch")
+        kernels.reset_launches()
+        rc, out, _ = cli(["objbench", f"s3://{SERVE_AK}:{SERVE_SK}@127.0.0.1:{gw.port}/bkt",
+                          "--block-size", "4", "--big-object-size", "64", "--threads", "4"])
+        gw.stop()
+        vfs.close()
+        vfs.store.close()  # drains the indexer
+        s3_launches = launches()
+        s3_batches = stage_count("gpu.index.batch") - batches0
+        s3_ix = vfs.store.indexer.stats()
+        gw = vfs = None
+        m.close_session()
+        m.client.close()
+        m = None
+        if rc != 0 or "functional: all checks passed" not in out \
+                or last_json(out)["functional_failures"] != []:
+            raise AssertionError(f"objbench over s3:// rc {rc}")
+        s3 = last_json(out)
+        if s3_ix["errors"] != 0 or s3_batches == 0 or s3_launches != s3_batches:
+            raise AssertionError(f"gateway indexer {s3_ix}: {s3_launches} launches for "
+                                 f"{s3_batches} index batches")
+        print(f"gates ok: objbench functional passed over file:// and s3://; {ix['blocks']} "
+              f"+ {ix['dropped']} dropped == {n} blocks hashed on the card with 0 errors, "
+              f"{len(sampled)} sampled in-memory digests == spec, {ob_launches} launches == "
+              f"index batches; the gateway indexed {s3_ix['blocks']} blocks "
+              f"({s3_ix['dropped']} dropped) in {s3_launches} launches")
+        print(f"objbench file:// {mib} MiB lz4: put {res['put_MiB_s']} MiB/s, get "
+              f"{res['get_MiB_s']} MiB/s, small put {res['small_put_objs_s']} objects/s, hash "
+              f"{ix['hash_mib_s']} MiB/s ({ix['busy_seconds']} s busy); s3:// 64 MiB: put "
+              f"{s3['put_MiB_s']} MiB/s, get {s3['get_MiB_s']} MiB/s, small put "
+              f"{s3['small_put_objs_s']} objects/s; command {ob_s:.3f} s, phase "
+              f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"file": res, "s3": s3, "s3_indexer": s3_ix,
+                "launches": {"objbench_index": ob_launches,
+                             "objbench_s3_gateway": s3_launches}}
+    finally:
+        indexer_mod.BlockIndexer = real
+        if gw is not None:
+            gw.stop()
+        if vfs is not None:
+            vfs.close()
+            vfs.store.close()
+        if m is not None:
+            m.close_session()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def bench_phase(volume_gib: float, smi: str) -> dict:
+    """Phase 16: `bench` (BASELINE #1) on an ordinary `mount` of a
+    `--hash-backend pallas --compress lz4` sqlite3:// + file:// volume,
+    through the kernel; every uploaded block goes to the mount's indexer."""
+    phase("bench: `bench` on a mount of a --hash-backend pallas volume")
+    t_phase = time.perf_counter()
+    big_mib = max(4, int(volume_gib * 1024))
+    base = tempfile.mkdtemp(prefix="jfs-torch-bench-")
+    meta_url = f"sqlite3://{base}/meta.db"
+    mp = os.path.join(base, "mnt")
+    os.makedirs(mp)
+    old_runtime = os.environ.get("XDG_RUNTIME_DIR")
+    os.environ["XDG_RUNTIME_DIR"] = os.path.join(base, "run")
+    drive = None
+    try:
+        format_device_volume(meta_url, base, "bench")
+        drive = MountDrive([meta_url, mp, "--compress-backend", "cuda", "--no-watchdog"])
+        store = drive.mounted.store
+        if store.indexer is None or store.indexer.backend != "cuda" or store.ingest is not None:
+            raise AssertionError("the mount's store has no cuda indexer, or an ingest stage")
+        batches0 = stage_count("gpu.index.batch")
+        uploads0 = stage_count("chunk.upload.put")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["bench", mp, "--big-file-size", str(big_mib), "--json"])
+        bench_s = time.perf_counter() - t0
+        ix_store = store
+        rc_umount = drive.umount(via_cli=True)
+        drive = None
+        bench_launches = launches()
+        index_batches = stage_count("gpu.index.batch") - batches0
+        written = stage_count("chunk.upload.put") - uploads0
+        ix = ix_store.indexer.stats()
+        if rc != 0:
+            raise AssertionError(f"bench rc {rc}")
+        res = last_json(out)
+        if sorted(res) != ["big_read_MiB_s", "big_write_MiB_s", "small_read_files_s",
+                           "small_write_files_s", "stat_files_s"] \
+                or not all(v > 0 for v in res.values()):
+            raise AssertionError(f"bench numbers {res}")
+        if ix["errors"] != 0 or ix["blocks"] + ix["dropped"] != written or written == 0:
+            raise AssertionError(f"indexer {ix}: want 0 errors, indexed + dropped == "
+                                 f"{written} blocks written")
+        if index_batches == 0 or bench_launches != index_batches:
+            raise AssertionError(f"{bench_launches} launches for {index_batches} index "
+                                 "batches")
+        if rc_umount != 0:
+            raise AssertionError(f"umount rc {rc_umount}")
+        print(f"gates ok: bench rc 0, five numbers > 0; {ix['blocks']} + {ix['dropped']} "
+              f"dropped == {written} blocks written, 0 errors; {bench_launches} launches == "
+              f"index batches; umount rc 0")
+        print(f"bench ({big_mib} MiB big file, through the kernel): {json.dumps(res)}; "
+              f"indexer busy {ix['busy_seconds']} s = {ix['hash_mib_s']} MiB/s; command "
+              f"{bench_s:.3f} s, phase {time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"bench": res, "indexer": ix, "blocks_written": written,
+                "launches": {"bench_index": bench_launches}}
+    finally:
+        if drive is not None:
+            try:
+                drive.umount()
+            except Exception as e:  # the phase already failed; report, go on
+                print(f"bench phase teardown: {e}", file=sys.stderr)
+        if old_runtime is None:
+            os.environ.pop("XDG_RUNTIME_DIR", None)
+        else:
+            os.environ["XDG_RUNTIME_DIR"] = old_runtime
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def webdav_process(meta_url: str):
+    """`python -m juicefs_tpu_torch.cmd webdav` as a process with /metrics;
+    returns (process, port, metrics port) once it listens."""
+    port, mport = free_port(), free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "juicefs_tpu_torch.cmd", "webdav", meta_url, "--port",
+         str(port), "--metrics", f"127.0.0.1:{mport}"],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    deadline = time.time() + 180
+    while time.time() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"webdav process exited with {proc.wait()}")
+        if "WebDAV listening on port" in line:
+            return proc, port, mport
+    proc.kill()
+    raise AssertionError("webdav process did not start listening")
+
+
+def settled_index_metrics(mport: int) -> tuple[int, int]:
+    """(launches, index batches) of a serving process once its index queue
+    is empty and the two counts agree (the indexer hashes asynchronously);
+    fails after 120 s."""
+    deadline = time.time() + 120
+    last = None
+    while time.time() < deadline:
+        conn = http.client.HTTPConnection("127.0.0.1", mport, timeout=60)
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+        conn.close()
+        now = (int(stats_value(text, 'juicefs_torch_kernel_launches{kernel="jth256_row_chain"}')),
+               int(stats_value(text, 'juicefs_torch_stage_seconds_count{layer="gpu",'
+                                     'op="index",stage="batch"}')),
+               int(stats_value(text, "juicefs_index_queue_blocks")))
+        if now == last and now[0] == now[1] and now[2] == 0:
+            return now[0], now[1]
+        last = now
+        time.sleep(0.5)
+    raise AssertionError(f"webdav process: launches, index batches, queue {last}")
+
+
+def sync_phase(rng: np.random.Generator, smi: str) -> dict:
+    """Phase 17: `sync` (BASELINE #4) of 64 x 4 MiB objects from phase 5's
+    plan (duplicates included) from file:// into the port's S3 gateway on a
+    `--hash-backend pallas` volume, re-run, --check-all, a planted
+    same-size overwrite; cluster mode with 2 worker processes; then from
+    the gateway into the `webdav` subcommand run as a process."""
+    phase("sync: file:// -> S3 gateway, cluster mode, S3 gateway -> webdav process")
+    t_phase = time.perf_counter()
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, 64, bs, 1)
+    blocks.pop()
+    n = len(blocks)
+    nbytes = n * bs
+    base = tempfile.mkdtemp(prefix="jfs-torch-sync-")
+    src = os.path.join(base, "src")
+    for i, data in enumerate(blocks):
+        path = os.path.join(src, f"d{i % 4}", f"obj{i:03d}.bin")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
+    keys = sorted(f"d{i % 4}/obj{i:03d}.bin" for i in range(n))
+    gw = vfs = m = proc = None
+    old_path = os.environ.get("PYTHONPATH")
+    # bootstrapped workers run `python -m juicefs_tpu_torch.cmd`: wherever
+    # the smoke was started from, they import this checkout
+    os.environ["PYTHONPATH"] = REPO + (os.pathsep + old_path if old_path else "")
+    try:
+        meta_url = f"sqlite3://{base}/s3.db"
+        format_device_volume(meta_url, base, "sync")
+        gw, vfs, m = start_gateway_on(meta_url)
+        s3 = f"s3://{SERVE_AK}:{SERVE_SK}@127.0.0.1:{gw.port}"
+        batches0 = stage_count("gpu.index.batch")
+        kernels.reset_launches()
+        argv = ["sync", f"file://{src}", s3 + "/bkt", "--threads", "16"]
+        t0 = time.perf_counter()
+        rc, out, _ = cli(argv + ["--check-new"])
+        sync_s = time.perf_counter() - t0
+        first = last_json(out)
+        if rc != 0 or first["copied"] != n or first["mismatch"] != 0:
+            raise AssertionError(f"sync rc {rc}: {first}")
+        rc, out, _ = cli(argv)
+        if rc != 0 or last_json(out)["copied"] != 0:
+            raise AssertionError(f"second sync rc {rc} copied {last_json(out)['copied']}")
+        t0 = time.perf_counter()
+        rc, out, _ = cli(argv + ["--check-all"])
+        check_s = time.perf_counter() - t0
+        checked = last_json(out)
+        if rc != 0 or checked["checked"] != n or checked["mismatch"] != 0:
+            raise AssertionError(f"--check-all rc {rc}: {checked}")
+        victim = keys[n // 2]
+        client = S3Client(gw.port, SERVE_AK, SERVE_SK)
+        st, _, _ = client.call("PUT", f"/bkt/{victim}", body=rng.bytes(bs))
+        client.close()
+        rc, out, errors = cli(argv + ["--check-all"])
+        bad = last_json(out)
+        if st != 200 or rc != 1 or bad["mismatch"] != 1 or bad["checked"] != n \
+                or not any(victim in e for e in errors):
+            raise AssertionError(f"planted overwrite of {victim}: PUT {st}, rc {rc}, {bad}")
+
+        # cluster mode: the manager launches 2 worker processes of the port
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["sync", f"file://{src}", s3 + "/bkt2", "--manager-listen",
+                          "127.0.0.1:0", "--worker-hosts", "localhost,localhost",
+                          "--threads", "8"])
+        cluster_s = time.perf_counter() - t0
+        totals = last_json(out)
+        if rc != 0 or totals["copied"] != n or totals["tasks_done"] != n \
+                or totals["dispatched"] != n or totals["mismatch"] != 0:
+            raise AssertionError(f"cluster sync rc {rc}: {totals}")
+
+        # the gateway into the `webdav` subcommand, run as a process
+        dav_url = f"sqlite3://{base}/dav.db"
+        format_device_volume(dav_url, os.path.join(base, "dav"), "davsync")
+        proc, port, mport = webdav_process(dav_url)
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["sync", s3 + "/bkt", f"webdav://127.0.0.1:{port}/vol",
+                          "--check-new", "--threads", "16"])
+        dav_s = time.perf_counter() - t0
+        dav = last_json(out)
+        if rc != 0 or dav["copied"] != n or dav["mismatch"] != 0:
+            raise AssertionError(f"sync into webdav rc {rc}: {dav}")
+        dav_launches, dav_batches = settled_index_metrics(mport)
+        proc.send_signal(signal.SIGTERM)
+        dav_rc = proc.wait(timeout=120)
+        proc.stdout.close()
+        proc = None
+        if dav_rc != 0 or dav_launches == 0:
+            raise AssertionError(f"webdav process exit {dav_rc}, {dav_launches} launches")
+
+        gw.stop()
+        vfs.close()
+        vfs.store.close()  # drains the indexer
+        gw_launches = launches()
+        gw_batches = stage_count("gpu.index.batch") - batches0
+        ix = vfs.store.indexer.stats()
+        gw = vfs = None
+        m.close_session()
+        m.client.close()
+        m = None
+        if ix["errors"] != 0 or gw_batches == 0 or gw_launches != gw_batches:
+            raise AssertionError(f"gateway indexer {ix}: {gw_launches} launches for "
+                                 f"{gw_batches} index batches")
+        print(f"gates ok: {n} copied with --check-new, 0 mismatches; a second run copied 0; "
+              f"--check-all checked {n}, 0 mismatches, then exactly {victim} (rc 1); "
+              f"cluster of 2 worker processes copied {totals['copied']} of "
+              f"{totals['dispatched']}; the webdav process took {dav['copied']} with 0 "
+              f"mismatches and exited 0; gateway {gw_launches} launches == index batches "
+              f"({ix['blocks']} indexed, {ix['dropped']} dropped), webdav process "
+              f"{dav_launches} launches == {dav_batches} index batches")
+        mib = nbytes / (1 << 20)
+        print(f"sync {mib:.0f} MiB ({n} objects, {planted} planted duplicates) file:// -> "
+              f"S3 gateway {mib / sync_s:.2f} MiB/s with --check-new ({sync_s:.3f} s); "
+              f"--check-all {mib / check_s:.2f} MiB/s; cluster of 2 workers "
+              f"{mib / cluster_s:.2f} MiB/s ({cluster_s:.3f} s); S3 gateway -> webdav process "
+              f"{mib / dav_s:.2f} MiB/s with --check-new; phase "
+              f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"mib_s": mib / sync_s, "check_all_mib_s": mib / check_s,
+                "cluster_mib_s": mib / cluster_s, "webdav_mib_s": mib / dav_s,
+                "indexer": ix,
+                "launches": {"sync_gateway": gw_launches, "sync_webdav": dav_launches}}
+    finally:
+        if old_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old_path
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+            proc.stdout.close()
+        if gw is not None:
+            gw.stop()
+        if vfs is not None:
+            vfs.close()
+            vfs.store.close()
+        if m is not None:
+            m.close_session()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def config_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> dict:
+    """Phase 18: a `--hash-backend cpu` volume whose blocks no indexer saw
+    is switched by `config --hash-backend pallas` (which probes the card),
+    and the next `gc --dedup` hashes every block on the card."""
+    phase("config: --hash-backend cpu -> pallas, then gc --dedup on the card")
+    t_phase = time.perf_counter()
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                  (1 << 20) + 7)
+    n_blocks = len(blocks)
+    base = tempfile.mkdtemp(prefix="jfs-torch-config-")
+    meta_url = f"sqlite3://{base}/meta.db"
+    store = None
+    try:
+        rc, _out, _ = cli(["format", meta_url, "cfg", "--storage", "file", "--bucket",
+                           os.path.join(base, "blob"), "--compress", "none",
+                           "--hash-backend", "cpu", "--trash-days", "0"])
+        if rc != 0:
+            raise AssertionError(f"format rc {rc}")
+        # every block its own slice of one file, from a client with no indexer
+        m, fmt = cmd.open_meta(meta_url)
+        store = cmd.build_store(fmt, None, meta=m, with_indexer=False)
+        ctx = Context(uid=0, gid=0)
+        st, ino, _ = m.create(ctx, 1, b"cfg.bin", 0o644)
+        per_chunk = CHUNK_SIZE // bs
+        for i, data in enumerate(blocks):
+            sid = m.new_slice()
+            w = store.new_writer(sid)
+            w.write_at(data, 0)
+            w.finish(len(data))
+            indx, pos = divmod(i, per_chunk)
+            st = m.write_chunk(ino, indx, pos * bs, Slice(pos=pos * bs, id=sid,
+                                                         size=len(data), off=0,
+                                                         len=len(data)))
+            if st != 0:
+                raise AssertionError(f"write_chunk: errno {st}")
+        store.flush_all()
+        store.close()
+        store = None
+        rows = len(list(m.scan_block_digests()))
+        m.client.close()
+        rc, out, _ = cli(["config", meta_url, "--hash-backend", "pallas"])
+        if rc != 0 or kind not in out or last_json(out) != {"updated": ["hash_backend"]} \
+                or rows != 0:
+            raise AssertionError(f"config rc {rc}; probe line must name {kind}; {rows} "
+                                 "index rows before gc")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["gc", meta_url, "--dedup", "--threads", "16"])
+        gc_s = time.perf_counter() - t0
+        gc_launches = launches()
+        gc = last_json(out)
+        want = {"backend": "cuda", "blocks": n_blocks, "hashed_now": n_blocks,
+                "duplicate_blocks": planted}
+        if rc != 0 or {k: gc[k] for k in want} != want \
+                or gc_launches != -(-n_blocks // 32):
+            raise AssertionError(f"gc rc {rc}: {({k: gc[k] for k in want})} != {want}, "
+                                 f"{gc_launches} launches for {n_blocks} blocks")
+        print(f"gates ok: config probed {kind} and set hash_backend pallas; gc --dedup hashed "
+              f"{n_blocks} blocks on the card in {gc_launches} launches (one per 32), "
+              f"{planted} duplicates == planted")
+        print(f"config: gc --dedup {gc_s:.3f} s ({gc['gibs']} GiB/s); phase "
+              f"{time.perf_counter() - t_phase:.3f} s")
+        return {"gc": gc, "gc_seconds": gc_s, "launches": {"config_gc": gc_launches}}
+    finally:
+        if store is not None:
+            store.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1980,28 +2488,37 @@ def main(argv=None) -> int:
     estimator_phase(rng)
     main_path = main_path_phase(rng, args.volume_gib, kind)
     serve = serve_phase(rng, args.volume_gib, smi)
-    mount = mount_phase(rng, args.volume_gib, smi)
+    mount = mount_phase(rng, min(args.volume_gib, MOUNT_GIB), smi)
     placements = counter_value("juicefs_torch_shard_h2d_batches")
     if counter_value("juicefs_torch_shard_degraded") != 0:
         raise AssertionError("the process plane degraded during phases 5-13")
     print(f"phases 5-13 on the one-card plane: {int(placements)} placements, 0 degraded")
     shard = shard_phase(rng, args.volume_gib, timing, smi)
+    objbench = objbench_phase(args.volume_gib, smi)
+    bench = bench_phase(args.volume_gib, smi)
+    sync = sync_phase(rng, smi)
+    config = config_phase(rng, args.volume_gib, kind)
+    end_phase()
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
                "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_row_chain"],
                "ingest_concurrent": conc["launches"]["jth256_row_chain"],
                **main_path["launches"], **serve["launches"], **mount["launches"],
-               **shard["launches"]}
+               **shard["launches"], **objbench["launches"], **bench["launches"],
+               **sync["launches"], **config["launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
           "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck; then the "
           "gateway's index batches, the SDK's, gc --compact --dedup, fsck; then the "
           "mount's ingest and index batches, fsck and the mount process; then the "
           "sharded hash and scan over 2x1, 2x2, 4x2 and the odd 3, scan_many, and the "
-          "multichip ingest and scan on 2x2); card " + smi)
-    if by_path["index"] == 0 or by_path["fsck"] == 0 or by_path["serve_index"] == 0 \
-            or by_path["mount_ingest"] == 0 or by_path["mount_process"] == 0:
-        raise AssertionError("the indexed write, fsck, the gateway or a mount launched "
-                             "no row-chain kernel")
+          "multichip ingest and scan on 2x2; then objbench's indexer and the gateway's "
+          "under objbench over s3://, the mount's indexer under bench, the gateway's and "
+          "the webdav process's under sync, and gc --dedup after config); card " + smi)
+    idle = [p for p in ("index", "fsck", "serve_index", "mount_ingest", "mount_process",
+                        "objbench_index", "objbench_s3_gateway", "bench_index",
+                        "sync_gateway", "sync_webdav", "config_gc") if by_path[p] == 0]
+    if idle:
+        raise AssertionError(f"paths that launched no row-chain kernel: {idle}")
     print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s (1 writer), "
           f"{conc['gibs']:.4f} GiB/s (4 writers); scan {scan['gibs']} GiB/s; indexed "
           f"write {main_path['write_gibs']:.4f} GiB/s, gc --dedup {main_path['gc_seconds']:.3f} "
@@ -2009,7 +2526,10 @@ def main(argv=None) -> int:
           f"{serve['put_gibs']:.4f} GiB/s ({serve['put_ops']:.2f} ops/s), GET "
           f"{serve['get_gibs']:.4f} GiB/s, SDK read {serve['sdk_read_gibs']:.4f} GiB/s; "
           f"mount (kernel, {mount['mounter']}) write {mount['write_gibs']:.4f} GiB/s, cold read "
-          f"{mount['read_gibs']:.4f} GiB/s")
+          f"{mount['read_gibs']:.4f} GiB/s; objbench put {objbench['file']['put_MiB_s']} MiB/s, "
+          f"get {objbench['file']['get_MiB_s']} MiB/s, hash "
+          f"{objbench['file']['hash']['hash_mib_s']} MiB/s; bench {json.dumps(bench['bench'])}; "
+          f"sync {sync['mib_s']:.2f} MiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",

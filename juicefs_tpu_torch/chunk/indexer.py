@@ -86,7 +86,10 @@ def pipeline_backend(hash_backend: str) -> str:
 class BlockIndexer:
     """Async batched block fingerprinting + persistent content index.
 
-    meta=None keeps digests in memory only (measurement mode).
+    meta=None keeps digests in memory only (measurement mode): `digests`
+    maps (sid, indx) to the 32-byte digest. The reference's docstring
+    promises this but drops them; the port keeps them, so `objbench
+    --hash-backend` can be checked against the numpy spec.
     """
 
     def __init__(
@@ -101,6 +104,7 @@ class BlockIndexer:
         from ..gpu.pipeline import HashPipeline, PipelineConfig
 
         self.meta = meta
+        self.digests: dict[tuple[int, int], bytes] = {}
         self.backend = pipeline_backend(backend)
         self._pipe = HashPipeline(
             PipelineConfig(
@@ -196,6 +200,9 @@ class BlockIndexer:
                         for i, (sid, indx, bsize, _) in enumerate(batch)
                     ]
                 )
+            else:
+                for i, (sid, indx, _, _) in enumerate(batch):
+                    self.digests[(sid, indx)] = bytes(digests[i])
             self.blocks += len(batch)
             self.bytes += sum(bsize for _, _, bsize, _ in batch)
         except Exception as e:

@@ -2,8 +2,9 @@
 reference: cmd/).
 
 `python -m juicefs_tpu_torch.cmd <command>` runs the commands ported so
-far: `format`, `mount`/`umount`, `gc`, `fsck`, `dump`/`load` and
-`gateway`. Each command module exposes `add_parser(sub)` and a
+far, 13 of the reference's 27: `format`, `mount`/`umount`, `bench`,
+`objbench`, `gc`, `fsck`, `sync`, `dump`/`load`, `gateway`/`webdav` and
+`config`. Each command module exposes `add_parser(sub)` and a
 `run(args)`.
 
 Shared plumbing here: open the meta client, load the volume Format, build
@@ -163,7 +164,18 @@ def build_store(fmt: Format, args=None, meta=None,
 
 
 def main(argv: list[str] | None = None) -> int:
-    from . import dump, format as format_cmd, fsck, gateway, gc, mount
+    from . import (
+        bench,
+        config,
+        dump,
+        format as format_cmd,
+        fsck,
+        gateway,
+        gc,
+        mount,
+        objbench,
+        sync,
+    )
 
     parser = argparse.ArgumentParser(
         prog="juicefs-tpu-torch",
@@ -171,7 +183,8 @@ def main(argv: list[str] | None = None) -> int:
                     "content hashing on an NVIDIA GPU",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    for mod in (format_cmd, mount, gc, fsck, dump, gateway):
+    for mod in (format_cmd, mount, bench, objbench, gc, fsck, sync, dump,
+                gateway, config):
         mod.add_parser(sub)
     args = parser.parse_args(argv)
     try:

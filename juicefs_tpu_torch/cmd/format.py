@@ -100,7 +100,7 @@ def probe_device_bandwidth(backend: str, probe_mb: int = 16) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"--hash-backend {backend} hashes on a CUDA card and none is "
-            "visible; format with --hash-backend cpu on this host")
+            "visible; use --hash-backend cpu on this host")
     name = torch.cuda.get_device_name(0)
     buf = torch.zeros(probe_mb << 20, dtype=torch.uint8)
     dev = torch.empty_like(buf, device="cuda")

@@ -1,16 +1,16 @@
-"""`gateway`: serve the volume over S3 (a copy of juicefs_tpu/cmd/gateway.py;
-reference cmd/gateway.go).
+"""`gateway` / `webdav`: serve the volume over S3 / WebDAV (a copy of
+juicefs_tpu/cmd/gateway.py; reference cmd/gateway.go, cmd/webdav.go).
 
-The `webdav` subcommand of the reference is not ported yet. Every PUT goes
-through the volume's chunk store: on a volume formatted with a device hash
-backend its blocks are fingerprinted on the card by the store's
-`BlockIndexer`, and without a card the command fails at start.
+Every PUT goes through the volume's chunk store: on a volume formatted
+with a device hash backend its blocks are fingerprinted on the card by the
+store's `BlockIndexer`, and without a card the command fails at start.
 `--compress-backend` picks where the compress plane runs (default cuda),
-as for `gc` and `fsck`.
+as for `gc` and `fsck`; `webdav` also takes the gateway's `--metrics`.
 
-In-process drives (tests, `chip_smoke.py`) call `start_gateway(args)` and
-stop what it returns themselves: `_serve_forever` installs signal
-handlers, which works only in the main thread.
+In-process drives (tests, `chip_smoke.py`) call `start_gateway(args)` or
+`start_webdav(args)` and stop what it returns themselves:
+`_serve_forever` installs signal handlers, which works only in the main
+thread.
 """
 
 from __future__ import annotations
@@ -49,6 +49,19 @@ def add_parser(sub):
                    help="admission-gate bound: requests past it shed as "
                         "503 SlowDown instead of queueing")
     g.set_defaults(func=run_gateway)
+
+    w = sub.add_parser("webdav", help="serve the volume over WebDAV")
+    w.add_argument("meta_url")
+    w.add_argument("--address", default="127.0.0.1")
+    w.add_argument("--port", type=int, default=9007)
+    w.add_argument("--metrics", default="",
+                   help="host:port for the /metrics endpoint (empty disables)")
+    w.add_argument("--cache-dir", default="")
+    w.add_argument("--cache-size", type=int, default=0)
+    w.add_argument("--writeback", action="store_true")
+    w.add_argument("--compress-backend", default="cuda", choices=["cpu", "cuda"],
+                   help="where the compress plane of the volume's store runs")
+    w.set_defaults(func=run_webdav)
 
 
 def _build_fs(args):
@@ -92,6 +105,21 @@ def _serve_forever(vfs, m, server, what: str, port: int, metrics: str = ""):
     return 0
 
 
+def _start(args, make):
+    """Build the volume's FileSystem and start `make(fs)` on it; on
+    failure, close what _build_fs opened."""
+    fs, vfs, m = _build_fs(args)
+    try:
+        server = make(fs)
+        server.start()
+    except BaseException:
+        vfs.close()
+        vfs.store.close()
+        m.close_session()
+        raise
+    return server, vfs, m
+
+
 def start_gateway(args):
     """Build the volume's FileSystem and start an S3Gateway on it, as
     `run_gateway` does. Returns (gateway, vfs, meta); the caller stops the
@@ -108,23 +136,28 @@ def start_gateway(args):
         if not tak or not tsk:
             raise SystemExit(f"--tenant-key needs ACCESS:SECRET, got {pair!r}")
         tenant_keys[tak] = tsk
-    fs, vfs, m = _build_fs(args)
-    try:
-        gw = S3Gateway(
-            fs, args.address, args.port, access_key=ak, secret_key=sk,
-            tenant_keys=tenant_keys,
-            max_inflight=getattr(args, "max_inflight", 64),
-        )
-        gw.start()
-    except BaseException:
-        vfs.close()
-        vfs.store.close()
-        m.close_session()
-        raise
-    return gw, vfs, m
+    return _start(args, lambda fs: S3Gateway(
+        fs, args.address, args.port, access_key=ak, secret_key=sk,
+        tenant_keys=tenant_keys,
+        max_inflight=getattr(args, "max_inflight", 64),
+    ))
+
+
+def start_webdav(args):
+    """Build the volume's FileSystem and start a WebDAVServer on it, as
+    `run_webdav` does. Returns (server, vfs, meta), as `start_gateway`."""
+    from ..gateway.webdav import WebDAVServer
+
+    return _start(args, lambda fs: WebDAVServer(fs, args.address, args.port))
 
 
 def run_gateway(args) -> int:
     gw, vfs, m = start_gateway(args)
     return _serve_forever(vfs, m, gw, "S3 gateway", gw.port,
+                          getattr(args, "metrics", ""))
+
+
+def run_webdav(args) -> int:
+    srv, vfs, m = start_webdav(args)
+    return _serve_forever(vfs, m, srv, "WebDAV", srv.port,
                           getattr(args, "metrics", ""))

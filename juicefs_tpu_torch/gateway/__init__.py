@@ -1,9 +1,10 @@
 """HTTP presentation adapters (a copy of juicefs_tpu/gateway; reference:
-pkg/gateway). The port serves S3 only: `webdav.py` is not ported yet.
+pkg/gateway + pkg/fs/http.go).
 
 Serves the volume over the S3 REST API (buckets = top-level directories;
-reference gateway.go:65 NewJFSGateway). Shared here: the request-handler
-base (body/empty-response helpers) and the threaded server lifecycle.
+reference gateway.go:65 NewJFSGateway) and WebDAV (`webdav.py`). Shared
+here: the request-handler base (body/empty-response helpers) and the
+threaded server lifecycle both adapters use.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ class BaseHandler(BaseHTTPRequestHandler):
 
 
 class HTTPAdapter:
-    """start()/stop() lifecycle of a threaded HTTP adapter."""
+    """start()/stop() lifecycle shared by the S3 gateway and WebDAV."""
 
     _name = "http"
 

@@ -60,7 +60,8 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
                  "sdk", "gateway.s3", "gateway.serve", "object.s3", "cmd.gateway",
                  "fuse", "fuse.kernel", "fuse.mount", "fuse.passfd", "fuse.server",
                  "cmd.mount", "cmd.dump", "vfs.backup", "meta.dump", "metric.usage",
-                 "gpu.sharding", "multichip"):
+                 "gpu.sharding", "multichip", "object.webdav", "gateway.webdav",
+                 "cmd.objbench", "cmd.bench", "cmd.sync", "cmd.config"):
         assert "juicefs_tpu_torch." + name in doc["imported"]
     bad = [n for n in doc["loaded"] if _forbidden(n)]
     assert bad == []
@@ -241,3 +242,59 @@ print(json.dumps(sorted(sys.modules)))
                  "chunk.ingest", "meta.kv"):
         assert "juicefs_tpu_torch." + name in loaded
     assert [n for n in loaded if _forbidden(n)] == []
+
+
+def test_lazy_imports_of_the_object_clients_and_new_subcommands_load_no_jax(tmp_path):
+    """The imports inside the function bodies of `objbench` (the resilience
+    wrapper, the compressor, the BlockIndexer), `bench`, `config`, `sync`
+    (local and as a manager with a worker process), the `webdav`
+    subcommand's server and the S3/WebDAV clients are reached by calling
+    them. Neither this process nor the sync worker process, launched
+    through a --worker-launch template with -X importtime, may load jax or
+    a juicefs_tpu module."""
+    imports = tmp_path / "worker-imports.txt"
+    code = f"""
+import json, os, sys, types
+sys.path.insert(0, {REPO!r})
+from juicefs_tpu_torch import cmd
+from juicefs_tpu_torch.cmd import gateway
+from juicefs_tpu_torch.object import create_storage
+t = "{tmp_path}"
+assert cmd.main(["objbench", "file://" + t + "/ob", "--block-size", "1", "--big-object-size",
+                 "2", "--small-objects", "2", "--compress", "lz4", "--hash-backend", "cpu"]) == 0
+os.makedirs(t + "/plain")
+assert cmd.main(["bench", t + "/plain", "--big-file-size", "1", "--small-file-count", "2"]) == 0
+url = "sqlite3://" + t + "/v.db"
+assert cmd.main(["format", url, "v", "--storage", "file", "--bucket", t + "/blob",
+                 "--compress", "none", "--hash-backend", "cpu"]) == 0
+assert cmd.main(["config", url, "--trash-days", "2"]) == 0
+args = types.SimpleNamespace(meta_url=url, address="127.0.0.1", port=0, cache_dir="",
+                             cache_size=0, writeback=False, compress_backend="cpu")
+srv, vfs, m = gateway.start_webdav(args)
+dav = create_storage("webdav://127.0.0.1:%d/vol" % srv.port)
+dav.put("a/b", b"x" * 100)
+assert [o.key for o in dav.list_all()] == ["a/b"]
+os.makedirs(t + "/src")
+open(t + "/src/f", "wb").write(b"y" * 10)
+assert cmd.main(["sync", "file://" + t + "/src", "webdav://127.0.0.1:%d/vol" % srv.port,
+                 "--check-new"]) == 0
+assert create_storage("s3://a:b@127.0.0.1:9/bkt").bucket == "bkt"
+launch = sys.executable + " -X importtime -m juicefs_tpu_torch.cmd {{cmd}} 2> {imports}"
+assert cmd.main(["sync", "file://" + t + "/src", "file://" + t + "/dst", "--manager-listen",
+                 "127.0.0.1:0", "--worker-hosts", "h", "--worker-launch", launch]) == 0
+srv.stop(); vfs.close(); vfs.store.close(); m.close_session(); m.client.close()
+print(json.dumps(sorted(sys.modules)))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("cmd.objbench", "cmd.bench", "cmd.config", "cmd.sync", "gateway.webdav",
+                 "object.webdav", "object.s3", "object.resilient", "compress", "chunk.indexer"):
+        assert "juicefs_tpu_torch." + name in loaded
+    assert [n for n in loaded if _forbidden(n)] == []
+    worker = [line.rsplit("|", 1)[-1].strip() for line in imports.read_text().splitlines()
+              if line.startswith("import time:")]
+    assert "juicefs_tpu_torch.cmd.sync" in worker and "juicefs_tpu_torch.object.resilient" in worker
+    assert [n for n in worker if _forbidden(n)] == []

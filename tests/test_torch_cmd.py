@@ -283,3 +283,192 @@ def test_unindexed_volume_hashes_on_the_card(tmp_path, capsys, caplog, command):
         assert json.loads(lines[-1])["backend"] == "cpu"
     else:
         assert lines[0].startswith("verified 0 blocks (cpu)")
+
+
+# ------------------------------------ objbench, bench and config (twins) --
+
+def test_objbench(tmp_path, capsys):
+    assert cmd.main(["objbench", f"file://{tmp_path}/ob", "--block-size", "1",
+                     "--big-object-size", "4", "--small-objects", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "functional: all checks passed" in out
+    assert "hash" not in json.loads(out.strip().splitlines()[-1])  # "": no volume
+
+
+def test_fs_bench(tmp_path, capsys):
+    d = tmp_path / "plain"
+    d.mkdir()
+    assert cmd.main(["bench", str(d), "--big-file-size", "4",
+                     "--small-file-count", "10", "--json"]) == 0
+    results = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(results) == ["big_read_MiB_s", "big_write_MiB_s", "small_read_files_s",
+                               "small_write_files_s", "stat_files_s"]
+    assert all(v > 0 for v in results.values())
+    assert list(d.iterdir()) == []  # the bench directory is removed
+
+
+def test_config_show_and_update(tmp_path, capsys):
+    meta_url = _format(tmp_path, "testvol", "none")
+    capsys.readouterr()
+    assert cmd.main(["config", meta_url]) == 0
+    shown = json.loads(capsys.readouterr().out)
+    assert shown["name"] == "testvol" and shown["trash_days"] == 0
+    assert cmd.main(["config", meta_url, "--trash-days", "7", "--capacity", "5"]) == 0
+    assert json.loads(capsys.readouterr().out) == {"updated": ["capacity", "trash_days"]}
+    assert cmd.main(["config", meta_url]) == 0
+    after = json.loads(capsys.readouterr().out)
+    assert after["trash_days"] == 7 and after["capacity"] == 5 << 30
+    assert after["uuid"] == shown["uuid"]  # identity preserved across updates
+
+
+def test_config_hot_reload_reaches_live_client(tmp_path):
+    """Another process's `config` change reaches a live client through the
+    session refresher."""
+    import time as _time
+
+    meta_url = _format(tmp_path, "testvol", "none")
+    m, fmt = cmd.open_meta(meta_url)
+    m.new_session(heartbeat=0.1)
+    try:
+        seen = []
+        m.on_reload(lambda f: seen.append(f.trash_days))
+        assert cmd.main(["config", meta_url, "--trash-days", "9"]) == 0
+        deadline = _time.time() + 5
+        while _time.time() < deadline and not seen:
+            _time.sleep(0.05)
+        assert seen and seen[-1] == 9
+        assert m.fmt.trash_days == 9
+    finally:
+        m.close_session()
+        m.client.close()
+
+
+# ------------------------------------ objbench and config vs the reference --
+
+class _Recorder:
+    """A BlockIndexer factory that keeps the indexers objbench builds and
+    the raw bytes it submits (the payloads are rotations of a random seed
+    drawn in the command)."""
+
+    def __init__(self, cls):
+        rec = self
+        self.built = []
+
+        class Recording(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.raw = {}
+                rec.built.append(self)
+
+            def submit_raw(self, sid, indx, bsize, raw):
+                self.raw[(sid, indx)] = bytes(raw)
+                super().submit_raw(sid, indx, bsize, raw)
+
+        self.cls = Recording
+
+
+def test_objbench_digests_match_the_spec_and_the_reference(tmp_path, capsys, monkeypatch):
+    """`objbench --hash-backend cpu` on both packages hashes the same number
+    of blocks; the port's in-memory digests of its payloads are the numpy
+    spec's."""
+    from juicefs_tpu_torch.chunk import indexer as port_indexer
+
+    rec = _Recorder(port_indexer.BlockIndexer)
+    monkeypatch.setattr(port_indexer, "BlockIndexer", rec.cls)
+    argv = ["objbench", None, "--block-size", "1", "--big-object-size", "6",
+            "--small-objects", "4", "--compress", "lz4", "--hash-backend", "cpu"]
+    hashed = {}
+    for side, main in (("ref", ref_main), ("port", cmd.main)):
+        argv[1] = f"file://{tmp_path}/{side}"
+        rc, lines = _run(main, argv, capsys)
+        assert rc == 0 and "functional: all checks passed" in lines
+        out = json.loads(lines[-1])
+        assert out["compress"] == "lz4" and out["functional_failures"] == []
+        hashed[side] = {k: out["hash"][k] for k in ("backend", "blocks", "bytes", "errors",
+                                                   "dropped")}
+    assert hashed["port"] == hashed["ref"] == {"backend": "cpu", "blocks": 6,
+                                               "bytes": 6 << 20, "errors": 0, "dropped": 0}
+    (ix,) = rec.built
+    assert ix.meta is None and sorted(ix.digests) == [(0, i) for i in range(6)]
+    raws = [ix.raw[(0, i)] for i in range(6)]
+    assert raws[1] == raws[0][1:] + raws[0][:1]  # rotations of one seed
+    assert [ix.digests[(0, i)] for i in range(6)] == [jth256(r) for r in raws]
+
+
+@pytest.mark.parametrize("command", ["objbench", "config"])
+def test_device_hash_backend_without_card_never_hashes_on_the_cpu(tmp_path, capsys,
+                                                                  monkeypatch, command):
+    """`objbench --hash-backend pallas` and `config --hash-backend pallas`
+    need the card: with none, objbench exits 1 with no result line,
+    config exits 1 with the Format record as it was, and nothing is
+    hashed on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    from juicefs_tpu_torch.gpu import pipeline
+
+    hashed = []
+    real = pipeline.HashPipeline.hash_stream
+    monkeypatch.setattr(pipeline.HashPipeline, "hash_stream",
+                        lambda self, *a, **kw: hashed.append(1) or real(self, *a, **kw))
+    if command == "objbench":
+        rc, lines = _run(cmd.main, ["objbench", f"file://{tmp_path}/ob", "--block-size", "1",
+                                    "--big-object-size", "4", "--hash-backend", "pallas"],
+                         capsys)
+        assert rc == 1 and lines == ["functional: all checks passed"]
+    else:
+        meta_url = _format(tmp_path, "vol", "none")
+        before = _run(cmd.main, ["config", meta_url], capsys)[1]
+        rc, lines = _run(cmd.main, ["config", meta_url, "--hash-backend", "pallas",
+                                    "--trash-days", "3"], capsys)
+        assert rc == 1 and lines == []
+        assert _run(cmd.main, ["config", meta_url], capsys)[1] == before
+        assert json.loads("\n".join(before))["hash_backend"] == "cpu"
+    assert hashed == []
+
+
+def _shown(main, meta_url, capsys) -> dict:
+    rc, lines = _run(main, ["config", meta_url], capsys)
+    assert rc == 0
+    return json.loads("\n".join(lines))
+
+
+@pytest.mark.parametrize("writer", ["port", "ref"])
+def test_config_record_reads_back_in_both_packages(tmp_path, capsys, writer):
+    """A Format record formatted by one package and rewritten by the other
+    package's `config` (the meta_version bump of hash_backend included)
+    reads back identically in both."""
+    mains = {"port": cmd.main, "ref": ref_main}
+    other = "ref" if writer == "port" else "port"
+    meta_url = f"sqlite3://{tmp_path}/vol.db"
+    assert mains[other](["format", meta_url, "vol", "--storage", "file", "--bucket",
+                         str(tmp_path / "blob"), "--trash-days", "0"]) == 0
+    capsys.readouterr()
+    rc, lines = _run(mains[writer], ["config", meta_url, "--trash-days", "4", "--capacity",
+                                     "2", "--inodes", "1000", "--hash-backend", "cpu",
+                                     "--enable-acl"], capsys)
+    assert rc == 0
+    assert json.loads(lines[-1]) == {"updated": ["capacity", "enable_acl", "hash_backend",
+                                                 "inodes", "trash_days"]}
+    shown = {side: _shown(mains[side], meta_url, capsys) for side in ("port", "ref")}
+    assert shown["port"] == shown["ref"]
+    assert shown["port"]["hash_backend"] == "cpu" and shown["port"]["meta_version"] >= 2
+    assert (shown["port"]["trash_days"], shown["port"]["capacity"],
+            shown["port"]["inodes"], shown["port"]["enable_acl"]) == (4, 2 << 30, 1000, True)
+
+
+def test_cli_has_the_ported_subcommands(capsys):
+    """13 of the reference's 27 subcommands, with `create_storage` taking
+    the s3, minio and webdav schemes."""
+    from juicefs_tpu_torch.object import create_storage
+
+    import re
+
+    with pytest.raises(SystemExit):
+        cmd.main(["--help"])
+    choices = re.search(r"\{([a-z,-]+)\}", capsys.readouterr().out)[1].split(",")
+    assert choices == ["format", "mount", "umount", "bench", "objbench", "gc", "fsck", "sync",
+                       "dump", "load", "gateway", "webdav", "config"]
+    for uri in ("s3://a:b@127.0.0.1:9/bkt", "minio://127.0.0.1:9/bkt",
+                "webdav://127.0.0.1:9/base"):
+        assert create_storage(uri).string().startswith(uri.split("://")[0].replace(
+            "minio", "s3"))

@@ -2,12 +2,12 @@
 juicefs_tpu_torch/gateway) over hermetic backends, against the JAX
 package's.
 
-First the cases of tests/test_fs_gateway.py (fs SDK and S3) and the S3
-cases of tests/test_gateway_plane.py (streaming GET, ingest/dedup PUTs,
-multipart with a duplicate part, admission 503, SigV4 tenancy and a lying
-payload hash, pagination, copy) run on the port; the port has no WebDAV
-adapter and no fault-injecting store yet, so those cases stay with the JAX
-package's suite. Then one seeded request sequence goes to the JAX
+First the cases of tests/test_fs_gateway.py (fs SDK, S3 and WebDAV) and
+the S3 and WebDAV cases of tests/test_gateway_plane.py (streaming GET,
+ingest/dedup PUTs, multipart with a duplicate part, admission 503, SigV4
+tenancy and a lying payload hash, pagination, copy, WebDAV ranges and
+server-side COPY) run on the port; the port has no fault-injecting store
+yet, so the chaos drill stays with the JAX package's suite. Then one seeded request sequence goes to the JAX
 package's S3Gateway and to the port's, and the statuses, ETags, bodies
 and listings must be equal; the `gateway` subcommand's volume store, with
 a cpu BlockIndexer, writes the same digest rows as the JAX package's; and
@@ -940,10 +940,106 @@ def test_error_families_counted_from_400_up(s3_plane):
 
 # ----------------------------------------------------------------- webdav --
 
+@pytest.fixture
+def dav(fs):
+    from juicefs_tpu_torch.gateway.webdav import WebDAVServer
+
+    srv = WebDAVServer(fs, port=0)
+    port = srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    yield conn
+    conn.close()
+    srv.stop()
 
 
+def test_webdav_basic(dav):
+    st, hdrs, _ = _req(dav, "OPTIONS", "/")
+    assert st == 200 and "PROPFIND" in hdrs["Allow"]
+    st, _, _ = _req(dav, "MKCOL", "/docs")
+    assert st == 201
+    st, _, _ = _req(dav, "PUT", "/docs/a.txt", body=b"dav data",
+                    headers={"Content-Length": "8"})
+    assert st == 201
+    st, _, body = _req(dav, "GET", "/docs/a.txt")
+    assert st == 200 and body == b"dav data"
+    st, _, body = _req(dav, "PROPFIND", "/docs", headers={"Depth": "1"})
+    assert st == 207 and b"a.txt" in body and b"multistatus" in body
+    st, _, _ = _req(dav, "MOVE", "/docs/a.txt",
+                    headers={"Destination": "http://x/docs/b.txt"})
+    assert st == 201
+    st, _, body = _req(dav, "GET", "/docs/b.txt")
+    assert body == b"dav data"
+    st, _, _ = _req(dav, "COPY", "/docs/b.txt",
+                    headers={"Destination": "http://x/docs/c.txt"})
+    assert st == 201
+    st, _, _ = _req(dav, "DELETE", "/docs")
+    assert st == 204
+    st, _, _ = _req(dav, "GET", "/docs/b.txt")
+    assert st == 404
 
 
+def test_webdav_put_without_parent_409(dav):
+    st, _, _ = _req(dav, "PUT", "/nope/f.txt", body=b"x",
+                    headers={"Content-Length": "1"})
+    assert st == 409
+
+
+@pytest.fixture
+def dav_plane(plane_vol):
+    from juicefs_tpu_torch.gateway.webdav import WebDAVServer
+
+    fs, v, store, counting = plane_vol
+    srv = WebDAVServer(fs, port=0)
+    port = srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    yield conn, srv, fs, counting
+    conn.close()
+    srv.stop()
+
+
+def test_webdav_get_streams_and_shares_range_semantics(dav_plane):
+    conn, srv, fs, counting = dav_plane
+    body = b"".join(bytes([i]) * BS for i in range(3)) + b"tail"
+    st, _, _ = _req(conn, "PUT", "/s.bin", body=body)
+    assert st == 201
+    st, _, got = _req(conn, "GET", "/s.bin")
+    assert st == 200 and got == body
+    st, hdrs, got = _req(conn, "GET", "/s.bin",
+                         headers={"Range": f"bytes={BS - 3}-{BS + 3}"})
+    assert st == 206 and got == body[BS - 3:BS + 4]
+    assert hdrs["Content-Range"] == f"bytes {BS - 3}-{BS + 3}/{len(body)}"
+    st, _, got = _req(conn, "GET", "/s.bin", headers={"Range": "bytes=-4"})
+    assert st == 206 and got == b"tail"
+    st, _, _ = _req(conn, "GET", "/s.bin",
+                    headers={"Range": f"bytes={len(body)}-"})
+    assert st == 416
+    # multi-range and inverted specs are ignored — same shared semantics
+    st, _, got = _req(conn, "GET", "/s.bin",
+                      headers={"Range": "bytes=0-1,3-4"})
+    assert st == 200 and got == body
+    st, _, got = _req(conn, "GET", "/s.bin", headers={"Range": "bytes=9-3"})
+    assert st == 200 and got == body
+
+
+def test_webdav_copy_is_server_side(dav_plane):
+    conn, srv, fs, counting = dav_plane
+    body = b"q" * (2 * BS)
+    st, _, _ = _req(conn, "PUT", "/orig.bin", body=body)
+    assert st == 201
+    puts0, gets0 = len(counting.put_keys), len(counting.get_keys)
+    st, _, _ = _req(conn, "COPY", "/orig.bin",
+                    headers={"Destination": "http://x/copy.bin"})
+    assert st == 201
+    assert len(counting.put_keys) == puts0, "COPY re-uploaded data"
+    assert len(counting.get_keys) == gets0, "COPY re-read data"
+    st, _, got = _req(conn, "GET", "/copy.bin")
+    assert st == 200 and got == body
+    # COPY onto itself must not truncate the file through create()
+    st, _, _ = _req(conn, "COPY", "/orig.bin",
+                    headers={"Destination": "http://x/orig.bin"})
+    assert st in (201, 204)
+    st, _, got = _req(conn, "GET", "/orig.bin")
+    assert st == 200 and got == body, "self-COPY destroyed the file"
 
 
 # --------------------------------------------------------- s3 server copy --
