@@ -140,6 +140,29 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               client with no indexer: `config --hash-backend pallas` (probes
               the card), then `gc --dedup` hashes every block on the card in
               one launch per 32 blocks and finds the planted duplicates
+  19. meta    BASELINE #3 on phase 5's plan: `python -m juicefs_tpu_torch.cmd
+              meta-server --data X.aof --fsync always` and a second process
+              with `--replica-of` it; the port's gateway on a file:// volume
+              as the S3 store; `format redis://... --storage minio
+              --hash-backend pallas --compress lz4`, 1 GiB written through
+              `build_store` (the indexer's gates as in phase 11); `fsck
+              --verify-data` on `redis://...?replica=` verifies every block
+              in one launch per 32 with 0 mismatches (its sweeps read the
+              primary, as the reference's do), then finds exactly one
+              planted (lz4-valid) bitrot behind the gateway; `info` and
+              `summary` on the same URL read the replica (point reads);
+              the primary SIGKILLed and restarted on its AOF keeps every
+              digest row, and `gc --dedup`, with a fifth of the rows
+              deleted, trusts the rest, hashes exactly the missing blocks
+              on the card in one launch per 32, finds the planted
+              duplicates, writes the spec's index and puts the deleted rows
+              back; `status`, `info`, `summary`, `quota set/check`, `clone`
+              (no object added), `rmr`, `restore` and `mdtest --dirs 10
+              --files 100` exit 0 with their JSON checked. Then the same
+              write, gc (a fifth of the rows deleted), fsck and planted
+              bitrot on `format sql://... --hash-backend pallas --compress
+              lz4`, `dump` -> `load` into sqlite3:// with equal digest
+              rows, and `destroy`, which leaves the bucket empty
 
 Each phase prints its seconds. It prints a `{"kernels": [...]}` line and,
 as its last line, `{"ok": true, "device": {...}}`. It imports nothing of
@@ -205,6 +228,7 @@ from juicefs_tpu_torch.metric import global_registry
 from juicefs_tpu_torch.metric.trace import stage_metrics_snapshot
 from juicefs_tpu_torch.multichip import dryrun_multichip
 from juicefs_tpu_torch.object.file import FileStorage
+from juicefs_tpu_torch.object.resilient import resilient
 from juicefs_tpu_torch.object.s3 import SigV4
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -822,10 +846,11 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def cli(argv: list[str]) -> tuple[int, str, list[str]]:
-    """Run one port CLI command as a user would; echo and return its rc,
-    stdout and the ERROR records of its loggers. cmd.main logs and returns
-    1 on an exception, so every caller checks the rc."""
+def cli(argv: list[str], echo_lines: int = 0) -> tuple[int, str, list[str]]:
+    """Run one port CLI command as a user would; echo (its first
+    `echo_lines` lines of output, 0 = all) and return its rc, stdout and
+    the ERROR records of its loggers. cmd.main logs and returns 1 on an
+    exception, so every caller checks the rc."""
     buf, rec = io.StringIO(), _Records()
     log = logging.getLogger("cmd")
     log.addHandler(rec)
@@ -836,7 +861,10 @@ def cli(argv: list[str]) -> tuple[int, str, list[str]]:
         log.removeHandler(rec)
     out = buf.getvalue()
     shown = [a if "://" not in a else a.split("://", 1)[0] + "://..." for a in argv]
-    print(f"$ {' '.join(shown)}\n{out.rstrip()}\n(rc {rc})")
+    shown_out = out.rstrip()
+    if echo_lines and shown_out.count("\n") >= echo_lines:
+        shown_out = "\n".join(shown_out.splitlines()[:echo_lines] + ["..."])
+    print(f"$ {' '.join(shown)}\n{shown_out}\n(rc {rc})")
     for msg in rec.messages:
         print(f"  log: {msg}")
     return rc, out, rec.messages
@@ -861,33 +889,30 @@ def stage_count(name: str) -> int:
     return stage_metrics_snapshot().get(name, {"count": 0})["count"]
 
 
-def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> dict:
-    """format -> indexed write through build_store -> gc --dedup -> fsck
-    --verify-data, all through the port's CLI and kv engine on a sqlite3://
-    volume, then planted bitrot and a cross-open of the meta file."""
-    phase("main path: format, indexed write, gc, fsck")
-    bs = BLOCK_BYTES
-    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
-                                  (1 << 20) + 7)
-    n_blocks, nbytes = len(blocks), sum(len(b) for b in blocks)
-    base = tempfile.mkdtemp(prefix="jfs-torch-main-")
-    meta_url = f"sqlite3://{base}/meta.db"
-    store = None
-    try:
-        # 1. format: a device hash backend probes the card (or fails)
-        rc, out, _ = cli(["format", meta_url, "smoke", "--storage", "file", "--bucket",
-                          os.path.join(base, "blob"), "--compress", "none",
-                          "--hash-backend", "pallas", "--trash-days", "0"])
-        if rc != 0 or kind not in out:
-            raise AssertionError(f"format rc {rc}; probe line must name {kind}")
+def close_meta(m) -> None:
+    """Close a meta client's database handle: the kv engine's client, or
+    the sql engine's connection on this thread."""
+    if hasattr(m, "client"):
+        m.client.close()
+    elif getattr(m._tlocal, "conn", None) is not None:
+        m._tlocal.conn.close()
+        m._tlocal.conn = None
 
-        # 2. indexed write: one file, each block its own slice
-        m, fmt = cmd.open_meta(meta_url)
-        store = cmd.build_store(fmt, None, meta=m)
+
+def indexed_write(meta_url: str, blocks: list, name: bytes) -> dict:
+    """Every block its own slice of one file `name`, written through
+    `build_store` with its BlockIndexer on the card; gates: no indexer
+    errors, indexed + dropped == written, one launch per index batch.
+    Returns the indexer stats, the write's seconds, batches and launches,
+    the digest rows by block key and the block keys in write order."""
+    bs = BLOCK_BYTES
+    m, fmt = cmd.open_meta(meta_url)
+    store = cmd.build_store(fmt, None, meta=m)
+    try:
         if store.indexer is None or store.indexer.backend != "cuda":
             raise AssertionError("build_store attached no cuda BlockIndexer")
         ctx = Context(uid=0, gid=0)
-        st, ino, _ = m.create(ctx, 1, b"smoke.bin", 0o644)
+        st, ino, _ = m.create(ctx, 1, name, 0o644)
         if st != 0:
             raise AssertionError(f"create: errno {st}")
         per_chunk = CHUNK_SIZE // bs
@@ -911,48 +936,142 @@ def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> d
         index_launches = launches()
         index_batches = stage_count("gpu.index.batch") - batches0
         ix = store.indexer.stats()
-        write_gibs = nbytes / (1 << 30) / write_s
-        print(f"indexed write of {n_blocks} blocks ({nbytes / (1 << 30):.4f} GiB, {planted} "
-              f"planted duplicates) in {write_s:.3f} s = {write_gibs:.4f} GiB/s; indexer "
+        if m.close(ctx, ino) != 0:
+            raise AssertionError("close of the written file failed")
+        nbytes = sum(len(b) for b in blocks)
+        print(f"indexed write of {len(blocks)} blocks ({nbytes / (1 << 30):.4f} GiB) in "
+              f"{write_s:.3f} s = {nbytes / (1 << 30) / write_s:.4f} GiB/s; indexer "
               f"{json.dumps(ix)}; {index_batches} index batches, {index_launches} launches")
         if ix["errors"] != 0:
             raise AssertionError(f"indexer errors {ix['errors']}")
-        if ix["blocks"] + ix["dropped"] != n_blocks:
+        if ix["blocks"] + ix["dropped"] != len(blocks):
             raise AssertionError(f"indexer blocks {ix['blocks']} + dropped {ix['dropped']} "
-                                 f"!= {n_blocks} uploaded")
+                                 f"!= {len(blocks)} uploaded")
         if index_batches == 0 or index_launches != index_batches:
             raise AssertionError(f"{index_launches} launches for {index_batches} index batches")
-        indexed_rows = {block_key(sid, indx, bsize): d
-                        for sid, indx, bsize, d in m.scan_block_digests()}
+        rows = {block_key(sid, indx, bsize): d
+                for sid, indx, bsize, d in m.scan_block_digests()}
         order = [block_key(s.id, 0, s.size) for s in
                  sorted((s for sl in m.list_slices().values() for s in sl),
                         key=lambda s: s.id)]
+    finally:
         store.close()
-        store = None
-        m.client.close()
+        close_meta(m)
+    return {"indexer": ix, "seconds": write_s, "gibs": nbytes / (1 << 30) / write_s,
+            "index_batches": index_batches, "launches": index_launches, "rows": rows,
+            "order": order}
+
+
+def dedup_gc(meta_url: str, written: dict, blocks: list, planted: int,
+             index_path: str, lost: int = 0) -> tuple[dict, float, int]:
+    """`gc --dedup` after an indexed write, with every `lost`-th of the
+    indexer's digest rows deleted first (0: none), as a client without an
+    indexer loses them; gates: no leak, the index trusted (from_index ==
+    the rows left), exactly the dropped and deleted blocks hashed, in one
+    launch per 32, the planted duplicates found, sampled index entries ==
+    the numpy spec, and the deleted rows written back equal. Returns gc's
+    counts, its seconds and launches."""
+    ix, order = written["indexer"], written["order"]
+    gone = sorted(written["rows"])[::lost] if lost else []
+    if gone:
+        m = new_client(meta_url)
+        m.delete_block_digests([parse_block_key(k)[:2] for k in gone])
+        close_meta(m)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, out, _ = cli(["gc", meta_url, "--dedup", "--threads", "16",
+                      "--compress-backend", "cuda", "--dedup-index", index_path])
+    gc_s = time.perf_counter() - t0
+    gc_launches = launches()
+    lines = out.strip().splitlines()
+    if rc != 0 or not lines[0].endswith("0 leaked, 0 missing"):
+        raise AssertionError(f"gc rc {rc}: {lines[:1]}")
+    gc = json.loads(lines[-1])
+    missing = ix["dropped"] + len(gone)
+    want = {"from_index": ix["blocks"] - len(gone), "hashed_now": missing,
+            "duplicate_blocks": planted, "blocks": len(blocks)}
+    got = {k: gc[k] for k in want}
+    if got != want or gc_launches != -(-missing // 32):
+        raise AssertionError(f"gc {got} != {want}, or {gc_launches} launches for "
+                             f"{missing} blocks missing from the index")
+    index = json.load(open(index_path))
+    for key in order[:: max(1, len(blocks) // 8)][:8]:
+        if index[key] != jth256(blocks[order.index(key)]).hex():
+            raise AssertionError(f"{key}: dedup index digest != numpy spec")
+    if gone:
+        m = new_client(meta_url)
+        rows = {block_key(sid, indx, bsize): d
+                for sid, indx, bsize, d in m.scan_block_digests()}
+        close_meta(m)
+        if {k: rows.get(k) for k in written["rows"]} != written["rows"]:
+            raise AssertionError(f"gc's backfill of {len(gone)} deleted rows != the "
+                                 "indexer's rows")
+    return gc, gc_s, gc_launches
+
+
+def verified_fsck(meta_url: str, n_blocks: int, hash_path: str = "") -> tuple[float, int]:
+    """`fsck --verify-data`; gates: every block verified on the card in one
+    launch per 32 blocks with 0 mismatches. Returns its seconds and
+    launches."""
+    argv = ["fsck", meta_url, "--verify-data"] + (["--hash-index", hash_path]
+                                                  if hash_path else [])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, out, _ = cli(argv)
+    fsck_s = time.perf_counter() - t0
+    fsck_launches = launches()
+    if rc != 0 or f"verified {n_blocks} blocks (cuda)" not in out \
+            or "0 digest mismatches" not in out:
+        raise AssertionError(f"fsck rc {rc}")
+    if fsck_launches != -(-n_blocks // 32):
+        raise AssertionError(f"fsck: {fsck_launches} launches, want {-(-n_blocks // 32)}")
+    return fsck_s, fsck_launches
+
+
+def planted_bitrot(meta_url: str, objects, victim: str, rng: np.random.Generator,
+                   compress: str = "none") -> bytes:
+    """Overwrite one block object with other bytes of its size, stored as
+    the volume stores blocks (`compress`); the next `fsck --verify-data`
+    must report exactly that block. Returns the original object."""
+    original = bytes(objects.get(victim))
+    objects.put(victim, new_compressor(compress).compress(
+        rng.bytes(parse_block_key(victim)[2])))
+    rc, out, errors = cli(["fsck", meta_url, "--verify-data"])
+    mismatched = [e for e in errors if "digest mismatch" in e]
+    if rc != 1 or "1 digest mismatches" not in out or len(mismatched) != 1 \
+            or victim not in mismatched[0]:
+        raise AssertionError(f"bitrot: rc {rc}, mismatch records {mismatched}, "
+                             f"want 1 naming {victim}")
+    return original
+
+
+def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> dict:
+    """format -> indexed write through build_store -> gc --dedup -> fsck
+    --verify-data, all through the port's CLI and kv engine on a sqlite3://
+    volume, then planted bitrot and a cross-open of the meta file."""
+    phase("main path: format, indexed write, gc, fsck")
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                  (1 << 20) + 7)
+    n_blocks, nbytes = len(blocks), sum(len(b) for b in blocks)
+    base = tempfile.mkdtemp(prefix="jfs-torch-main-")
+    meta_url = f"sqlite3://{base}/meta.db"
+    try:
+        # 1. format: a device hash backend probes the card (or fails)
+        rc, out, _ = cli(["format", meta_url, "smoke", "--storage", "file", "--bucket",
+                          os.path.join(base, "blob"), "--compress", "none",
+                          "--hash-backend", "pallas", "--trash-days", "0"])
+        if rc != 0 or kind not in out:
+            raise AssertionError(f"format rc {rc}; probe line must name {kind}")
+
+        # 2. indexed write: one file, each block its own slice
+        written = indexed_write(meta_url, blocks, b"smoke.bin")
+        ix, indexed_rows, order = written["indexer"], written["rows"], written["order"]
 
         # 3. gc --dedup: trusts the index, backfills what the indexer dropped
         index_path = os.path.join(base, "dedup-index.json")
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        rc, out, _ = cli(["gc", meta_url, "--dedup", "--threads", "16",
-                          "--compress-backend", "cuda", "--dedup-index", index_path])
-        gc_s = time.perf_counter() - t0
-        gc_launches = launches()
-        lines = out.strip().splitlines()
-        if rc != 0 or not lines[0].endswith("0 leaked, 0 missing"):
-            raise AssertionError(f"gc rc {rc}: {lines[:1]}")
-        gc = json.loads(lines[-1])
-        want = {"from_index": ix["blocks"], "hashed_now": ix["dropped"],
-                "duplicate_blocks": planted, "blocks": n_blocks}
-        got = {k: gc[k] for k in want}
-        if got != want:
-            raise AssertionError(f"gc {got} != {want}")
+        gc, gc_s, gc_launches = dedup_gc(meta_url, written, blocks, planted, index_path)
         index = json.load(open(index_path))
-        for key in order[:: max(1, n_blocks // 8)][:8]:
-            i = order.index(key)
-            if index[key] != jth256(blocks[i]).hex():
-                raise AssertionError(f"{key}: dedup index digest != numpy spec")
         # backfill on the card: rows lost as a client without an indexer
         # loses them are read back, hashed in 32-block batches and restored
         lost = sorted(indexed_rows)[::5]
@@ -975,30 +1094,15 @@ def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> d
 
         # 4. fsck --verify-data: re-hash every block on the card
         hash_path = os.path.join(base, "hash-index.json")
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        rc, out, _ = cli(["fsck", meta_url, "--verify-data", "--hash-index", hash_path])
-        fsck_s = time.perf_counter() - t0
-        fsck_launches = launches()
-        want_batches = -(-n_blocks // 32)
-        if rc != 0 or f"verified {n_blocks} blocks (cuda)" not in out \
-                or "0 digest mismatches" not in out:
-            raise AssertionError(f"fsck rc {rc}")
-        if fsck_launches != want_batches:
-            raise AssertionError(f"fsck: {fsck_launches} launches, want {want_batches}")
+        fsck_s, fsck_launches = verified_fsck(meta_url, n_blocks, hash_path)
         if json.load(open(hash_path)) != index:
             raise AssertionError("fsck hash index != gc dedup index")
         fsck_gibs = nbytes / (1 << 30) / fsck_s
         # planted bitrot: other bytes of the same size under one block key
         victim = order[n_blocks // 2]
-        objects = cmd.storage_for(fmt)
-        objects.put(victim, rng.bytes(len(objects.get(victim))))
-        rc, out, errors = cli(["fsck", meta_url, "--verify-data"])
-        mismatched = [e for e in errors if "digest mismatch" in e]
-        if rc != 1 or "1 digest mismatches" not in out or len(mismatched) != 1 \
-                or victim not in mismatched[0]:
-            raise AssertionError(f"bitrot: rc {rc}, mismatch records {mismatched}, "
-                                 f"want 1 naming {victim}")
+        _m, fmt = cmd.open_meta(meta_url)
+        _m.client.close()
+        planted_bitrot(meta_url, cmd.storage_for(fmt), victim, rng)
 
         # 5. cross-open: a fresh client reads the rows the indexer wrote
         # (and gc's backfill of what it dropped)
@@ -1012,26 +1116,25 @@ def main_path_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> d
         if {k: d.hex() for k, d in rows.items()} != index:
             raise AssertionError("reopened meta: rows != gc dedup index")
         print(f"gates ok: format probed {kind}; {ix['blocks']} blocks indexed in "
-              f"{index_batches} batches ({ix['dropped']} dropped, {ix['errors']} errors), "
-              f"one launch per batch; gc from_index {gc['from_index']}, hashed_now "
+              f"{written['index_batches']} batches ({ix['dropped']} dropped, {ix['errors']} "
+              f"errors), one launch per batch; gc from_index {gc['from_index']}, hashed_now "
               f"{gc['hashed_now']}, {planted} duplicates, sampled index == spec, "
               f"{len(lost)} lost rows backfilled on the card; fsck "
               f"verified {n_blocks} blocks in {fsck_launches} launches, 0 mismatches, then "
               f"exactly {victim}; reopened meta rows == indexer rows")
-        print(f"main path: write {write_gibs:.4f} GiB/s; gc --dedup {gc_s:.3f} s "
+        print(f"main path: write {written['gibs']:.4f} GiB/s; gc --dedup {gc_s:.3f} s "
               f"({gc['from_index']} blocks from the index, {gc['hashed_now']} read and "
               f"hashed), {backfill_s:.3f} s to backfill {len(lost)} lost rows "
               f"({backfill['gibs']} GiB/s over the volume); fsck --verify-data {fsck_gibs:.4f} GiB/s ({fsck_s:.3f} s); "
               f"indexer busy {ix['busy_seconds']} s = {ix['hash_mib_s']} MiB/s")
-        return {"blocks": n_blocks, "write_gibs": write_gibs, "gc_seconds": gc_s,
+        return {"blocks": n_blocks, "write_gibs": written["gibs"], "gc_seconds": gc_s,
                 "backfill_seconds": backfill_s, "backfilled": len(lost),
-                "fsck_gibs": fsck_gibs, "indexer": ix, "index_batches": index_batches,
-                "launches": {"index": index_launches, "gc": gc_launches,
+                "fsck_gibs": fsck_gibs, "indexer": ix,
+                "index_batches": written["index_batches"],
+                "launches": {"index": written["launches"], "gc": gc_launches,
                              "fsck": fsck_launches},
                 "gc": gc}
     finally:
-        if store is not None:
-            store.close()
         shutil.rmtree(base, ignore_errors=True)
 
 
@@ -2465,6 +2568,301 @@ def config_phase(rng: np.random.Generator, volume_gib: float, kind: str) -> dict
         shutil.rmtree(base, ignore_errors=True)
 
 
+def meta_server_process(port: int, *extra: str):
+    """`python -m juicefs_tpu_torch.cmd meta-server` as a process on
+    `port`; returns it once it listens."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "juicefs_tpu_torch.cmd", "meta-server", "--host", "127.0.0.1",
+         "--port", str(port), *extra],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if "meta-server listening on" not in line:
+        raise AssertionError(f"meta-server exited with {proc.wait()}: {line!r}")
+    return proc
+
+
+def stop_process(proc, what: str, sig: int = signal.SIGTERM) -> None:
+    """Send `sig` to a meta-server process this script started; it must
+    die of it, as the reference's does (no handler: SIGKILL is a crash)."""
+    proc.send_signal(sig)
+    try:
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if proc.stdout is not None:
+            proc.stdout.close()
+    if rc != -sig:
+        raise AssertionError(f"{what} exited with {rc} on signal {sig}")
+
+
+def redis_epoch(port: int, db: int) -> int:
+    from juicefs_tpu_torch.meta.redis_kv import RedisKV, RespConnection
+
+    conn = RespConnection("127.0.0.1", port, db=db)
+    try:
+        return int(conn.execute(b"GET", RedisKV.EPOCH_KEY) or 0)
+    finally:
+        conn.close()
+
+
+def wait_replica(pport: int, rport: int, db: int) -> None:
+    """Wait until the replica has applied everything the primary committed
+    (its change epoch caught up); fails after 120 s."""
+    target = redis_epoch(pport, db)
+    deadline = time.time() + 120
+    while redis_epoch(rport, db) < target:
+        if time.time() > deadline:
+            raise AssertionError("the meta replica never caught up with the primary")
+        time.sleep(0.05)
+
+
+def meta_cli_json(argv: list[str]):
+    """Run a meta subcommand that prints JSON (echoing its head); rc 0
+    required."""
+    rc, out, _ = cli(argv, echo_lines=12)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} rc {rc}")
+    return json.loads(out)
+
+
+def meta_subcommands(meta_url: str, written: dict, blocks: list, objects) -> dict:
+    """status, info, summary, quota set/check, clone, rmr, restore and
+    mdtest on the volume, each through the port's CLI, with their JSON
+    checked. Returns each command's seconds."""
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    nbytes = sum(len(b) for b in blocks)
+    status = timed("status", lambda: meta_cli_json(["status", meta_url]))
+    if status["format"]["hash_backend"] != "pallas" or status["used_space"] < nbytes \
+            or status["object_plane"].get("probe") != "ok":
+        raise AssertionError(f"status: {status['format']}, used {status['used_space']}, "
+                             f"{status['object_plane']}")
+    info = timed("info", lambda: meta_cli_json(["info", meta_url, "/meta.bin"]))
+    n_slices = sum(len(c["slices"]) for c in info["chunks"])
+    if info["length"] != nbytes or n_slices != len(blocks):
+        raise AssertionError(f"info: length {info['length']}, {n_slices} slices")
+    summary = timed("summary", lambda: meta_cli_json(["summary", meta_url, "/"]))
+    if summary["files"] < 1 or summary["length"] < nbytes:
+        raise AssertionError(f"summary {summary}")
+    rc, _out, _ = cli(["quota", "set", meta_url, "/", "--inodes", "100000", "--space", "64"])
+    check = timed("quota_check", lambda: meta_cli_json(["quota", "check", meta_url, "/"]))
+    if rc != 0 or check["drifted"] or check["actual_space"] < nbytes:
+        raise AssertionError(f"quota set rc {rc}; check {check}")
+    n_objects = sum(1 for _ in objects.list_all("chunks/"))
+    t0 = time.perf_counter()
+    rc, out, _ = cli(["clone", meta_url, "/meta.bin", "/clone.bin"])
+    secs["clone"] = round(time.perf_counter() - t0, 3)
+    clone = meta_cli_json(["info", meta_url, "/clone.bin"])
+    if rc != 0 or clone["length"] != nbytes or \
+            sum(1 for _ in objects.list_all("chunks/")) != n_objects:
+        raise AssertionError(f"clone rc {rc}: length {clone['length']}, objects "
+                             "added")
+    t0 = time.perf_counter()
+    rc, out, _ = cli(["rmr", meta_url, "/clone.bin"])
+    secs["rmr"] = round(time.perf_counter() - t0, 3)
+    if rc != 0 or "(errno 0)" not in out:
+        raise AssertionError(f"rmr rc {rc}")
+    rc, out, _ = cli(["restore", meta_url])
+    hours = [line.split(":")[0] for line in out.strip().splitlines()]
+    if rc != 0 or len(hours) != 1:
+        raise AssertionError(f"restore listing rc {rc}: {out!r}")
+    t0 = time.perf_counter()
+    rc, out, _ = cli(["restore", meta_url, hours[0]])
+    secs["restore"] = round(time.perf_counter() - t0, 3)
+    if rc != 0 or not out.startswith("restored 1,"):
+        raise AssertionError(f"restore rc {rc}: {out!r}")
+    back = meta_cli_json(["info", meta_url, "/clone.bin"])
+    if back["chunks"] != clone["chunks"]:
+        raise AssertionError("the restored clone's chunks differ")
+    md = timed("mdtest", lambda: meta_cli_json(["mdtest", meta_url, "--dirs", "10",
+                                                "--files", "100"]))
+    if not all(md.get(k, 0) > 0 for k in ("dir_create_per_s", "file_create_per_s",
+                                          "file_stat_per_s", "readdir_per_s",
+                                          "file_unlink_per_s")):
+        raise AssertionError(f"mdtest {md}")
+    return {"seconds": secs, "mdtest": md, "quota_check": check}
+
+
+def meta_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str) -> dict:
+    """Phase 19: BASELINE #3 (`fsck --verify-data`, Redis meta + an S3
+    store) through the port's meta-server process and its read replica,
+    with the port's gateway as the S3 store; the primary's restart from
+    its AOF; the same leg on a sql:// volume with dump/load; the meta
+    subcommands; destroy."""
+    phase("meta: redis:// via meta-server + replica on an S3 store, sql://, subcommands")
+    t_phase = time.perf_counter()
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                  (1 << 20) + 7)
+    n_blocks, nbytes = len(blocks), sum(len(b) for b in blocks)
+    gib = nbytes / (1 << 30)
+    base = tempfile.mkdtemp(prefix="jfs-torch-meta-")
+    procs: dict = {}
+    gw = vfs = gm = None
+    try:
+        # servers: the primary with its AOF, its replica, the S3 stand-in
+        pport, rport = free_port(), free_port()
+        aof = os.path.join(base, "meta.aof")
+        procs["primary"] = meta_server_process(pport, "--data", aof, "--fsync", "always")
+        procs["replica"] = meta_server_process(rport, "--replica-of", f"127.0.0.1:{pport}")
+        s3_url = f"sqlite3://{base}/s3.db"
+        rc, _out, _ = cli(["format", s3_url, "s3", "--storage", "file", "--bucket",
+                           os.path.join(base, "s3-blob"), "--compress", "none",
+                           "--trash-days", "0"])
+        if rc != 0:
+            raise AssertionError(f"format of the S3 store's volume rc {rc}")
+        gw, vfs, gm = start_gateway_on(s3_url)
+        redis_url = f"redis://127.0.0.1:{pport}/1"
+        replica_url = f"{redis_url}?replica=127.0.0.1:{rport}"
+        rc, out, _ = cli(["format", redis_url, "b3", "--storage", "minio", "--bucket",
+                          f"{SERVE_AK}:{SERVE_SK}@127.0.0.1:{gw.port}/bkt", "--compress",
+                          "lz4", "--hash-backend", "pallas", "--trash-days", "1"])
+        if rc != 0 or kind not in out:
+            raise AssertionError(f"format redis:// rc {rc}; probe line must name {kind}")
+        redis = indexed_write(redis_url, blocks, b"meta.bin")
+        wait_replica(pport, rport, 1)
+
+        # BASELINE #3: fsck --verify-data on the replica URL. Its sweeps
+        # read the primary, as the reference's do; the point reads of
+        # `info` and `summary` on the same URL go to the replica
+        replica0 = counter_value("juicefs_meta_cache_replica_reads")
+        fsck_s, fsck_launches = verified_fsck(replica_url, n_blocks)
+        fsck_replica_reads = counter_value("juicefs_meta_cache_replica_reads") - replica0
+        info = meta_cli_json(["info", replica_url, "/meta.bin"])
+        summary = meta_cli_json(["summary", replica_url, "/"])
+        replica_reads = (counter_value("juicefs_meta_cache_replica_reads") - replica0
+                         - fsck_replica_reads)
+        if replica_reads <= 0 or info["length"] != nbytes or summary["length"] < nbytes:
+            raise AssertionError(f"info/summary on the replica URL: {replica_reads} "
+                                 f"replica reads, length {info['length']}")
+        _m, fmt = cmd.open_meta(redis_url)
+        _m.client.close()
+        objects = resilient(cmd.storage_for(fmt))  # pools S3 connections; closed below
+        victim = redis["order"][n_blocks // 3]
+        objects.put(victim, planted_bitrot(replica_url, objects, victim, rng, "lz4"))
+
+        # a crash of the primary (SIGKILL) and its restart on its AOF: every
+        # acknowledged digest row survives `--fsync always`
+        stop_process(procs.pop("primary"), "meta-server (primary)", signal.SIGKILL)
+        t0 = time.perf_counter()
+        procs["primary"] = meta_server_process(pport, "--data", aof, "--fsync", "always")
+        restart_s = time.perf_counter() - t0
+        wait_replica(pport, rport, 1)
+        m = new_client(redis_url)
+        rows = {block_key(sid, indx, bsize): d
+                for sid, indx, bsize, d in m.scan_block_digests()}
+        m.client.close()
+        if rows != redis["rows"]:
+            raise AssertionError("digest rows after the AOF replay != the indexer's")
+        # gc --dedup trusts what survived and backfills a fifth of the rows,
+        # deleted first, on the card through the restarted meta-server
+        redis_gc, redis_gc_s, redis_gc_launches = dedup_gc(
+            redis_url, redis, blocks, planted, os.path.join(base, "redis-index.json"),
+            lost=5)
+        sub = meta_subcommands(redis_url, redis, blocks, objects)
+        objects.close()
+
+        # the same leg on sql://, then dump -> load into sqlite3://, destroy
+        sql_url = f"sql://{base}/sql/meta.db"
+        rc, out, _ = cli(["format", sql_url, "sqlvol", "--storage", "file", "--bucket",
+                          os.path.join(base, "sql-blob"), "--compress", "lz4",
+                          "--hash-backend", "pallas", "--trash-days", "0"])
+        if rc != 0 or kind not in out:
+            raise AssertionError(f"format sql:// rc {rc}")
+        sql = indexed_write(sql_url, blocks, b"sql.bin")
+        sql_gc, sql_gc_s, sql_gc_launches = dedup_gc(
+            sql_url, sql, blocks, planted, os.path.join(base, "sql-index.json"), lost=5)
+        sql_fsck_s, sql_fsck_launches = verified_fsck(sql_url, n_blocks)
+        sql_m, sql_fmt = cmd.open_meta(sql_url)
+        close_meta(sql_m)
+        sql_objects = cmd.storage_for(sql_fmt)
+        sql_victim = sql["order"][n_blocks // 3]
+        sql_objects.put(sql_victim, planted_bitrot(sql_url, sql_objects, sql_victim, rng,
+                                                   "lz4"))
+        m = new_client(sql_url)
+        sql_rows = {block_key(sid, indx, bsize): d
+                    for sid, indx, bsize, d in m.scan_block_digests()}
+        close_meta(m)
+        dump_path = os.path.join(base, "sql-dump.json")
+        loaded_url = f"sqlite3://{base}/loaded.db"
+        t0 = time.perf_counter()
+        if cli(["dump", sql_url, dump_path])[0] != 0 \
+                or cli(["load", loaded_url, dump_path])[0] != 0:
+            raise AssertionError("dump/load of the sql:// volume failed")
+        dump_load_s = time.perf_counter() - t0
+        m = new_client(loaded_url)
+        loaded = {block_key(sid, indx, bsize): d
+                  for sid, indx, bsize, d in m.scan_block_digests()}
+        m.client.close()
+        if loaded != sql_rows or {k: loaded.get(k) for k in sql["rows"]} != sql["rows"]:
+            raise AssertionError("digest rows loaded into sqlite3:// != the sql:// volume's")
+        t0 = time.perf_counter()
+        rc, out, _ = cli(["destroy", sql_url, "--yes"])
+        destroy_s = time.perf_counter() - t0
+        left = [f for _d, _s, files in os.walk(os.path.join(base, "sql-blob")) for f in files]
+        if rc != 0 or left:
+            raise AssertionError(f"destroy rc {rc}; {len(left)} files left in the bucket")
+        print(f"gates ok: redis:// through the meta-server process on the S3 gateway: "
+              f"{redis['indexer']['blocks']} indexed + {redis['indexer']['dropped']} dropped, "
+              f"one launch per index batch; fsck --verify-data on the replica URL "
+              f"verified {n_blocks} blocks in {fsck_launches} launches with 0 mismatches "
+              f"({int(fsck_replica_reads)} replica reads: its sweeps read the primary), "
+              f"then exactly {victim}; info and summary on it made {int(replica_reads)} "
+              f"replica reads; the primary SIGKILLed and restarted from its AOF with every "
+              f"digest row; gc --dedup from_index {redis_gc['from_index']}, hashed_now "
+              f"{redis_gc['hashed_now']} in {redis_gc_launches} launches, {planted} "
+              f"duplicates, sampled index == spec, the deleted rows written back; sql:// "
+              f"the same gates (gc hashed_now {sql_gc['hashed_now']} in {sql_gc_launches} "
+              f"launches, {sql_fsck_launches} fsck launches, then exactly {sql_victim}); "
+              f"dump -> load "
+              f"into sqlite3:// kept all {len(loaded)} digest rows; destroy left the bucket "
+              f"empty; status, info, summary, quota, clone (no object added), rmr, restore "
+              f"and mdtest exit 0 with their JSON checked")
+        print(f"meta: redis:// write {redis['gibs']:.4f} GiB/s, fsck --verify-data "
+              f"{gib / fsck_s:.4f} GiB/s ({fsck_s:.3f} s) on the replica URL, AOF restart "
+              f"{restart_s:.3f} s, gc --dedup {redis_gc_s:.3f} s; sql:// write "
+              f"{sql['gibs']:.4f} GiB/s, gc --dedup {sql_gc_s:.3f} s, fsck --verify-data "
+              f"{gib / sql_fsck_s:.4f} GiB/s ({sql_fsck_s:.3f} s), dump+load "
+              f"{dump_load_s:.3f} s, destroy {destroy_s:.3f} s; subcommands "
+              f"{json.dumps(sub['seconds'])} s, mdtest {json.dumps(sub['mdtest'])}; phase "
+              f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"redis": {"write_gibs": redis["gibs"], "fsck_gibs": gib / fsck_s,
+                          "gc_seconds": redis_gc_s, "restart_seconds": restart_s,
+                          "replica_reads": replica_reads},
+                "sql": {"write_gibs": sql["gibs"], "fsck_gibs": gib / sql_fsck_s,
+                        "gc_seconds": sql_gc_s, "dump_load_seconds": dump_load_s},
+                "subcommands": sub,
+                "launches": {"meta_redis_index": redis["launches"],
+                             "meta_redis_fsck": fsck_launches,
+                             "meta_redis_gc": redis_gc_launches,
+                             "meta_sql_index": sql["launches"],
+                             "meta_sql_gc": sql_gc_launches,
+                             "meta_sql_fsck": sql_fsck_launches}}
+    finally:
+        if gw is not None:
+            gw.stop()
+        if vfs is not None:
+            vfs.close()
+            vfs.store.close()
+        if gm is not None:
+            gm.close_session()
+            gm.client.close()
+        for name, proc in procs.items():
+            try:
+                stop_process(proc, f"meta-server ({name})")
+            except Exception as e:  # the phase already failed; report, go on
+                print(f"meta phase teardown: {e}", file=sys.stderr)
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2498,6 +2896,7 @@ def main(argv=None) -> int:
     bench = bench_phase(args.volume_gib, smi)
     sync = sync_phase(rng, smi)
     config = config_phase(rng, args.volume_gib, kind)
+    meta = meta_phase(rng, args.volume_gib, kind, smi)
     end_phase()
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
@@ -2505,7 +2904,7 @@ def main(argv=None) -> int:
                "ingest_concurrent": conc["launches"]["jth256_row_chain"],
                **main_path["launches"], **serve["launches"], **mount["launches"],
                **shard["launches"], **objbench["launches"], **bench["launches"],
-               **sync["launches"], **config["launches"]}
+               **sync["launches"], **config["launches"], **meta["launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
           "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck; then the "
           "gateway's index batches, the SDK's, gc --compact --dedup, fsck; then the "
@@ -2513,10 +2912,15 @@ def main(argv=None) -> int:
           "sharded hash and scan over 2x1, 2x2, 4x2 and the odd 3, scan_many, and the "
           "multichip ingest and scan on 2x2; then objbench's indexer and the gateway's "
           "under objbench over s3://, the mount's indexer under bench, the gateway's and "
-          "the webdav process's under sync, and gc --dedup after config); card " + smi)
+          "the webdav process's under sync, and gc --dedup after config; then the "
+          "redis:// volume's indexer, fsck on the replica URL and gc after the AOF "
+          "restart, and the sql:// volume's indexer, gc and fsck); card " + smi)
     idle = [p for p in ("index", "fsck", "serve_index", "mount_ingest", "mount_process",
                         "objbench_index", "objbench_s3_gateway", "bench_index",
-                        "sync_gateway", "sync_webdav", "config_gc") if by_path[p] == 0]
+                        "sync_gateway", "sync_webdav", "config_gc", "meta_redis_index",
+                        "meta_redis_fsck", "meta_redis_gc", "meta_sql_index", "meta_sql_gc",
+                        "meta_sql_fsck")
+            if by_path[p] == 0]
     if idle:
         raise AssertionError(f"paths that launched no row-chain kernel: {idle}")
     print(f"card {smi}: ingest {ingest['gibs']:.4f} GiB/s (1 writer), "
@@ -2529,7 +2933,9 @@ def main(argv=None) -> int:
           f"{mount['read_gibs']:.4f} GiB/s; objbench put {objbench['file']['put_MiB_s']} MiB/s, "
           f"get {objbench['file']['get_MiB_s']} MiB/s, hash "
           f"{objbench['file']['hash']['hash_mib_s']} MiB/s; bench {json.dumps(bench['bench'])}; "
-          f"sync {sync['mib_s']:.2f} MiB/s")
+          f"sync {sync['mib_s']:.2f} MiB/s; BASELINE #3 fsck --verify-data on redis:// "
+          f"{meta['redis']['fsck_gibs']:.4f} GiB/s, on sql:// {meta['sql']['fsck_gibs']:.4f} "
+          "GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",

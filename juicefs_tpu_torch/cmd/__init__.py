@@ -2,9 +2,8 @@
 reference: cmd/).
 
 `python -m juicefs_tpu_torch.cmd <command>` runs the commands ported so
-far, 13 of the reference's 27: `format`, `mount`/`umount`, `bench`,
-`objbench`, `gc`, `fsck`, `sync`, `dump`/`load`, `gateway`/`webdav` and
-`config`. Each command module exposes `add_parser(sub)` and a
+far, 26 of the reference's 27: every one but `warmup`, which needs the
+cache group. Each command module exposes `add_parser(sub)` and a
 `run(args)`.
 
 Shared plumbing here: open the meta client, load the volume Format, build
@@ -172,8 +171,12 @@ def main(argv: list[str] | None = None) -> int:
         fsck,
         gateway,
         gc,
+        info,
+        meta_server,
         mount,
         objbench,
+        quota,
+        stats,
         sync,
     )
 
@@ -183,8 +186,10 @@ def main(argv: list[str] | None = None) -> int:
                     "content hashing on an NVIDIA GPU",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    for mod in (format_cmd, mount, bench, objbench, gc, fsck, sync, dump,
-                gateway, config):
+    for mod in (
+        format_cmd, mount, bench, objbench, gc, fsck, sync, dump, info,
+        gateway, stats, quota, meta_server, config,
+    ):
         mod.add_parser(sub)
     args = parser.parse_args(argv)
     try:

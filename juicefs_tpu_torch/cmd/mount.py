@@ -19,8 +19,8 @@ after it returns: `serve` installs signal handlers, which works only in
 the main thread.
 
 Not ported: the cache group (`--cache-group`, `--group-weight`,
-`--group-listen`), the meta read replica (`--meta-replica`) and the
-metrics pusher (`--metrics-push`, `--graphite`, `--push-interval`).
+`--group-listen`) and the metrics pusher (`--metrics-push`, `--graphite`,
+`--push-interval`).
 """
 
 from __future__ import annotations
@@ -114,6 +114,12 @@ def add_parser(sub):
     p.add_argument("--entry-cache-ttl", type=float, default=0.0,
                    help="META-layer dentry lease TTL seconds (positive + "
                         "bounded negative lookups); 0 disables")
+    p.add_argument("--meta-replica", default="",
+                   help="host:port of a meta-server read replica (started "
+                        "with meta-server --replica-of): read-only point "
+                        "reads route there, WATCH transactions stay on the "
+                        "primary, and replica lag is guarded by the volume "
+                        "change-epoch")
     p.add_argument("--write-batch", action="store_true",
                    help="checkpoint write plane: coalesce create/slice-"
                         "commit/setattr bursts into group-commit engine "
@@ -248,6 +254,18 @@ def start_mount(args, fuse_fd: int = -1) -> Mounted:
     # staging writes in the shared cache directory.
     m, fmt = open_meta(args.meta_url)
     storage_for(fmt)  # raises on a broken storage configuration
+    # replica routing is configured AFTER open_meta so the format load
+    # itself always reads the primary (a replica still syncing must not
+    # fail the mount)
+    replica = getattr(args, "meta_replica", "")
+    if replica:
+        cfg = getattr(getattr(m, "client", None), "configure_replica", None)
+        if cfg is not None:
+            cfg(replica)
+            logger.info("meta read replica: %s", replica)
+        else:
+            logger.warning("--meta-replica ignored: engine %s has no "
+                           "replica routing", m.name())
 
     m.configure_meta_cache(
         attr_ttl=getattr(args, "attr_cache_ttl", 0.0),

@@ -1,6 +1,7 @@
 """Metadata engine of the port: a copy of juicefs_tpu/meta with the kv
-engine (memkv://, mem://, sqlite3://, sqlite://, redis://); the relational
-engine (sql://) is not ported (reference: pkg/meta).
+engine (memkv://, mem://, sqlite3://, sqlite://, redis://), the relational
+engine (sql://), the bundled RESP server (redis_server.py) and the fault
+injector (fault.py) (reference: pkg/meta).
 
 Public surface:
     new_client(uri)  -> Meta          driver registry (reference interface.go:476)

@@ -9,6 +9,7 @@ URI forms accepted by `new_client` (reference interface.go:476-507):
     memkv://[name]              in-proc ordered KV (tests)
     sqlite3:///path/to/meta.db  durable single-host KV
     redis://host:port/db        RESP server as an ordered KV
+    sql:///path/to/meta.db      relational engine (normalized tables)
 """
 
 from __future__ import annotations
@@ -37,10 +38,9 @@ def new_client(uri: str, **kw) -> "Meta":
     scheme, addr = uri.split("://", 1)
     scheme = scheme.lower()
     if scheme not in _registry:
-        # the kv engine registers lazily to avoid import cycles; the
-        # relational engine (sql://) is not ported, so its scheme stays
-        # unknown
+        # default drivers are registered lazily to avoid import cycles
         from . import kv  # noqa: F401
+        from . import sql  # noqa: F401
     if scheme not in _registry:
         raise ValueError(f"invalid meta driver: {scheme}")
     return _registry[scheme](scheme, addr)

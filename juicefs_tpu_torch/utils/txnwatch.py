@@ -6,7 +6,8 @@ the dynamic complement of the lock-order passes.
 Opt-in via ``JUICEFS_TXN_RERUN=1`` + :func:`install`; importing the
 module installs nothing, and the port's meta tests install it for their
 module.  Every engine transaction seam (``tkv_client.MemKV/SqliteKV``,
-``redis_kv.RedisKV``) routes its closure through
+``redis_kv.RedisKV``, ``sql.SQLMeta._txn/_rtxn``) routes its closure
+through
 :func:`double_run`, which executes every SUCCESSFUL closure TWICE with
 the first run's engine-side writes discarded (buffered-write engines
 simply drop the buffer; sqlite engines roll back to a savepoint), then

@@ -61,7 +61,9 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
                  "fuse", "fuse.kernel", "fuse.mount", "fuse.passfd", "fuse.server",
                  "cmd.mount", "cmd.dump", "vfs.backup", "meta.dump", "metric.usage",
                  "gpu.sharding", "multichip", "object.webdav", "gateway.webdav",
-                 "cmd.objbench", "cmd.bench", "cmd.sync", "cmd.config"):
+                 "cmd.objbench", "cmd.bench", "cmd.sync", "cmd.config", "meta.sql",
+                 "meta.redis_server", "meta.fault", "cmd.meta_server", "cmd.info",
+                 "cmd.quota", "cmd.stats"):
         assert "juicefs_tpu_torch." + name in doc["imported"]
     bad = [n for n in doc["loaded"] if _forbidden(n)]
     assert bad == []
@@ -298,3 +300,69 @@ print(json.dumps(sorted(sys.modules)))
               if line.startswith("import time:")]
     assert "juicefs_tpu_torch.cmd.sync" in worker and "juicefs_tpu_torch.object.resilient" in worker
     assert [n for n in worker if _forbidden(n)] == []
+
+
+def test_lazy_imports_of_the_meta_plane_and_meta_subcommands_load_no_jax(tmp_path):
+    """The imports inside the function bodies of the meta plane (the sql
+    engine behind `new_client`, the RESP server with its AOF and replica
+    pull loop, FaultyMeta under the resilience guard) and of the meta
+    subcommands (`status` with its object-plane probe, `info`, `summary`,
+    `quota`, `mdtest --via-vfs`, `clone`, `rmr`, `restore`, `destroy`,
+    and `meta-server` as a process) are reached by calling them. None of
+    them may load jax or a juicefs_tpu module, in this process or in the
+    meta-server process, launched with -X importtime."""
+    imports = tmp_path / "server-imports.txt"
+    code = f"""
+import json, signal, subprocess, sys
+sys.path.insert(0, {REPO!r})
+from juicefs_tpu_torch import cmd
+from juicefs_tpu_torch.meta import new_client
+from juicefs_tpu_torch.meta.fault import FaultyMeta
+from juicefs_tpu_torch.meta.redis_server import RedisServer
+t = "{tmp_path}"
+pri = RedisServer(data_path=t + "/m.aof", fsync="always")
+pport = pri.start()
+rep = RedisServer(replica_of="127.0.0.1:%d" % pport)
+rep.start()
+for url in ("sql://" + t + "/v.db", "redis://127.0.0.1:%d/1" % pport):
+    name = url.split(":")[0]
+    assert cmd.main(["format", url, name, "--storage", "file", "--bucket", t + "/" + name,
+                     "--compress", "none", "--hash-backend", "cpu", "--trash-days", "1"]) == 0
+    for argv in (["status", url], ["summary", url, "/"], ["info", url, "/"],
+                 ["quota", "set", url, "/", "--inodes", "99"], ["quota", "check", url, "/"],
+                 ["mdtest", url, "--dirs", "1", "--files", "1", "--via-vfs"],
+                 ["clone", url, "/", "/c"], ["rmr", url, "/c"], ["restore", url],
+                 ["destroy", url, "--yes"]):
+        assert cmd.main(argv) in (0, 1), argv
+m = new_client("memkv://")
+from juicefs_tpu_torch.meta import Format
+m.init(Format(name="f", trash_days=0), force=True)
+m.load()
+FaultyMeta(m, error_rate=0.0)
+m.configure_meta_retries(max_attempts=2)
+assert m.do_getattr(1)[0] == 0
+m.resilience.close()
+rep.stop(); pri.stop()
+p = subprocess.Popen([sys.executable, "-X", "importtime", "-m", "juicefs_tpu_torch.cmd",
+                      "meta-server", "--host", "127.0.0.1", "--port", "0"],
+                     cwd={REPO!r}, stdout=subprocess.PIPE, stderr=open("{imports}", "w"),
+                     text=True)
+assert "listening" in p.stdout.readline()
+p.terminate()
+assert p.wait(30) == -signal.SIGTERM
+print(json.dumps(sorted(sys.modules)))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("meta.sql", "meta.redis_server", "meta.fault", "cmd.info", "cmd.quota",
+                 "cmd.stats", "object.resilient", "vfs.vfs", "chunk.cached_store"):
+        assert "juicefs_tpu_torch." + name in loaded
+    assert [n for n in loaded if _forbidden(n)] == []
+    server = [line.rsplit("|", 1)[-1].strip() for line in imports.read_text().splitlines()
+              if line.startswith("import time:")]
+    assert "juicefs_tpu_torch.cmd.meta_server" in server
+    assert "juicefs_tpu_torch.meta.redis_server" in server
+    assert [n for n in server if _forbidden(n)] == []

@@ -14,6 +14,7 @@ card makes `format` and `build_store` raise.
 from __future__ import annotations
 
 import json
+import os
 import types
 
 import numpy as np
@@ -28,6 +29,7 @@ from juicefs_tpu_torch.chunk.cached_store import block_key
 from juicefs_tpu_torch.chunk.ingest import IngestPipeline
 from juicefs_tpu_torch.meta import CHUNK_SIZE, Slice, new_client
 from juicefs_tpu_torch.meta.context import Context
+from tests.test_torch_meta_sql import _close
 
 BS = 256 << 10  # --block-size 256 (KiB): 4 lanes a block
 CPU = ["--hash-backend", "cpu", "--compress-backend", "cpu"]
@@ -80,7 +82,7 @@ def _port_write(meta_url: str, blocks) -> dict:
         return store.indexer.stats()
     finally:
         store.close()
-        m.client.close()
+        _close(m)
 
 
 def _ref_vfs_write(meta_url: str, tmp_path, blocks) -> None:
@@ -457,18 +459,168 @@ def test_config_record_reads_back_in_both_packages(tmp_path, capsys, writer):
 
 
 def test_cli_has_the_ported_subcommands(capsys):
-    """13 of the reference's 27 subcommands, with `create_storage` taking
+    """26 of the reference's 27 subcommands, in the reference's order
+    (`warmup` waits for the cache group), with `create_storage` taking
     the s3, minio and webdav schemes."""
     from juicefs_tpu_torch.object import create_storage
 
     import re
 
-    with pytest.raises(SystemExit):
-        cmd.main(["--help"])
-    choices = re.search(r"\{([a-z,-]+)\}", capsys.readouterr().out)[1].split(",")
-    assert choices == ["format", "mount", "umount", "bench", "objbench", "gc", "fsck", "sync",
-                       "dump", "load", "gateway", "webdav", "config"]
+    def choices(main):
+        with pytest.raises(SystemExit):
+            main(["--help"])
+        return re.search(r"\{([a-z,-]+)\}", capsys.readouterr().out)[1].split(",")
+
+    port = choices(cmd.main)
+    assert len(port) == 26
+    assert port == [c for c in choices(ref_main) if c != "warmup"]
     for uri in ("s3://a:b@127.0.0.1:9/bkt", "minio://127.0.0.1:9/bkt",
                 "webdav://127.0.0.1:9/base"):
         assert create_storage(uri).string().startswith(uri.split("://")[0].replace(
             "minio", "s3"))
+
+
+# ---------------------------------------------------------------------------
+# the meta subcommands: status/info/summary/rmr, quota/mdtest, clone,
+# restore, destroy through both CLIs on identical volumes
+
+
+def _meta_volume(tmp_path, scheme: str) -> str:
+    """A volume of the port (trash kept a day): the planned blocks in
+    /data.bin, and /d holding /d/x."""
+    meta_url = f"{scheme}://{tmp_path}/vol.db"
+    assert cmd.main(["format", meta_url, "vol", "--storage", "file", "--bucket",
+                     str(tmp_path / "blob"), "--block-size", str(BS >> 10),
+                     "--compress", "none", "--hash-backend", "cpu", "--trash-days", "1"]) == 0
+    stats = _port_write(meta_url, _plan())
+    assert stats["errors"] == 0
+    m = new_client(meta_url)
+    ctx = Context(uid=0, gid=0)
+    st, d, _ = m.mkdir(ctx, 1, b"d", 0o755)
+    assert st == 0
+    st, x, _ = m.create(ctx, d, b"x", 0o600)
+    assert st == 0 and m.close(ctx, x) == 0
+    _close(m)
+    return meta_url
+
+
+def _json_lines(lines: list[str]):
+    text = "\n".join(lines)
+    try:
+        return json.loads(text)
+    except ValueError:
+        return [json.loads(ln) for ln in lines]
+
+
+def _no_volume_paths(doc: dict, tmp_path) -> dict:
+    """status with the fields that name the volume's directory or its uuid
+    (each side formats its own) blanked out."""
+    doc = json.loads(json.dumps(doc).replace(str(tmp_path), "TMP"))
+    doc["format"].pop("uuid")
+    return doc
+
+
+@pytest.mark.parametrize("scheme", ["sqlite3", "sql"])
+def test_meta_subcommands_match_reference(tmp_path, capsys, scheme):
+    out = {}
+    for side, main in (("port", cmd.main), ("ref", ref_main)):
+        url = _meta_volume(tmp_path / side, scheme)
+        res = {}
+
+        def run(*argv, rc=0):
+            got, lines = _run(main, list(argv), capsys)
+            assert got == rc, (side, argv, lines)
+            return lines
+
+        res["status"] = _no_volume_paths(_json_lines(run("status", url)), tmp_path / side)
+        res["info"] = _json_lines(run("info", url, "/data.bin"))
+        res["summary"] = _json_lines(run("summary", url, "/"))
+        res["quota-set"] = run("quota", "set", url, "/d", "--inodes", "50", "--space", "1")
+        res["quota-get"] = _json_lines(run("quota", "get", url, "/d"))
+        res["quota-list"] = _json_lines(run("quota", "list", url))
+        res["quota-check"] = _json_lines(run("quota", "check", url, "/d"))
+        res["clone"] = run("clone", url, "/data.bin", "/d/c.bin")
+        res["info-clone"] = _json_lines(run("info", url, "/d/c.bin"))
+        res["clone-missing"] = run("clone", url, "/nope", "/d/n", rc=1)
+        res["rmr"] = run("rmr", url, "/d")
+        listing = run("restore", url)
+        assert len(listing) == 1, listing  # one trash hour
+        res["restore-list"] = listing[0].split(": ")[1]
+        res["restore"] = run("restore", url, listing[0].split(":")[0])
+        res["summary-after"] = _json_lines(run("summary", url, "/"))
+        res["mdtest"] = sorted(_json_lines(run("mdtest", url, "--dirs", "2", "--files", "3",
+                                               "--via-vfs")))
+        res["summary-end"] = _json_lines(run("summary", url, "/"))
+        blob = tmp_path / side / "blob"
+        assert any(files for _d, _s, files in os.walk(blob))
+        res["destroy-refused"] = run("destroy", url, rc=1)
+        res["destroy"] = run("destroy", url, "--yes")
+        assert not any(files for _d, _s, files in os.walk(blob)), \
+            f"{side}: destroy left objects in the bucket"
+        out[side] = res
+    port, ref = out["port"], out["ref"]
+    assert port.keys() == ref.keys()
+    for key in port:
+        assert port[key] == ref[key], key
+    assert port["info"]["length"] == sum(len(b) for b in _plan())
+    assert port["quota-get"]["inode_limit"] == 50
+    assert port["quota-check"]["drifted"] is False
+    assert port["info-clone"]["chunks"] == port["info"]["chunks"]
+    assert port["summary-after"]["files"] == port["summary"]["files"] + 1
+    assert "dir_create_per_s" in port["mdtest"] and "vfs_stat_warm_per_s" in port["mdtest"]
+    assert port["destroy"][0].startswith("destroyed volume vol: ")
+
+
+def test_mdtest_via_vfs_touches_no_device(tmp_path, capsys, monkeypatch):
+    """`mdtest --via-vfs` builds a throwaway store for the VFS: it stays
+    on the host, so no CUDA call is made even where a card could be."""
+    url = _format(tmp_path, "md", "none")
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: calls.append(1) or False)
+    monkeypatch.setattr(torch.cuda, "init", lambda: calls.append(2))
+    rc, lines = _run(cmd.main, ["mdtest", url, "--dirs", "1", "--files", "2", "--via-vfs"],
+                     capsys)
+    assert rc == 0 and "vfs_stat_cold_per_s" in json.loads(lines[-1])
+    assert calls == [] and not torch.cuda.is_initialized()
+
+
+def test_destroy_removes_content_addressed_blocks(tmp_path, capsys):
+    """A volume written with inline dedup keeps one leader object per
+    content, which content refs alias: `destroy` deletes every object under
+    the volume, leaders included, and the volume's meta is gone."""
+    url = _format(tmp_path, "cas", "none")
+    blocks = _plan()
+    m, fmt = cmd.open_meta(url)
+    store = cmd.build_store(fmt, types.SimpleNamespace(compress_backend="cpu", cache_size=1),
+                            meta=m)
+    store.ingest = IngestPipeline(store, store.content_refs, backend="cpu", device="cpu",
+                                  flush_timeout=0.0, bypass=False)
+    try:
+        ctx = Context(uid=0, gid=0)
+        st, ino, _ = m.create(ctx, 1, b"cas.bin", 0o644)
+        assert st == 0
+        per_chunk = CHUNK_SIZE // BS
+        for i, data in enumerate(blocks):
+            sid = m.new_slice()
+            w = store.new_writer(sid)
+            w.write_at(data, 0)
+            w.finish(len(data))
+            indx, pos = divmod(i, per_chunk)
+            assert m.write_chunk(ino, indx, pos * BS, Slice(
+                pos=pos * BS, id=sid, size=len(data), off=0, len=len(data))) == 0
+        store.flush_all()
+        store.ingest.flush()
+        assert store.ingest.stats()["put_elided"] == 3
+    finally:
+        store.close()
+        m.client.close()
+    m, fmt = cmd.open_meta(url)
+    assert sorted(m.scan_content_aliases()) and sorted(m.scan_content_refs())
+    objects = sum(1 for _ in cmd.storage_for(fmt).list_all(""))
+    m.client.close()
+    assert objects >= len(blocks) - 3
+    rc, lines = _run(cmd.main, ["destroy", url, "--yes"], capsys)
+    assert rc == 0 and lines[-1] == f"destroyed volume cas: {objects} objects removed, " \
+        "metadata wiped"
+    assert sum(1 for _ in cmd.storage_for(fmt).list_all("")) == 0
+    assert cmd.main(["gc", url] + CPU) == 1  # no volume left to collect

@@ -574,3 +574,117 @@ def test_background_jobs_and_trash_match_reference(tmp_path):
             _close(v)
     assert out["port"] == out["ref"]
     assert out["port"][1:3] == (0, 2)  # the hour dir and the file in it
+
+
+# ---------------------------------------------------------------------------
+# --meta-replica, and the meta subcommands on a live mount
+
+
+def _replica_reads() -> int:
+    from juicefs_tpu_torch.meta.cache import _REPLICA_READS
+
+    return _REPLICA_READS.value
+
+
+def test_meta_replica_reads_reach_the_replica(tmp_path, runtime_dir):
+    """`mount --meta-replica` on a redis:// volume served by the port's
+    meta-server and its read replica: files written before the mount
+    read back through FUSE with their lookups and attrs served by the
+    replica, and the mount's client routes reads there."""
+    from juicefs_tpu_torch.meta.redis_kv import RedisKV, RespConnection
+    from juicefs_tpu_torch.meta.redis_server import RedisServer
+
+    pri = RedisServer()
+    pport = pri.start()
+    rep = RedisServer(replica_of=f"127.0.0.1:{pport}")
+    rport = rep.start()
+    meta_url = f"redis://127.0.0.1:{pport}/1"
+    try:
+        assert cmd.main(["format", meta_url, "rep", "--storage", "file", "--bucket",
+                         str(tmp_path / "blob"), "--block-size", str(BS >> 10),
+                         "--compress", "none", "--hash-backend", "cpu",
+                         "--trash-days", "0"]) == 0
+        files, _ = _plan(3)
+        writer = _parse_mount([meta_url, str(tmp_path / "w"), "--compress-backend", "cpu",
+                               "--no-watchdog", "--no-bgjobs"])
+        mounted, t, wire, ends = _start(writer)
+        try:
+            for name, blocks in files.items():
+                wire.write_file(name, b"".join(blocks))
+        finally:
+            _stop(mounted, t, ends)
+
+        def epoch(port):
+            conn = RespConnection("127.0.0.1", port, db=1)
+            try:
+                return int(conn.execute(b"GET", RedisKV.EPOCH_KEY) or 0)
+            finally:
+                conn.close()
+
+        target = epoch(pport)
+        deadline = time.time() + 30
+        while epoch(rport) < target:
+            assert time.time() < deadline, "the replica never caught up"
+            time.sleep(0.05)
+
+        args = _parse_mount([meta_url, str(tmp_path / "mp"), "--meta-replica",
+                             f"127.0.0.1:{rport}", "--compress-backend", "cpu",
+                             "--no-watchdog", "--no-bgjobs"])
+        assert args.meta_replica == f"127.0.0.1:{rport}"
+        mounted, t, wire, ends = _start(args)
+        try:
+            assert mounted.meta.replica_available()
+            before = _replica_reads()
+            for name, blocks in files.items():
+                assert wire.read_file(name) == b"".join(blocks), name
+            assert _replica_reads() > before
+        finally:
+            _stop(mounted, t, ends)
+    finally:
+        rep.stop()
+        pri.stop()
+
+
+def test_meta_subcommands_on_a_mounted_volume(tmp_path, runtime_dir, capsys):
+    """The `mount` subcommand as a process; then `clone` given the
+    mountpoint goes through the mount's `.control` file (no object
+    added, the clone reads back through the kernel), and `stats`,
+    `debug` and `profile` read the mount's virtual files, the port's
+    CLI and the reference's alike."""
+    if not _fuse_available():
+        pytest.skip("FUSE not available: needs /dev/fuse and fusermount")
+    meta_url = _format(tmp_path, compress="none")
+    mp = tmp_path / "mp"
+    mp.mkdir()
+    proc = _mount_proc(meta_url, mp, "--compress-backend", "cpu", "--no-bgjobs")
+    try:
+        if not _wait_mounted(mp, proc):
+            pytest.skip(f"cannot mount: {proc.stdout.read() if proc.poll() is not None else ''}")
+        data = np.random.default_rng(9).bytes(BS + 777)
+        (mp / "d").mkdir()
+        with open(mp / "f.bin", "wb") as f:
+            f.write(data)
+        m, fmt = cmd.open_meta(meta_url)
+        n_objects = sum(1 for _ in cmd.storage_for(fmt).list_all("chunks/"))
+        capsys.readouterr()
+        assert cmd.main(["clone", str(mp), "/f.bin", "/d/g.bin"]) == 0
+        assert capsys.readouterr().out.startswith("cloned /f.bin -> /d/g.bin (inode ")
+        with open(mp / "d" / "g.bin", "rb") as f:
+            assert f.read() == data
+        assert sum(1 for _ in cmd.storage_for(fmt).list_all("chunks/")) == n_objects
+        m.client.close()
+        assert cmd.main(["clone", str(mp), "/missing", "/d/x"]) == 1
+
+        lines = {}
+        for side, main in (("port", cmd.main), ("ref", ref_cmd.main)):
+            capsys.readouterr()
+            assert main(["stats", str(mp), "--filter", "^juicefs_torch_"]) == 0
+            lines[side] = capsys.readouterr().out.splitlines()
+            assert main(["debug", str(mp), "--out", str(tmp_path / f"debug-{side}")]) == 0
+            assert main(["profile", str(mp), "--duration", "0.2"]) == 0
+        names = {side: {ln.split()[0] for ln in ls} for side, ls in lines.items()}
+        assert names["port"] and names["port"] == names["ref"]
+        assert sorted(os.listdir(tmp_path / "debug-port")) == \
+            sorted(os.listdir(tmp_path / "debug-ref")) == ["config.txt", "stats.txt", "statvfs.txt"]
+    finally:
+        _stop_proc(mp, proc)

@@ -221,8 +221,11 @@ def test_breaker_open_half_open_reset_with_on_reset(pkg):
             rs.get("k")
         assert ei.value.errno == 5 and inner.calls == calls  # fail fast, no call
         down["down"] = False
+        # the probe thread flips the state to CLOSED under the breaker's
+        # lock and fires on_reset after releasing it: wait for both
         deadline = time.time() + 5.0
-        while br.state != r.BreakerState.CLOSED and time.time() < deadline:
+        while (br.state != r.BreakerState.CLOSED or not resets) \
+                and time.time() < deadline:
             time.sleep(0.02)
         assert br.state == r.BreakerState.CLOSED and resets == [1]
         assert rs.get("k") == b"v"
