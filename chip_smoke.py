@@ -163,6 +163,41 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               bitrot on `format sql://... --hash-backend pallas --compress
               lz4`, `dump` -> `load` into sqlite3:// with equal digest
               rows, and `destroy`, which leaves the bucket empty
+  20. group   a peer-served, card-hashed inline-dedup volume on phase 5's
+              plan: `format sqlite3://... --storage file --hash-backend
+              pallas --compress lz4`, every object stack of the phase
+              wrapped in a FaultyStore (rate 0 until the blackout); the plan
+              written by 4 writers of 8-block slices through a store built
+              as `mount --inline-dedup` builds it (elided == planted, 0
+              passthrough or errors, one launch per hash batch); members A
+              and B started with `start_mount --cache-group g --group-listen`
+              and their own --cache-dir, each `.status` ring both members,
+              found through the meta sessions; `warmup META / --cache-group g
+              --group-self <member>` through `cmd.main` into each member's
+              cache dir while that member is down, then the member restarts
+              on the same address: the two cached key sets are disjoint and
+              cover every block, PUT-elided ones included, each block moved
+              from the object store once (an elided one as its canonical
+              object), and warmup launched nothing; then a total backend
+              blackout: B reads the whole file through its vfs byte-equal,
+              with 0 backend calls and peer hits == the blocks A owns;
+              member A pushes the registry (`--metrics-push`, `--graphite`,
+              `--push-interval 0.5`) to a stdlib HTTP sink and a TCP sink:
+              the latest push's juicefs_cache_group_* values == the
+              registry's; healed, `fsck --verify-data` 0 mismatches in one
+              launch per 32 blocks, and `gc --dedup` with a fifth of the
+              digest rows deleted hashes exactly those in one launch per 32
+              and writes rows == the numpy spec
+  21. stores  three legs of 256 MiB of the plan (64 blocks + the tail), each
+              the phase-11 gates (indexed write through `build_store`, gc
+              --dedup with a fifth of the rows deleted, fsck --verify-data,
+              exactly one planted bitrot): `--storage sqlite3` (a sqlite
+              file), `--storage redis` (a `meta-server` process, db 2), and
+              `--encrypt-rsa-key` on file:// (no raw object holds a 4 KiB
+              window of its plaintext; under `--encrypt-algo aes256ctr-rsa`
+              a flipped byte is refused by the checksum wrapper). Without
+              the `cryptography` package the encrypted leg prints that it
+              did not run; the other legs still gate
 
 Each phase prints its seconds. It prints a `{"kernels": [...]}` line and,
 as its last line, `{"ok": true, "device": {...}}`. It imports nothing of
@@ -227,6 +262,7 @@ from juicefs_tpu_torch.meta.slice import build_slice
 from juicefs_tpu_torch.metric import global_registry
 from juicefs_tpu_torch.metric.trace import stage_metrics_snapshot
 from juicefs_tpu_torch.multichip import dryrun_multichip
+from juicefs_tpu_torch.object.fault import FaultyStore
 from juicefs_tpu_torch.object.file import FileStorage
 from juicefs_tpu_torch.object.resilient import resilient
 from juicefs_tpu_torch.object.s3 import SigV4
@@ -2863,6 +2899,661 @@ def meta_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str)
         shutil.rmtree(base, ignore_errors=True)
 
 
+GROUP = "g"
+GROUP_STAGES = ("chunk.ingest.hash", "gpu.index.batch")
+
+
+class CountedFaultyStore(FaultyStore):
+    """The phase's FaultyStore over a volume's object stack: it also counts
+    every call that reaches it and the data GETs that returned bytes."""
+
+    def __init__(self, store, **kw):
+        super().__init__(store, **kw)
+        self.calls = 0
+        self.data_gets: list[str] = []
+
+    def _maybe_fail(self, op, rate):
+        with self._mu:
+            self.calls += 1
+        super()._maybe_fail(op, rate)
+
+    def get(self, key, off=0, limit=-1):
+        data = super().get(key, off, limit)
+        with self._mu:
+            self.data_gets.append(key)
+        return data
+
+
+class FaultyStacks:
+    """While active, every object stack `cmd.storage_for` builds (the
+    write store's, each member's, each warmup's, gc's and fsck's) is
+    wrapped in a CountedFaultyStore; `fault_config` reaches all of them."""
+
+    def __init__(self):
+        self.stores: list[CountedFaultyStore] = []
+        self.real = cmd.storage_for
+
+    def __enter__(self):
+        def wrapped(fmt):
+            st = CountedFaultyStore(self.real(fmt), seed=20)
+            self.stores.append(st)
+            return st
+
+        cmd.storage_for = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        cmd.storage_for = self.real
+
+    def fault_config(self, **kw) -> None:
+        for st in self.stores:
+            st.fault_config(**kw)
+
+    def totals(self) -> dict:
+        return {"calls": sum(s.calls for s in self.stores),
+                "data_gets": sum(len(s.data_gets) for s in self.stores),
+                **{k: sum(s.counters[k] for s in self.stores)
+                   for k in ("errors", "throttles", "hangs", "short_reads")}}
+
+    def gets_since(self, mark: dict) -> list[str]:
+        """Keys of the data GETs made since `mark` (a `marks()` result)."""
+        return [k for s in self.stores for k in s.data_gets[mark.get(id(s), 0):]]
+
+    def marks(self) -> dict:
+        return {id(s): len(s.data_gets) for s in self.stores}
+
+
+class GroupMember:
+    """One cache-group member: `mount` of the volume started in-process with
+    `cmd.mount.start_mount` over a socketpair (no kernel mount: the phase
+    reads through the member's vfs), served on a thread."""
+
+    def __init__(self, argv: list[str]):
+        parser = argparse.ArgumentParser()
+        mount_cmd.add_parser(parser.add_subparsers())
+        self.args = parser.parse_args(["mount", *argv])
+        self._ends = socket.socketpair(socket.AF_UNIX, socket.SOCK_SEQPACKET)
+        self.mounted = mount_cmd.start_mount(self.args, fuse_fd=self._ends[1].fileno())
+        self._thread = threading.Thread(target=self.mounted.srv.serve, daemon=True,
+                                        name="smoke-group-serve")
+        self._thread.start()
+        self.addr = self.mounted.peer_srv.addr
+
+    def status(self) -> dict:
+        from juicefs_tpu_torch.vfs.internal import STATUS_INO
+
+        vfs = self.mounted.vfs
+        vfs.internal.open(STATUS_INO, 77)
+        try:
+            return json.loads(bytes(vfs.internal.read(STATUS_INO, 77, 0, 1 << 22)[1]))
+        finally:
+            vfs.internal.release(STATUS_INO, 77)
+
+    def close(self) -> None:
+        """Hang up the FUSE channel, wait for the serving loops, then close
+        the peer server, pusher, vfs, store and session."""
+        self._ends[0].shutdown(socket.SHUT_RDWR)
+        self._thread.join(120)
+        if self._thread.is_alive():
+            raise AssertionError("a member's FUSE loops did not stop")
+        self.mounted.close()
+        self.mounted.meta.client.close()
+        for s in self._ends:
+            s.close()
+
+
+class PushSinks:
+    """A Pushgateway stand-in (stdlib HTTP, PUT) and a Graphite one (TCP),
+    each keeping every payload it received, in order."""
+
+    def __init__(self):
+        import http.server
+
+        self.gateway: list[str] = []
+        self.graphite: list[str] = []
+        self._lock = threading.Lock()
+        sinks = self
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_PUT(self):  # noqa: N802
+                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                with sinks._lock:
+                    sinks.gateway.append(body.decode())
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self._http = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self._http.daemon_threads = True
+        self._tcp = socket.socket()
+        self._tcp.bind(("127.0.0.1", 0))
+        self._tcp.listen(16)
+        self.http_port = self._http.server_port
+        self.tcp_port = self._tcp.getsockname()[1]
+        threading.Thread(target=self._http.serve_forever, daemon=True).start()
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                conn, _ = self._tcp.accept()
+            except OSError:
+                return
+            with conn:
+                buf = b""
+                while True:
+                    d = conn.recv(1 << 16)
+                    if not d:
+                        break
+                    buf += d
+            with self._lock:
+                self.graphite.append(buf.decode())
+
+    def counts(self) -> tuple[int, int]:
+        with self._lock:
+            return len(self.gateway), len(self.graphite)
+
+    def latest(self) -> tuple[str, str]:
+        with self._lock:
+            return self.gateway[-1], self.graphite[-1]
+
+    def close(self) -> None:
+        self._http.shutdown()
+        self._http.server_close()
+        self._tcp.close()
+
+
+def cache_group_series(text: str) -> dict:
+    """{series: value} of the juicefs_cache_group_* lines of a Prometheus
+    text rendering."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("juicefs_cache_group_"):
+            series, _, value = line.rpartition(" ")
+            out[series] = float(value)
+    return out
+
+
+def graphite_paths(series: dict, prefix: str = "juicefs") -> dict:
+    """The Graphite path each Prometheus series is pushed under: label
+    values become path segments, as MetricsPusher names them."""
+    out = {}
+    for series_name, value in series.items():
+        name, _, labels = series_name.partition("{")
+        path = name
+        for val in re.findall(r'="([^"]*)"', labels):
+            path += "." + (re.sub(r"[^A-Za-z0-9_-]", "_", val) or "_")
+        out[f"{prefix}.{path}"] = value
+    return out
+
+
+def graphite_values(payload: str) -> dict:
+    out = {}
+    for line in payload.splitlines():
+        path, value, _ts = line.split(" ")
+        out[path] = float(value)
+    return out
+
+
+def cached_keys(cache_dir: str) -> set:
+    """Block keys a member's disk cache holds (files under raw/)."""
+    raw = os.path.join(cache_dir, "raw")
+    return {os.path.relpath(os.path.join(d, f), raw).replace(os.sep, "/")
+            for d, _s, files in os.walk(raw) for f in files if not f.endswith(".tmp")}
+
+
+def group_write(meta_url: str, blocks: list, planted: int) -> dict:
+    """The plan as one file of 8-block slices, written by 4 writers through
+    a store built as `mount --inline-dedup` builds it (`build_store` with
+    its IngestPipeline on the card); gates: elided == planted, nothing
+    passed through or failed, every hashed block estimated, one launch
+    per hash batch. Returns the file's block keys in order and the
+    write's numbers."""
+    bs = BLOCK_BYTES
+    m, fmt = cmd.open_meta(meta_url)
+    store = cmd.build_store(fmt, argparse.Namespace(
+        inline_dedup=True, no_dedup_bypass=True, ingest_flush_ms=5.0,
+        compress_backend="cuda", cache_size=1024), meta=m)
+    try:
+        if store.ingest is None or store.ingest.backend != "cuda" \
+                or store.compress_plane.config.backend != "cuda":
+            raise AssertionError("build_store attached no cuda ingest stage")
+        ctx = Context(uid=0, gid=0)
+        st, ino, _ = m.create(ctx, 1, b"group.bin", 0o644)
+        if st != 0:
+            raise AssertionError(f"create: errno {st}")
+        spans = list(range(0, len(blocks), 8))
+        sids = [m.new_slice() for _ in spans]
+        stages0 = stage_metrics_snapshot()
+        hashed0 = counter_value("juicefs_torch_blocks_hashed")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+
+        def write(k: int) -> None:
+            data = b"".join(blocks[spans[k]:spans[k] + 8])
+            w = store.new_writer(sids[k])
+            w.write_at(data, 0)
+            w.finish(len(data))
+
+        with ThreadPoolExecutor(4, thread_name_prefix="smoke-group-writer") as ex:
+            list(ex.map(write, range(len(spans))))
+        store.flush_all()
+        write_s = time.perf_counter() - t0
+        write_launches = launches()
+        stages = stage_delta(stages0, stage_metrics_snapshot(), GROUP_STAGES)
+        hashed = int(counter_value("juicefs_torch_blocks_hashed") - hashed0)
+        keys = []
+        for k, i in enumerate(spans):
+            chunk = blocks[i:i + 8]
+            size = sum(len(b) for b in chunk)
+            indx, pos = divmod(i * bs, CHUNK_SIZE)
+            if m.write_chunk(ino, indx, pos, Slice(pos=pos, id=sids[k], size=size, off=0,
+                                                  len=size)) != 0:
+                raise AssertionError("write_chunk failed")
+            keys += [block_key(sids[k], j, len(b)) for j, b in enumerate(chunk)]
+        if m.close(ctx, ino) != 0:
+            raise AssertionError("close of the written file failed")
+        st = store.ingest.stats()
+        ix = store.indexer.stats() if store.indexer is not None else {"errors": 0}
+    finally:
+        store.close()
+        m.client.close()
+    comp = st["compress"]
+    ingest_batches = stages["chunk.ingest.hash"]["count"]
+    index_batches = stages["gpu.index.batch"]["count"]
+    print("group_ingest_stats " + json.dumps(st))
+    if st["put_elided"] != planted or st["uploaded"] != len(blocks) - planted:
+        raise AssertionError(f"put_elided {st['put_elided']}, uploaded {st['uploaded']}; "
+                             f"planted {planted} of {len(blocks)}")
+    for k in ("passthrough", "errors", "race_collapsed"):
+        if st[k] != 0:
+            raise AssertionError(f"ingest {k} = {st[k]}, want 0")
+    if comp["degraded"] != 0 or comp["estimated"] != hashed or ix["errors"] != 0:
+        raise AssertionError(f"compress plane {comp}, indexer {ix}: want no degrade, "
+                             f"estimated == {hashed} hashed blocks, no indexer errors")
+    if ingest_batches == 0 or write_launches != ingest_batches + index_batches:
+        raise AssertionError(f"{write_launches} launches for {ingest_batches} ingest + "
+                             f"{index_batches} index batches")
+    return {"keys": keys, "seconds": write_s, "launches": write_launches,
+            "ingest_batches": ingest_batches, "index_batches": index_batches,
+            "hashed": hashed, "stats": st}
+
+
+def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str) -> dict:
+    """Phase 20: a peer-served, card-hashed inline-dedup volume. Two
+    cache-group members, a distributed `warmup`, a backend blackout that
+    the peers absorb, then `fsck --verify-data` and `gc --dedup` on the
+    card, and the metrics pusher's pushes checked against the registry."""
+    phase("group: cache group over an inline-dedup volume, warmup, blackout, pusher")
+    t_phase = time.perf_counter()
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                  (1 << 20) + 7)
+    n_blocks, nbytes = len(blocks), sum(len(b) for b in blocks)
+    gib = nbytes / (1 << 30)
+    base = tempfile.mkdtemp(prefix="jfs-torch-group-")
+    meta_url = f"sqlite3://{base}/meta.db"
+    old_runtime = os.environ.get("XDG_RUNTIME_DIR")
+    os.environ["XDG_RUNTIME_DIR"] = os.path.join(base, "run")
+    members: dict = {}
+    sinks = PushSinks()
+    stacks = FaultyStacks()
+    port = {"a": free_port(), "b": free_port()}
+    cache_dir = {side: os.path.join(base, f"cache-{side}") for side in port}
+
+    def member_argv(side: str) -> list[str]:
+        argv = [meta_url, os.path.join(base, f"mp-{side}"), "--cache-group", GROUP,
+                "--group-listen", f"127.0.0.1:{port[side]}", "--cache-dir", cache_dir[side],
+                "--cache-size", "4096", "--compress-backend", "cuda", "--heartbeat", "2",
+                "--no-watchdog", "--no-bgjobs"]
+        if side == "a":
+            argv += ["--metrics-push", f"http://127.0.0.1:{sinks.http_port}/",
+                     "--graphite", f"127.0.0.1:{sinks.tcp_port}", "--push-interval", "0.5"]
+        return argv
+
+    def live_members(member) -> dict:
+        """Gate: the member's `.status` ring is both members, rebuilt from
+        the live meta sessions (no static peer list)."""
+        found = {s.peer_addr: s.group_weight for s in member.mounted.meta.do_list_sessions()
+                 if s.cache_group == GROUP and s.peer_addr}
+        group = member.mounted.store.cache_group
+        if group._static:
+            raise AssertionError(f"member {member.addr} has a static peer list")
+        group.refresh(force=True)
+        ring = member.status()["cache_group"]["members"]
+        want = {f"127.0.0.1:{port[s]}": 1 for s in port}
+        if found != want or ring != want:
+            raise AssertionError(f"member {member.addr}: sessions {found}, ring {ring}, "
+                                 f"want {want}")
+        return ring
+
+    try:
+        format_device_volume(meta_url, base, "group")
+        with stacks:
+            # 1. the write, as `mount --inline-dedup` builds its store
+            w = group_write(meta_url, blocks, planted)
+            keys = w["keys"]
+            content = dict(zip(keys, blocks))
+            m, fmt = cmd.open_meta(meta_url)
+            m.client.close()
+            stored = {o.key for o in stacks.real(fmt).list_all("chunks/")}
+            if len(stored) != n_blocks - planted:
+                raise AssertionError(f"{len(stored)} objects stored, want {n_blocks - planted}")
+
+            # 2. two members, found through the meta sessions
+            for side in ("a", "b"):
+                members[side] = GroupMember(member_argv(side))
+            for side in ("a", "b"):
+                live_members(members[side])
+            owner = {k: members["a"].mounted.store.cache_group.ring.owner(k) for k in keys}
+            owned = {side: {k for k in keys if owner[k] == members[side].addr}
+                     for side in port}
+
+            # 3. distributed warmup: each member's cache dir is filled while
+            # that member is down (a live mount holds its dir's lock), with
+            # the member's address as the ring identity; the other member's
+            # live session completes the ring. The member then restarts on
+            # the same address and serves what warmup filled.
+            mark = stacks.marks()
+            kernels.reset_launches()
+            warm_s = 0.0
+            for side in ("a", "b"):
+                addr = members[side].addr
+                members.pop(side).close()
+                t0 = time.perf_counter()
+                rc, out, _ = cli(["warmup", meta_url, "/", "--cache-group", GROUP,
+                                  "--group-self", addr, "--cache-dir", cache_dir[side],
+                                  "--cache-size", "4096", "--threads", "16"])
+                warm_s += time.perf_counter() - t0
+                if rc != 0 or f"warmed 1 files / {len(range(0, n_blocks, 8))} slices" \
+                        not in out:
+                    raise AssertionError(f"warmup for {side}: rc {rc}")
+                members[side] = GroupMember(member_argv(side))
+                if members[side].addr != addr:
+                    raise AssertionError(f"member {side} came back on {members[side].addr}")
+            warm_launches = launches()
+            warm_gets = stacks.gets_since(mark)
+            in_cache = {side: cached_keys(cache_dir[side]) & set(keys) for side in port}
+            for side in ("a", "b"):
+                live_members(members[side])
+            if warm_launches != 0:
+                raise AssertionError(f"warmup launched {warm_launches} kernels")
+            if in_cache["a"] & in_cache["b"] or in_cache["a"] | in_cache["b"] != set(keys) \
+                    or in_cache != owned:
+                raise AssertionError(
+                    f"warm caches: a {len(in_cache['a'])}, b {len(in_cache['b'])}, shared "
+                    f"{len(in_cache['a'] & in_cache['b'])}, union "
+                    f"{len(in_cache['a'] | in_cache['b'])} of {n_blocks}; owned "
+                    f"{len(owned['a'])} + {len(owned['b'])}")
+            # each block moved from the object store once (an elided block as
+            # its canonical object), and every stored object was fetched
+            if len(warm_gets) != n_blocks or set(warm_gets) != stored:
+                raise AssertionError(f"warmup made {len(warm_gets)} data GETs of "
+                                     f"{len(set(warm_gets))} objects; want {n_blocks} GETs "
+                                     f"of the {len(stored)} stored objects")
+
+            # 4. blackout: every backend call fails; B reads the whole file
+            # from its own cache and A's peer server
+            b = members["b"].mounted
+            stacks.fault_config(error_rate=1.0)
+            before = stacks.totals()
+            hits = global_registry()._metrics["juicefs_cache_group_peer_hits"]
+            hits0 = hits.value
+            kernels.reset_launches()
+            ctx = Context(uid=0, gid=0, pid=1)
+            t0 = time.perf_counter()
+            st, ino, _ = b.vfs.lookup(ctx, 1, b"group.bin")
+            st2, _attr, fh = b.vfs.open(ctx, ino, os.O_RDONLY)
+            if st or st2:
+                raise AssertionError(f"lookup/open through B: errno {st or st2}")
+            got = bytearray()
+            while len(got) < nbytes:
+                st, data = b.vfs.read(ctx, ino, fh, len(got), 32 << 20)
+                if st != 0 or not data:
+                    raise AssertionError(f"read at {len(got)} through B: errno {st}")
+                got += data
+            b.vfs.release(ctx, ino, fh)
+            blackout_s = time.perf_counter() - t0
+            blackout_launches = launches()
+            peer_hits = hits.value - hits0
+            after = stacks.totals()
+            stacks.fault_config(error_rate=0.0)
+            if bytes(got) != b"".join(blocks):
+                raise AssertionError("the blackout read through B differs from the plan")
+            if after != before:
+                raise AssertionError(f"backend touched during the blackout: {before} -> {after}")
+            if peer_hits != len(owned["a"]):
+                raise AssertionError(f"B's peer hits {peer_hits} != {len(owned['a'])} blocks "
+                                     "A owns")
+
+            # 5. the pusher of member A: a push after the blackout carries the
+            # registry's juicefs_cache_group_* values to both sinks
+            want = cache_group_series(global_registry().render())
+            n0 = sinks.counts()
+            deadline = time.monotonic() + 30
+            # two new pushes on each sink: the second began after the read
+            while min(c - c0 for c, c0 in zip(sinks.counts(), n0)) < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"no push after the blackout: {sinks.counts()}")
+                time.sleep(0.05)
+            gw_body, gr_body = sinks.latest()
+            if cache_group_series(global_registry().render()) != want:
+                raise AssertionError("cache-group series moved after the blackout")
+            pushed = cache_group_series(gw_body)
+            graphite = {p: v for p, v in graphite_values(gr_body).items()
+                        if p.startswith("juicefs.juicefs_cache_group_")}
+            if pushed != want or graphite != graphite_paths(want):
+                raise AssertionError(f"pushed cache-group series differ from the registry: "
+                                     f"{sorted(set(pushed.items()) ^ set(want.items()))[:4]}")
+            pushes = sinks.counts()
+            for side in ("b", "a"):
+                members.pop(side).close()
+
+            # 6. on the card: fsck --verify-data, then gc --dedup with a fifth
+            # of the digest rows deleted
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc, out, _ = cli(["fsck", meta_url, "--verify-data", "--compress-backend", "cuda"])
+            fsck_s = time.perf_counter() - t0
+            fsck_launches = launches()
+            if rc != 0 or f"verified {n_blocks} blocks (cuda)" not in out \
+                    or "0 digest mismatches" not in out or fsck_launches != -(-n_blocks // 32):
+                raise AssertionError(f"fsck rc {rc}, {fsck_launches} launches")
+            m = new_client(meta_url)
+            rows = {block_key(sid, indx, bsize): d
+                    for sid, indx, bsize, d in m.scan_block_digests()}
+            gone = sorted(rows)[::5]
+            m.delete_block_digests([parse_block_key(k)[:2] for k in gone])
+            m.client.close()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc, out, _ = cli(["gc", meta_url, "--dedup", "--threads", "16",
+                              "--compress-backend", "cuda"])
+            gc_s = time.perf_counter() - t0
+            gc_launches = launches()
+            lines = out.strip().splitlines()
+            gc = json.loads(lines[-1])
+            if rc != 0 or not lines[0].endswith("0 leaked, 0 missing"):
+                raise AssertionError(f"gc rc {rc}: {lines[:1]}")
+            if (gc["hashed_now"], gc["from_index"], gc["duplicate_blocks"]) != \
+                    (len(gone), n_blocks - len(gone), planted) \
+                    or gc_launches != -(-len(gone) // 32):
+                raise AssertionError(f"gc hashed_now {gc['hashed_now']}, from_index "
+                                     f"{gc['from_index']}, duplicates {gc['duplicate_blocks']} "
+                                     f"in {gc_launches} launches; want {len(gone)} of "
+                                     f"{n_blocks}, {planted}")
+            m = new_client(meta_url)
+            rows = {block_key(sid, indx, bsize): d
+                    for sid, indx, bsize, d in m.scan_block_digests()}
+            m.client.close()
+            for k in gone:
+                if rows.get(k) != jth256(content[k]):
+                    raise AssertionError(f"{k}: gc's backfilled row != numpy spec")
+        print(f"gates ok: {planted} elided == planted in {w['launches']} launches == "
+              f"{w['ingest_batches']} ingest + {w['index_batches']} index batches; "
+              f"{len(stored)} objects; two members found through the sessions; warmup "
+              f"filled {len(in_cache['a'])} + {len(in_cache['b'])} blocks, disjoint, the "
+              f"union every block, with {len(warm_gets)} data GETs of the {len(stored)} "
+              f"objects and 0 launches; the blackout read exact with 0 backend calls, "
+              f"{peer_hits:.0f} peer hits == A's blocks; {pushes[0]} gateway and {pushes[1]} "
+              f"graphite pushes, the latest == the registry's {len(want)} cache-group "
+              f"series; fsck {n_blocks} blocks, 0 mismatches, {fsck_launches} launches; gc "
+              f"hashed the {len(gone)} deleted rows in {gc_launches} launches, == spec")
+        print(f"group: write {gib / w['seconds']:.4f} GiB/s, warmup {gib / warm_s:.4f} GiB/s "
+              f"({warm_s:.3f} s for both members), blackout read {gib / blackout_s:.4f} GiB/s "
+              f"({blackout_launches} launches), fsck --verify-data {gib / fsck_s:.4f} GiB/s, "
+              f"gc --dedup {gc_s:.3f} s; phase {time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"write_gibs": gib / w["seconds"], "warmup_gibs": gib / warm_s,
+                "blackout_gibs": gib / blackout_s, "fsck_gibs": gib / fsck_s,
+                "gc_seconds": gc_s, "peer_hits": peer_hits, "pushes": pushes,
+                "launches": {"group_ingest": w["launches"], "group_fsck": fsck_launches,
+                             "group_gc": gc_launches}}
+    finally:
+        for side, member in members.items():
+            try:
+                member.close()
+            except Exception as e:  # the phase already failed; report, go on
+                print(f"group phase teardown ({side}): {e}", file=sys.stderr)
+        sinks.close()
+        if old_runtime is None:
+            os.environ.pop("XDG_RUNTIME_DIR", None)
+        else:
+            os.environ["XDG_RUNTIME_DIR"] = old_runtime
+        shutil.rmtree(base, ignore_errors=True)
+
+
+STORES_BLOCKS = 64  # 256 MiB of the plan, plus the tail, for each leg
+
+
+def stores_leg(name: str, meta_url: str, base: str, rng: np.random.Generator, kind: str,
+               fmt_args: list[str]) -> dict:
+    """One leg of phase 21: `format` with `fmt_args`, the indexed write
+    through `build_store` (indexer on the card), `gc --dedup` with a fifth
+    of the rows deleted, `fsck --verify-data`, and one planted bitrot that
+    fsck must report alone (the phase-11 gates)."""
+    bs = BLOCK_BYTES
+    blocks, planted = plan_blocks(rng, STORES_BLOCKS, bs, (1 << 20) + 7)
+    nbytes = sum(len(b) for b in blocks)
+    rc, out, _ = cli(["format", meta_url, name, "--compress", "lz4", "--hash-backend",
+                      "pallas", "--trash-days", "0", *fmt_args])
+    if rc != 0 or kind not in out:
+        raise AssertionError(f"format ({name}) rc {rc}")
+    written = indexed_write(meta_url, blocks, f"{name}.bin".encode())
+    gc, gc_s, gc_launches = dedup_gc(meta_url, written, blocks, planted,
+                                     os.path.join(base, f"{name}-index.json"), lost=5)
+    fsck_s, fsck_launches = verified_fsck(meta_url, len(blocks))
+    m, fmt = cmd.open_meta(meta_url)
+    close_meta(m)
+    objects = cmd.storage_for(fmt)
+    victim = written["order"][len(blocks) // 3]
+    objects.put(victim, planted_bitrot(meta_url, objects, victim, rng, "lz4"))
+    gib = nbytes / (1 << 30)
+    print(f"stores {name}: write {written['gibs']:.4f} GiB/s ({written['launches']} "
+          f"launches), gc --dedup {gc_s:.3f} s (hashed_now {gc['hashed_now']} in "
+          f"{gc_launches} launches), fsck --verify-data {gib / fsck_s:.4f} GiB/s "
+          f"({fsck_launches} launches), bitrot found at {victim}")
+    return {"written": written, "blocks": blocks, "fmt": fmt, "write_gibs": written["gibs"],
+            "gc_seconds": gc_s, "fsck_gibs": gib / fsck_s,
+            "launches": {f"stores_{name}_index": written["launches"],
+                         f"stores_{name}_gc": gc_launches,
+                         f"stores_{name}_fsck": fsck_launches}}
+
+
+def stores_phase(rng: np.random.Generator, kind: str, smi: str) -> dict:
+    """Phase 21: the sqlite3 and redis blob stores and the encrypted
+    volume, each under the card's indexer, gc and fsck."""
+    from juicefs_tpu_torch.object import encrypt
+
+    phase("stores: sqlite3 and redis blob stores, encrypted volumes, on the card")
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="jfs-torch-stores-")
+    proc = None
+    legs: dict = {}
+    try:
+        legs["sqlite3"] = stores_leg(
+            "sqlite3", f"sqlite3://{base}/sq-meta.db", base, rng, kind,
+            ["--storage", "sqlite3", "--bucket", os.path.join(base, "objs.db")])
+        rport = free_port()
+        proc = meta_server_process(rport)
+        legs["redis"] = stores_leg(
+            "redis", f"sqlite3://{base}/rd-meta.db", base, rng, kind,
+            ["--storage", "redis", "--bucket", f"127.0.0.1:{rport}/2"])
+        stop_process(proc, "meta-server (blob store)")
+        proc = None
+        encrypted = "not run"
+        if encrypt.HAVE_CRYPTOGRAPHY:
+            from juicefs_tpu_torch.object import generate_rsa_key_pem
+
+            pem = os.path.join(base, "key.pem")
+            with open(pem, "wb") as f:
+                f.write(generate_rsa_key_pem())
+            bucket = os.path.join(base, "enc-blob")
+            leg = legs["encrypted"] = stores_leg(
+                "encrypted", f"sqlite3://{base}/enc-meta.db", base, rng, kind,
+                ["--storage", "file", "--bucket", bucket, "--encrypt-rsa-key", pem])
+            raw = FileStorage(bucket)
+            order, blocks = leg["written"]["order"], leg["blocks"]
+            for key, data in zip(order, blocks):
+                body = bytes(raw.get("encrypted/" + key))
+                for off in (0, len(data) // 2, max(0, len(data) - 4096)):
+                    if data[off:off + 4096] in body:
+                        raise AssertionError(f"{key}: plaintext at rest")
+            # aes256ctr: a flipped byte is caught by the checksum wrapper
+            ctr_url = f"sqlite3://{base}/ctr-meta.db"
+            rc, _out, _ = cli(["format", ctr_url, "ctr", "--storage", "file", "--bucket",
+                               os.path.join(base, "ctr-blob"), "--compress", "none",
+                               "--hash-backend", "pallas", "--trash-days", "0",
+                               "--encrypt-rsa-key", pem, "--encrypt-algo", "aes256ctr-rsa"])
+            if rc != 0:
+                raise AssertionError(f"format aes256ctr rc {rc}")
+            ctr = indexed_write(ctr_url, blocks[:8], b"ctr.bin")
+            victim = ctr["order"][3]
+            ctr_raw = FileStorage(os.path.join(base, "ctr-blob"))
+            body = bytearray(ctr_raw.get("ctr/" + victim))
+            body[len(body) // 2] ^= 0x01
+            ctr_raw.put("ctr/" + victim, bytes(body))
+            m, fmt = cmd.open_meta(ctr_url)
+            close_meta(m)
+            try:
+                cmd.storage_for(fmt).get(victim)
+            except IOError as e:
+                if "checksum mismatch" not in str(e):
+                    raise
+            else:
+                raise AssertionError("a flipped byte under aes256ctr came back as data")
+            legs["encrypted"]["launches"]["stores_encrypted_ctr_index"] = ctr["launches"]
+            encrypted = "run"
+        else:
+            print(f"encrypted leg not run: no cryptography on {kind}")
+        print(f"gates ok: sqlite3://, redis:// (meta-server process, db 2)"
+              + (" and the encrypted volume" if encrypted == "run" else "")
+              + ": indexer 0 errors and indexed + dropped == written in one launch per "
+              "batch, gc hashed exactly the dropped and deleted rows in one launch per 32 "
+              "and wrote them back equal, fsck 0 mismatches in one launch per 32, then "
+              "exactly the planted block"
+              + ("; no raw encrypted object holds a 4 KiB window of its plaintext; "
+                 "aes256ctr: a flipped byte is refused by the checksum" if encrypted == "run"
+                 else ""))
+        print("stores: " + "; ".join(
+            f"{name} write {leg['write_gibs']:.4f} GiB/s, gc {leg['gc_seconds']:.3f} s, "
+            f"fsck {leg['fsck_gibs']:.4f} GiB/s" for name, leg in legs.items())
+            + f"; phase {time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"legs": {name: {k: leg[k] for k in ("write_gibs", "gc_seconds", "fsck_gibs")}
+                         for name, leg in legs.items()},
+                "encrypted": encrypted,
+                "launches": {k: v for leg in legs.values() for k, v in leg["launches"].items()}}
+    finally:
+        if proc is not None:
+            try:
+                stop_process(proc, "meta-server (blob store)")
+            except Exception as e:  # the phase already failed; report, go on
+                print(f"stores phase teardown: {e}", file=sys.stderr)
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2897,6 +3588,8 @@ def main(argv=None) -> int:
     sync = sync_phase(rng, smi)
     config = config_phase(rng, args.volume_gib, kind)
     meta = meta_phase(rng, args.volume_gib, kind, smi)
+    group = group_phase(rng, args.volume_gib, kind, smi)
+    stores = stores_phase(rng, kind, smi)
     end_phase()
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
@@ -2904,7 +3597,8 @@ def main(argv=None) -> int:
                "ingest_concurrent": conc["launches"]["jth256_row_chain"],
                **main_path["launches"], **serve["launches"], **mount["launches"],
                **shard["launches"], **objbench["launches"], **bench["launches"],
-               **sync["launches"], **config["launches"], **meta["launches"]}
+               **sync["launches"], **config["launches"], **meta["launches"],
+               **group["launches"], **stores["launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
           "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck; then the "
           "gateway's index batches, the SDK's, gc --compact --dedup, fsck; then the "
@@ -2914,12 +3608,15 @@ def main(argv=None) -> int:
           "under objbench over s3://, the mount's indexer under bench, the gateway's and "
           "the webdav process's under sync, and gc --dedup after config; then the "
           "redis:// volume's indexer, fsck on the replica URL and gc after the AOF "
-          "restart, and the sql:// volume's indexer, gc and fsck); card " + smi)
+          "restart, and the sql:// volume's indexer, gc and fsck; then the cache-group "
+          "volume's inline ingest, fsck and gc; then the sqlite3://, redis:// and encrypted "
+          "blob-store volumes' indexer, gc and fsck); card " + smi)
     idle = [p for p in ("index", "fsck", "serve_index", "mount_ingest", "mount_process",
                         "objbench_index", "objbench_s3_gateway", "bench_index",
                         "sync_gateway", "sync_webdav", "config_gc", "meta_redis_index",
                         "meta_redis_fsck", "meta_redis_gc", "meta_sql_index", "meta_sql_gc",
-                        "meta_sql_fsck")
+                        "meta_sql_fsck", "group_ingest", "group_fsck", "group_gc",
+                        *stores["launches"])
             if by_path[p] == 0]
     if idle:
         raise AssertionError(f"paths that launched no row-chain kernel: {idle}")
@@ -2935,7 +3632,10 @@ def main(argv=None) -> int:
           f"{objbench['file']['hash']['hash_mib_s']} MiB/s; bench {json.dumps(bench['bench'])}; "
           f"sync {sync['mib_s']:.2f} MiB/s; BASELINE #3 fsck --verify-data on redis:// "
           f"{meta['redis']['fsck_gibs']:.4f} GiB/s, on sql:// {meta['sql']['fsck_gibs']:.4f} "
-          "GiB/s")
+          f"GiB/s; cache group: write {group['write_gibs']:.4f} GiB/s, warmup "
+          f"{group['warmup_gibs']:.4f} GiB/s, blackout read {group['blackout_gibs']:.4f} GiB/s, "
+          f"fsck {group['fsck_gibs']:.4f} GiB/s, gc {group['gc_seconds']:.3f} s; blob stores "
+          f"{json.dumps(stores['legs'])} (encrypted leg {stores['encrypted']})")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [{
         "name": "jth256_row_chain",

@@ -1,9 +1,8 @@
 """Command line of the port (a copy of juicefs_tpu/cmd/__init__.py;
 reference: cmd/).
 
-`python -m juicefs_tpu_torch.cmd <command>` runs the commands ported so
-far, 26 of the reference's 27: every one but `warmup`, which needs the
-cache group. Each command module exposes `add_parser(sub)` and a
+`python -m juicefs_tpu_torch.cmd <command>` runs the reference's 27
+commands. Each command module exposes `add_parser(sub)` and a
 `run(args)`.
 
 Shared plumbing here: open the meta client, load the volume Format, build
@@ -36,11 +35,6 @@ def open_meta(addr: str, **kw):
 def storage_for(fmt: Format):
     """Build the blob store stack from a volume Format (reference
     cmd/mount.go:387 + pkg/object wrappers)."""
-    if fmt.encrypt_key:
-        # object/encrypt.py (and the cryptography package it needs) is not
-        # ported: an encrypted volume cannot be opened by the port
-        raise ValueError("invalid object storage: encrypted volumes need "
-                         "object/encrypt.py, which the port does not have")
     bucket = fmt.bucket or ""
     scheme = fmt.storage or "file"
     if fmt.shards > 1:
@@ -54,6 +48,13 @@ def storage_for(fmt: Format):
     # Keep volume objects namespaced like the reference ({name}/ prefix)
     if scheme not in ("mem",):
         store = with_prefix(store, fmt.name + "/")
+    if fmt.encrypt_key:
+        from ..object import new_encrypted
+
+        # encrypt_algo selects the body cipher (aes256gcm-rsa default,
+        # aes256ctr-*); the key side (RSA-OAEP vs ECIES) follows the PEM
+        store = new_encrypted(store, fmt.encrypt_key.encode(),
+                              algo=fmt.encrypt_algo or "aes256gcm")
     return store
 
 
@@ -178,6 +179,7 @@ def main(argv: list[str] | None = None) -> int:
         quota,
         stats,
         sync,
+        warmup,
     )
 
     parser = argparse.ArgumentParser(
@@ -187,8 +189,8 @@ def main(argv: list[str] | None = None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     for mod in (
-        format_cmd, mount, bench, objbench, gc, fsck, sync, dump, info,
-        gateway, stats, quota, meta_server, config,
+        format_cmd, mount, bench, objbench, gc, fsck, sync, dump, warmup,
+        info, gateway, stats, quota, meta_server, config,
     ):
         mod.add_parser(sub)
     args = parser.parse_args(argv)

@@ -18,9 +18,11 @@ In-process drives (tests, `chip_smoke.py`) call `start_mount(args)`, run
 after it returns: `serve` installs signal handlers, which works only in
 the main thread.
 
-Not ported: the cache group (`--cache-group`, `--group-weight`,
-`--group-listen`) and the metrics pusher (`--metrics-push`, `--graphite`,
-`--push-interval`).
+`--cache-group` joins a peer cache group: the mount serves its block
+cache on `--group-listen` (cache/server.py), publishes that address and
+`--group-weight` in its meta session, and reads ring owners' caches
+before the object store (cache/group.py). `--metrics-push` and
+`--graphite` push the port's registry every `--push-interval` seconds.
 """
 
 from __future__ import annotations
@@ -86,6 +88,17 @@ def add_parser(sub):
                    help="disable the adaptive elision bypass: always "
                         "hash+lookup every block even when the sampled "
                         "duplicate density is ~zero")
+    p.add_argument("--cache-group", default="",
+                   help="join this named peer cache group: serve the local "
+                        "block cache to peers and read peers' caches before "
+                        "the object store (membership via meta sessions)")
+    p.add_argument("--group-weight", type=int, default=1,
+                   help="ring weight of this member (bigger cache => "
+                        "proportionally more of the keyspace)")
+    p.add_argument("--group-listen", default="127.0.0.1:0",
+                   help="host:port the peer block server binds (port 0 "
+                        "auto-picks; the bound address is published in the "
+                        "session info)")
     p.add_argument("--max-readahead", type=int, default=8, help="MiB")
     p.add_argument("--no-streaming-read", action="store_true",
                    help="disable the epoch-streaming read path: handles "
@@ -164,6 +177,12 @@ def add_parser(sub):
     p.add_argument("--metrics", default="",
                    help="host:port for the /metrics endpoint (reference "
                         "exposeMetrics; empty disables, port 0 auto-picks)")
+    p.add_argument("--metrics-push", default="",
+                   help="Pushgateway URL to PUT metrics to every "
+                        "--push-interval seconds (reference metrics push)")
+    p.add_argument("--graphite", default="",
+                   help="host:port to stream Graphite plaintext metrics to")
+    p.add_argument("--push-interval", type=float, default=10.0)
     p.add_argument("--usage-report-url", default="",
                    help="opt in to a daily anonymous usage ping POSTed to "
                         "this operator-owned URL (reference "
@@ -196,7 +215,7 @@ class Mounted:
     the store and the meta session."""
 
     def __init__(self, meta, store, vfs, srv, bg=None, metrics_srv=None,
-                 usage=None, watchdog_stop=None):
+                 usage=None, watchdog_stop=None, peer_srv=None, pusher=None):
         self.meta = meta
         self.store = store
         self.vfs = vfs
@@ -205,12 +224,16 @@ class Mounted:
         self.metrics_srv = metrics_srv
         self.usage = usage
         self.watchdog_stop = watchdog_stop
+        self.peer_srv = peer_srv
+        self.pusher = pusher
 
     def close(self) -> None:
         if self.watchdog_stop is not None:
             self.watchdog_stop.set()
         if self.metrics_srv is not None:
             self.metrics_srv.stop()
+        if self.pusher is not None:
+            self.pusher.stop()
         if self.usage is not None:
             self.usage.stop()
         if self.bg is not None:
@@ -222,6 +245,8 @@ class Mounted:
             self.meta.sid = 0  # close_session must not clean the live session
         if self.vfs is not None:
             self.vfs.close()
+        if self.peer_srv is not None:
+            self.peer_srv.stop()  # stop serving peers before the cache closes
         if self.store is not None:
             try:
                 self.store.close()  # drains the ingest stage and the indexer
@@ -313,10 +338,31 @@ def start_mount(args, fuse_fd: int = -1) -> Mounted:
     mounted = Mounted(m, None, None, None)
     try:
         mounted.store = store = build_store(fmt, args, meta=m)
+        # cache group: start the peer block server BEFORE the session
+        # registers, so the published session info already carries the
+        # dialable peer_addr; discovery then rides the heartbeat cadence
+        if getattr(args, "cache_group", ""):
+            from ..cache import CacheGroup, PeerBlockServer
+
+            mounted.peer_srv = PeerBlockServer(store, group=args.cache_group)
+            peer_addr = mounted.peer_srv.start(
+                getattr(args, "group_listen", "127.0.0.1:0"))
+            m.session_extras.update(
+                cache_group=args.cache_group, peer_addr=peer_addr,
+                group_weight=max(1, getattr(args, "group_weight", 1)),
+            )
+            store.cache_group = CacheGroup(
+                args.cache_group, self_addr=peer_addr, meta=m,
+                weight=max(1, getattr(args, "group_weight", 1)),
+                refresh_interval=args.heartbeat,
+            )
+            logger.info("cache group %r: serving on %s",
+                        args.cache_group, peer_addr)
         if takeover is not None and takeover[1].get("sid"):
             # inherit the predecessor's session: locks and sustained inodes
             # keyed by sid remain valid across the swap; the session INFO
-            # must be ours (the predecessor's record names its dead pid)
+            # must be ours (the predecessor's record names its dead pid
+            # and its dead cache-group peer_addr)
             m.sid = int(takeover[1]["sid"])
             m.update_session_info()
             m.start_heartbeat(args.heartbeat)
@@ -349,6 +395,14 @@ def start_mount(args, fuse_fd: int = -1) -> Mounted:
             mounted.metrics_srv = MetricsServer.from_addr(args.metrics)
             logger.info("metrics on http://%s:%d/metrics",
                         mounted.metrics_srv.host, mounted.metrics_srv.port)
+        if getattr(args, "metrics_push", "") or getattr(args, "graphite", ""):
+            from ..metric import MetricsPusher, global_registry
+
+            mounted.pusher = MetricsPusher(
+                global_registry(), interval=args.push_interval,
+                pushgateway=args.metrics_push, graphite=args.graphite,
+                job=fmt.name,
+            )
         report_url = getattr(args, "usage_report_url", "")
         if report_url and not getattr(args, "no_usage_report", False):
             from ..metric.usage import UsageReporter

@@ -2,10 +2,11 @@
 
 A copy of the three meter types of juicefs_tpu/metric (counter, gauge
 with lazily evaluated values, histogram with a timer) and the registry
-that renders them in the text exposition format, with the process gauges
-and the `/metrics` HTTP endpoint (`MetricsServer`) that `gateway
---metrics` serves. The port registers its meters here, in a registry of
-its own, so its series never mix with the reference's.
+that renders them in the text exposition format, with the process gauges,
+the `/metrics` HTTP endpoint (`MetricsServer`) that `gateway --metrics`
+serves, and the push exporter (`MetricsPusher`) behind `mount
+--metrics-push` / `--graphite`. The port registers its meters here, in a
+registry of its own, so its series never mix with the reference's.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ import threading
 import time
 from typing import Iterable, Optional
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsServer", "Registry",
-           "global_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsPusher", "MetricsServer",
+           "Registry", "global_registry"]
 
 _DEFAULT_BUCKETS = (
     0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 60,
@@ -304,3 +305,88 @@ class MetricsServer:
         if self._thread.is_alive():
             self._thread.join(timeout=10.0)
         self._httpd.server_close()
+
+
+class MetricsPusher:
+    """Push-based metrics export (reference pkg/metric/metrics.go:67 and
+    sdk/java/libjfs/main.go:354-407): POST the Prometheus text format to
+    a Pushgateway, or stream Graphite plaintext over TCP, on an interval.
+    Fail-silent — metrics export must never take down a mount."""
+
+    def __init__(self, registry: Registry, interval: float = 10.0,
+                 pushgateway: str = "", graphite: str = "",
+                 job: str = "juicefs", prefix: str = "juicefs"):
+        self.registry = registry
+        self.interval = interval
+        self.pushgateway = pushgateway
+        self.graphite = graphite
+        self.job = job
+        self.prefix = prefix
+        self.pushes = 0
+        self.errors = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="metrics-push"
+        )
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.push_once()
+
+    def push_once(self) -> None:
+        try:
+            if self.pushgateway:
+                self._push_gateway()
+            if self.graphite:
+                self._push_graphite()
+            self.pushes += 1
+        except Exception:
+            self.errors += 1
+
+    def _push_gateway(self) -> None:
+        import urllib.request
+
+        from urllib.parse import quote
+
+        body = self.registry.render().encode()
+        url = self.pushgateway.rstrip("/")
+        if not url.startswith(("http://", "https://")):
+            url = "http://" + url
+        req = urllib.request.Request(
+            f"{url}/metrics/job/{quote(self.job, safe='')}",
+            data=body, method="PUT",
+            headers={"Content-Type": "text/plain"},
+        )
+        urllib.request.urlopen(req, timeout=5).read()
+
+    def _push_graphite(self) -> None:
+        import socket as _socket
+
+        import re as _re
+
+        host, _, port = self.graphite.rpartition(":")
+        ts = int(time.time())
+        lines = []
+        for line in self.registry.render().splitlines():
+            if not line or line.startswith("#"):
+                continue
+            metric, _, value = line.rpartition(" ")
+            if not metric:
+                continue
+            # labels become path segments (label values only, in order):
+            # distinct series must stay distinct Graphite paths, or every
+            # labeled series and histogram bucket collapses into one
+            name, _, labels = metric.partition("{")
+            path = name
+            if labels:
+                for val in _re.findall(r'="([^"]*)"', labels):
+                    path += "." + (_re.sub(r"[^A-Za-z0-9_-]", "_", val) or "_")
+            lines.append(f"{self.prefix}.{path} {value} {ts}\n")
+        with _socket.create_connection((host or "127.0.0.1", int(port)),
+                                       timeout=5) as s:
+            s.sendall("".join(lines).encode())
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)

@@ -63,7 +63,9 @@ print(json.dumps({{"imported": names, "loaded": sorted(sys.modules)}}))
                  "gpu.sharding", "multichip", "object.webdav", "gateway.webdav",
                  "cmd.objbench", "cmd.bench", "cmd.sync", "cmd.config", "meta.sql",
                  "meta.redis_server", "meta.fault", "cmd.meta_server", "cmd.info",
-                 "cmd.quota", "cmd.stats"):
+                 "cmd.quota", "cmd.stats", "cache", "cache.ring", "cache.group",
+                 "cache.server", "cmd.warmup", "object.checksum", "object.fault",
+                 "object.encrypt", "object.dbstore", "object.gs", "object.azure"):
         assert "juicefs_tpu_torch." + name in doc["imported"]
     bad = [n for n in doc["loaded"] if _forbidden(n)]
     assert bad == []
@@ -366,3 +368,75 @@ print(json.dumps(sorted(sys.modules)))
     assert "juicefs_tpu_torch.cmd.meta_server" in server
     assert "juicefs_tpu_torch.meta.redis_server" in server
     assert [n for n in server if _forbidden(n)] == []
+
+
+def test_lazy_imports_of_the_cache_group_stores_and_pusher_load_no_jax(tmp_path):
+    """The imports inside the function bodies of the cache group (a mount
+    with --cache-group serving its peer block server, with --metrics-push
+    and --graphite pushing the registry), `warmup --cache-group`, the
+    object registry's factories (gs, azure, sqlite3, redis), the
+    checksum and encryption wrappers behind `storage_for` on an encrypted
+    volume, and FaultyStore are reached by calling them. None of them may
+    load jax or a juicefs_tpu module."""
+    code = f"""
+import argparse, json, os, socket, sys, threading, base64
+sys.path.insert(0, {REPO!r})
+os.environ["XDG_RUNTIME_DIR"] = "{tmp_path}/run"
+from juicefs_tpu_torch import cmd
+from juicefs_tpu_torch.cmd import mount
+from juicefs_tpu_torch.meta.redis_server import RedisServer
+from juicefs_tpu_torch.object import create_storage, new_checksummed, new_encrypted
+from juicefs_tpu_torch.object import generate_rsa_key_pem
+from juicefs_tpu_torch.object.fault import FaultyStore
+t = "{tmp_path}"
+url = "sqlite3://" + t + "/g.db"
+assert cmd.main(["format", url, "g", "--storage", "file", "--bucket", t + "/blob",
+                 "--compress", "none", "--hash-backend", "cpu"]) == 0
+sink = socket.socket(); sink.bind(("127.0.0.1", 0)); sink.listen(4)
+p = argparse.ArgumentParser()
+mount.add_parser(p.add_subparsers())
+args = p.parse_args(["mount", url, t + "/mp", "--cache-group", "grp", "--compress-backend",
+                     "cpu", "--no-watchdog", "--no-bgjobs", "--graphite",
+                     "127.0.0.1:%d" % sink.getsockname()[1], "--push-interval", "0.05"])
+a, b = socket.socketpair(socket.AF_UNIX, socket.SOCK_SEQPACKET)
+mounted = mount.start_mount(args, fuse_fd=b.fileno())
+th = threading.Thread(target=mounted.srv.serve, daemon=True)
+th.start()
+conn, _ = sink.accept()
+assert conn.recv(1 << 16)
+conn.close()
+addr = mounted.peer_srv.addr
+assert cmd.main(["warmup", url, "/", "--cache-group", "grp", "--group-self", addr,
+                 "--cache-dir", t + "/wc"]) == 0
+a.shutdown(socket.SHUT_RDWR)
+th.join(60)
+mounted.close()
+mounted.meta.client.close()
+srv = RedisServer()
+port = srv.start()
+create_storage("redis://127.0.0.1:%d/2" % port).put("k", b"v")
+srv.stop()
+create_storage("sqlite3://" + t + "/o.db").put("k", b"v")
+create_storage("gs://tok@127.0.0.1:9/b").string()
+create_storage("azure://a:" + base64.b64encode(b"k").decode() + "@127.0.0.1:9/c").string()
+f = FaultyStore(new_checksummed(create_storage("mem://")), error_rate=0.0)
+f.put("k", b"v")
+pem = generate_rsa_key_pem()
+open(t + "/key.pem", "wb").write(pem)
+enc = "sqlite3://" + t + "/e.db"
+assert cmd.main(["format", enc, "e", "--storage", "file", "--bucket", t + "/eblob",
+                 "--compress", "none", "--hash-backend", "cpu", "--encrypt-rsa-key",
+                 t + "/key.pem", "--encrypt-algo", "aes256ctr-rsa"]) == 0
+assert cmd.main(["gc", enc, "--hash-backend", "cpu", "--compress-backend", "cpu"]) == 0
+print(json.dumps(sorted(sys.modules)))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    for name in ("cache.group", "cache.server", "cache.ring", "cmd.warmup", "object.gs",
+                 "object.azure", "object.dbstore", "object.encrypt", "object.checksum",
+                 "object.fault", "meta.redis_kv", "metric"):
+        assert "juicefs_tpu_torch." + name in loaded
+    assert [n for n in loaded if _forbidden(n)] == []

@@ -459,10 +459,11 @@ def test_config_record_reads_back_in_both_packages(tmp_path, capsys, writer):
 
 
 def test_cli_has_the_ported_subcommands(capsys):
-    """26 of the reference's 27 subcommands, in the reference's order
-    (`warmup` waits for the cache group), with `create_storage` taking
-    the s3, minio and webdav schemes."""
-    from juicefs_tpu_torch.object import create_storage
+    """All 27 of the reference's subcommands, `warmup` included, in the
+    reference's order, with `create_storage` taking every scheme the
+    reference registers."""
+    from juicefs_tpu.object import _registry as ref_registry
+    from juicefs_tpu_torch.object import _registry, create_storage
 
     import re
 
@@ -472,12 +473,158 @@ def test_cli_has_the_ported_subcommands(capsys):
         return re.search(r"\{([a-z,-]+)\}", capsys.readouterr().out)[1].split(",")
 
     port = choices(cmd.main)
-    assert len(port) == 26
-    assert port == [c for c in choices(ref_main) if c != "warmup"]
+    assert len(port) == 27 and "warmup" in port
+    assert port == choices(ref_main)
+    assert sorted(_registry) == sorted(ref_registry)
     for uri in ("s3://a:b@127.0.0.1:9/bkt", "minio://127.0.0.1:9/bkt",
-                "webdav://127.0.0.1:9/base"):
+                "webdav://127.0.0.1:9/base", "gs://t@127.0.0.1:9/bkt"):
         assert create_storage(uri).string().startswith(uri.split("://")[0].replace(
             "minio", "s3"))
+
+
+def _sinks():
+    """A Pushgateway stand-in (HTTP PUT) and a Graphite one (TCP), each
+    keeping every payload it received."""
+    import http.server
+    import socket
+    import threading
+
+    got = {"gateway": [], "graphite": []}
+    tcp = socket.socket()
+    tcp.bind(("127.0.0.1", 0))
+    tcp.listen(8)
+
+    def accept():
+        while True:
+            try:
+                conn, _ = tcp.accept()
+            except OSError:
+                return
+            buf = b""
+            while True:
+                d = conn.recv(65536)
+                if not d:
+                    break
+                buf += d
+            conn.close()
+            got["graphite"].append(buf.decode())
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def do_PUT(self):  # noqa: N802
+            n = int(self.headers.get("Content-Length") or 0)
+            got["gateway"].append((self.path, self.rfile.read(n).decode()))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    hs = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+    threading.Thread(target=accept, daemon=True).start()
+    threading.Thread(target=hs.serve_forever, daemon=True).start()
+
+    def close():
+        hs.shutdown()
+        hs.server_close()
+        tcp.close()
+
+    return got, hs.server_port, tcp.getsockname()[1], close
+
+
+def _fill(reg) -> None:
+    """The same meters, labels and values in either package's registry."""
+    reg.gauge("juicefs_test_gauge", "t").set(42)
+    reg.counter("juicefs_test_counter", "t").inc(7)
+    c = reg.counter("juicefs_test_labeled", "t", ("op", "peer"))
+    c.labels("get", "10.0.0.1:7000").inc(3)
+    c.labels("put", "a b/c").inc(1.5)
+    h = reg.histogram("juicefs_test_seconds", "t", ("group",))
+    for v in (0.0002, 0.03, 2.0):
+        h.labels("g").observe(v)
+
+
+def test_metrics_pusher_graphite_and_gateway(monkeypatch):
+    """The twin of the reference's drill (Graphite plaintext over TCP and
+    a Pushgateway PUT against local listeners, failures only counted),
+    and on the same registry contents the port's Pushgateway body and
+    Graphite lines equal the reference's (one fixed clock)."""
+    import time as _time
+
+    from juicefs_tpu.metric import MetricsPusher as RefMetricsPusher
+    from juicefs_tpu.metric import Registry as RefRegistry
+    from juicefs_tpu_torch.metric import MetricsPusher, Registry
+
+    monkeypatch.setattr(_time, "time", lambda: 1767322800.0)
+    got, hport, gport, close = _sinks()
+    try:
+        for cls, reg in ((MetricsPusher, Registry()), (RefMetricsPusher, RefRegistry())):
+            _fill(reg)
+            p = cls(reg, interval=3600, pushgateway=f"http://127.0.0.1:{hport}",
+                    graphite=f"127.0.0.1:{gport}", job="test vol")
+            p.push_once()
+            p.stop()
+            assert p.errors == 0 and p.pushes == 1
+        deadline = _time.monotonic() + 10
+        while len(got["graphite"]) < 2 and _time.monotonic() < deadline:
+            _time.sleep(0.01)
+    finally:
+        close()
+    port_gw, ref_gw = got["gateway"]
+    assert port_gw == ref_gw and port_gw[0] == "/metrics/job/test%20vol"
+    assert "juicefs_test_counter 7" in port_gw[1]
+    port_gr, ref_gr = got["graphite"]
+    assert port_gr == ref_gr
+    assert "juicefs.juicefs_test_gauge 42 1767322800\n" in port_gr
+    assert "juicefs.juicefs_test_labeled.put.a_b_c 1.5 1767322800\n" in port_gr
+
+    # failure is silent: dead endpoints only bump the error counter
+    p2 = MetricsPusher(Registry(), interval=3600, graphite="127.0.0.1:1",
+                       pushgateway="http://127.0.0.1:1")
+    p2.push_once()
+    p2.stop()
+    assert p2.errors == 1 and p2.pushes == 0
+
+
+@pytest.mark.parametrize("algo", ["", "aes256ctr-rsa"])
+@pytest.mark.parametrize("formatter,writer", [("port", "port"), ("port", "ref"),
+                                              ("ref", "port")])
+def test_encrypted_volume_opens_in_both_packages(tmp_path, capsys, formatter, writer, algo):
+    """`format --encrypt-rsa-key` (and `--encrypt-algo aes256ctr-rsa`) by
+    either package: a volume written by either opens in the other — the
+    raw objects hide the plaintext, and both packages' `fsck
+    --verify-data` verify every block against the same digest rows."""
+    pytest.importorskip("cryptography", reason="cryptography is not installed")
+    from juicefs_tpu_torch.object import generate_rsa_key_pem
+
+    pem = tmp_path / "key.pem"
+    pem.write_bytes(generate_rsa_key_pem())
+    meta_url = f"sqlite3://{tmp_path}/enc.db"
+    bucket = tmp_path / "blob"
+    argv = ["format", meta_url, "enc", "--storage", "file", "--bucket", str(bucket),
+            "--block-size", str(BS >> 10), "--compress", "lz4", "--hash-backend", "cpu",
+            "--trash-days", "0", "--encrypt-rsa-key", str(pem)]
+    if algo:
+        argv += ["--encrypt-algo", algo]
+    assert {"port": cmd.main, "ref": ref_main}[formatter](argv) == 0
+    blocks = _plan()
+    if writer == "port":
+        assert _port_write(meta_url, blocks)["errors"] == 0
+    else:
+        _ref_vfs_write(meta_url, tmp_path, blocks)
+    raw = [open(os.path.join(d, f), "rb").read() for d, _s, fs in os.walk(bucket) for f in fs]
+    assert len(raw) >= len(blocks) - 3
+    for b in blocks:
+        assert not any(b[:4096] in r for r in raw), "plaintext at rest"
+    outs = {}
+    for side, main, extra in (("port", cmd.main, ["--compress-backend", "cpu",
+                                                  "--hash-backend", "cpu"]),
+                              ("ref", ref_main, [])):
+        rc, outs[side] = _run(main, ["fsck", meta_url, "--verify-data"] + extra, capsys)
+        assert rc == 0, (side, outs[side])
+    assert outs["port"] == outs["ref"]
+    assert outs["port"][0].startswith(f"verified {len(blocks)} blocks")
+    assert "0 digest mismatches" in "\n".join(outs["port"])
 
 
 # ---------------------------------------------------------------------------

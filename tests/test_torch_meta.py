@@ -397,3 +397,69 @@ def test_port_lockwatch_is_its_own_watchdog():
         inv = [v for v in st.snapshot() if v["kind"] == "inversion"]
     assert len(inv) == 1
     assert "drill.A" in inv[0]["detail"] and "drill.B" in inv[0]["detail"]
+
+
+def _wb_commit_counter(m):
+    """Count real engine transactions (outermost only: nested joins are
+    the same commit), on the kv engine's client or the sql engine."""
+    calls = [0]
+    if hasattr(m, "client"):
+        orig = m.client.txn
+
+        def counting(fn, retries=50, _o=orig):
+            if not m.client.in_txn():
+                calls[0] += 1
+            return _o(fn, retries)
+
+        m.client.txn = counting
+    else:
+        orig = m._txn
+
+        def counting(fn, retries=50, errno_abort=True, _o=orig):
+            if not getattr(m._tlocal, "in_txn", False):
+                calls[0] += 1
+            return _o(fn, retries, errno_abort)
+
+        m._txn = counting
+    return calls
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+@pytest.mark.parametrize("engine", ["kv", "sql"])
+def test_group_commit_amortizes_engine_txns(tmp_path, pkg, engine):
+    """The twin of tests/test_wbatch.py's headline drill, on both
+    packages: a create+commit burst of 16 files acks with at most the two
+    id-range allocations, and the barrier lands all 32 mutations in ONE
+    group commit. The flush timer is held far beyond the ack window
+    (flush_ms = 10 minutes), so no timed drain can run mid-storm however
+    slowly the storm runs: the reference drill's 50 ms timer fires
+    during a storm slowed by a busy host, and then a drain lands inside
+    the ack window."""
+    meta, types_, _acl, context = PACKAGES[pkg]
+    root = context.Context(uid=0, gid=0)
+    url = "memkv://" if engine == "kv" else f"sql://{tmp_path}/wb-{pkg}.db"
+    m = meta.new_client(url)
+    m.init(meta.Format(name="wb", trash_days=0), force=True)
+    m.load()
+    m.configure_write_batch(flush_ms=600_000.0)
+    st, dino, _ = m.mkdir(root, meta.ROOT_INODE, b"ckpt", 0o755)
+    assert st == 0
+    assert m.sync_meta() == 0  # settle the mkdir group
+    calls = _wb_commit_counter(m)
+    inos = []
+    for i in range(16):
+        st, ino, _ = m.create(root, dino, b"s%d.tmp" % i, 0o644)
+        assert st == 0, st
+        inos.append(ino)
+        sid = m.new_slice()
+        assert m.write_chunk(ino, 0, 0, types_.Slice(pos=0, id=sid, size=4096, off=0,
+                                                     len=4096)) == 0
+    enqueue_txns = calls[0]
+    assert enqueue_txns <= 2, enqueue_txns
+    assert m.wbatch.stats()["drained"] == 1  # only the mkdir's group so far
+    assert m.sync_meta(inos[0]) == 0
+    assert calls[0] - enqueue_txns == 1  # 32 mutations, ONE group txn
+    assert m.wbatch.stats()["drained"] == 2
+    st, ino, attr = m.do_lookup(dino, b"s3.tmp")
+    assert st == 0 and ino == inos[3] and attr.length == 4096
+    m.close_session()

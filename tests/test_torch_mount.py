@@ -688,3 +688,121 @@ def test_meta_subcommands_on_a_mounted_volume(tmp_path, runtime_dir, capsys):
             sorted(os.listdir(tmp_path / "debug-ref")) == ["config.txt", "stats.txt", "statvfs.txt"]
     finally:
         _stop_proc(mp, proc)
+
+
+# ---------------------------------------------------------------------------
+# the cache group and the metrics pusher on a mount
+
+
+def _push_sink():
+    """A Pushgateway stand-in: keeps every PUT body."""
+    import http.server
+
+    bodies = []
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def do_PUT(self):  # noqa: N802
+            bodies.append(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    hs = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+    threading.Thread(target=hs.serve_forever, daemon=True).start()
+    return hs, bodies
+
+
+def test_mount_accepts_the_cache_group_and_push_flags():
+    """The six flags the reference's mount takes, parsed as there."""
+    from juicefs_tpu.cmd import mount as ref_mount_cmd
+
+    argv = ["sqlite3:///x.db", "/mp", "--cache-group", "g", "--group-weight", "3",
+            "--group-listen", "0.0.0.0:7000", "--metrics-push", "http://h:9091",
+            "--graphite", "h:2003", "--push-interval", "2.5"]
+    port = _parse_mount(argv)
+    p = argparse.ArgumentParser()
+    ref_mount_cmd.add_parser(p.add_subparsers())
+    ref = p.parse_args(["mount", *argv])
+    keys = ("cache_group", "group_weight", "group_listen", "metrics_push", "graphite",
+            "push_interval")
+    assert {k: getattr(port, k) for k in keys} == {k: getattr(ref, k) for k in keys} == {
+        "cache_group": "g", "group_weight": 3, "group_listen": "0.0.0.0:7000",
+        "metrics_push": "http://h:9091", "graphite": "h:2003", "push_interval": 2.5}
+
+
+def test_cache_group_members_serve_each_other(tmp_path, runtime_dir, monkeypatch):
+    """Two members of one volume mounted with --cache-group: each
+    publishes its peer address in its session, the second discovers the
+    first through the meta sessions, and its cold reads of the first's
+    file are served by the first's peer server with zero object-store
+    GETs. The first also pushes the port's registry to a Pushgateway
+    every --push-interval; Mounted.close() stops the peer server and the
+    pusher."""
+    from juicefs_tpu_torch.metric import global_registry
+    from juicefs_tpu_torch.object.file import FileStorage
+    from juicefs_tpu_torch.vfs.internal import STATUS_INO
+
+    meta_url = _format(tmp_path, compress="lz4")
+    hs, bodies = _push_sink()
+    common = ["--cache-group", "train", "--compress-backend", "cpu", "--no-watchdog",
+              "--no-bgjobs", "--heartbeat", "1"]
+    a = _start(_parse_mount([meta_url, str(tmp_path / "mpa"), "--cache-dir",
+                             str(tmp_path / "ca"), "--metrics-push",
+                             f"http://127.0.0.1:{hs.server_port}", "--push-interval", "0.2",
+                             *common]))
+    b = None
+    try:
+        ma = a[0]
+        assert ma.peer_srv is not None and ma.pusher is not None
+        addr_a = ma.peer_srv.addr
+        blob = np.random.default_rng(9).bytes(3 * BS + 12345)
+        v = ma.vfs
+        st, ino, _, fh = v.create(CTX, ROOT_INO, b"shared.bin", 0o644)
+        assert st == 0 and v.write(CTX, ino, fh, 0, blob) == 0
+        assert v.flush(CTX, ino, fh) == 0 and v.release(CTX, ino, fh) == 0
+        ma.store.flush_all()
+        st, slices = ma.meta.read_chunk(ino, 0)
+        deadline = time.monotonic() + 30
+        while sum(ma.store.check_cache(s.id, s.size) for s in slices if s.id) < 4:
+            assert time.monotonic() < deadline, "A's cache never held the file"
+            time.sleep(0.01)
+
+        b = _start(_parse_mount([meta_url, str(tmp_path / "mpb"), "--cache-dir",
+                                 str(tmp_path / "cb"), "--group-weight", "2", *common]))
+        mb = b[0]
+        addr_b = mb.peer_srv.addr
+        sessions = {s.peer_addr: s for s in mb.meta.do_list_sessions() if s.peer_addr}
+        assert {k: (s.cache_group, s.group_weight) for k, s in sessions.items()} == {
+            addr_a: ("train", 1), addr_b: ("train", 2)}
+        assert mb.store.cache_group.ring.members == {addr_a: 1, addr_b: 2}
+        mb.vfs.internal.open(STATUS_INO, 5)
+        status = json.loads(mb.vfs.internal.read(STATUS_INO, 5, 0, 1 << 20)[1])
+        assert status["cache_group"]["members"] == {addr_a: 1, addr_b: 2}
+
+        gets = []
+        real = FileStorage.get
+        monkeypatch.setattr(FileStorage, "get",
+                            lambda self, k, off=0, limit=-1: gets.append(k) or real(self, k, off, limit))
+        hits = global_registry()._metrics["juicefs_cache_group_peer_hits"]
+        h0 = hits.value
+        st, ino_b, _ = mb.vfs.lookup(CTX, ROOT_INO, b"shared.bin")
+        st, _, fh_b = mb.vfs.open(CTX, ino_b, os.O_RDONLY)
+        st, got = mb.vfs.read(CTX, ino_b, fh_b, 0, len(blob))
+        mb.vfs.release(CTX, ino_b, fh_b)
+        assert st == 0 and bytes(got) == blob
+        assert [k for k in gets if "chunks/" in k] == []
+        assert hits.value - h0 == 4
+        deadline = time.monotonic() + 30
+        while not any(b"juicefs_cache_group_peer_hits" in body for body in bodies):
+            assert time.monotonic() < deadline, "no push reached the Pushgateway"
+            time.sleep(0.05)
+    finally:
+        for side in (b, a):
+            if side is not None:
+                _stop(side[0], side[1], side[3])
+        hs.shutdown()
+        hs.server_close()
+    assert not a[0].pusher._thread.is_alive() and a[0].peer_srv._httpd is None

@@ -5,9 +5,8 @@ accounting, ring-aware prefetch routing, the epoch hook and plan.
 
 The state-machine tests drive a REAL DataReader over mem meta + mem store
 (small blocks so windows are a few KiB); where determinism matters the
-plan submission is made synchronous instead of polled. The port has no
-cache group yet, so the case of the peer server's warm-hint absorption
-stays with the JAX package's suite."""
+plan submission is made synchronous instead of polled. The peer
+server's warm-hint absorption runs on the port's cache group."""
 
 import threading
 import time
@@ -734,3 +733,36 @@ def test_epoch_plan_ctl_op_installs_and_clears(tmp_path):
         assert out["errno"] == 0 and v.reader._epoch_plan == {}
     finally:
         v.close()
+
+
+def test_warm_hint_not_bounced_on_disagreeing_rings(tmp_path):
+    """Churn can leave two members each believing the other owns a key;
+    the receiving server must ABSORB such a hint (202, no enqueue) —
+    enqueueing would re-forward it and ping-pong forever."""
+    from juicefs_tpu_torch.cache import CacheGroup, PeerBlockServer
+    from juicefs_tpu_torch.chunk.cached_store import block_key
+
+    store = CachedStore(create_storage("mem://"),
+                        ChunkConfig(block_size=BS, cache_dirs=("memory",)))
+    srv = PeerBlockServer(store, group="pp")
+    try:
+        # this member's ring view: everything owned by SOMEONE ELSE
+        store.cache_group = CacheGroup(
+            "pp", self_addr="me:1",
+            static_peers={"me:1": 1, "other:1": 1})
+        key = next(block_key(s, 0, BS) for s in range(1000)
+                   if store.cache_group.ring.owner(block_key(s, 0, BS))
+                   == "other:1")
+        fetched = []
+        store.prefetcher.fetch = lambda ks: fetched.append(ks)
+        assert srv._warm(key) is True  # absorbed
+        assert fetched == [], "non-owned hint was enqueued (ping-pong)"
+        # an owned key still warms
+        mine = next(block_key(s, 0, BS) for s in range(1000)
+                    if store.cache_group.ring.owner(block_key(s, 0, BS))
+                    == "me:1")
+        assert srv._warm(mine) is True
+        assert fetched == [(mine, BS)]
+    finally:
+        srv.stop()
+        store.close()
