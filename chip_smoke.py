@@ -2,32 +2,52 @@
 """Smoke run of the PyTorch/CUDA port (juicefs_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--volume-gib G]
+    python3 chip_smoke.py --compare-row-chain DIR   # DIR: another checkout
+    python3 chip_smoke.py --compare-row-chain . --compare-define JTH256_STAGES=8
+
+With --compare-row-chain it only builds DIR's row-chain kernel beside this
+checkout's and times the two at the timing phase's sizes, in turns;
+--compare-define passes a macro to DIR's build (the second form times
+another ring size of this checkout's kernel against its 4 stages).
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. device   require CUDA; print the card's name and power limit; load
               liblz4 (the ingest phase compresses with it)
-  2. build    compile the row-chain kernel from the repo's sources (sm_90a);
-              the process-wide sharding plane (gpu/sharding.py get_plane)
-              must be the one-card rung: devices 1, no mesh, no degrade
-              counted. Phases 5-13 run through it (gc, ingest, the
-              estimator, the indexer, fsck, the gateway and the mount all
-              take device=None), and their one-launch-per-batch gates hold
-              on that rung
-  3. kernel   row_chain (CUDA) == row_chain_ref (plain torch) bit for bit,
-              on the main path's batch shapes and on ragged lane counts,
-              at lane offsets 0, 32 and 1000
+  2. build    compile the two kernel sources from the repo's sources
+              (sm_90a), one nvcc each, in parallel: jth256_row_chain.cu
+              (the row chain, with a states and a lane-digests epilogue)
+              and jth256_combine.cu; the process-wide sharding plane
+              (gpu/sharding.py get_plane) must be the one-card rung:
+              devices 1, no mesh, no degrade counted. Phases 5-13 run
+              through it (gc, ingest, the estimator, the indexer, fsck, the
+              gateway and the mount all take device=None), and their
+              one-launch-per-batch gates hold on that rung. Every such gate
+              also holds the fold to the kernels: each row-chain launch
+              ran the lane-digests epilogue, each hash batch launched one
+              combine (one per data row on a phase-14 mesh), and the fold
+              last ran in the kernels (hash_torch.last_fold_mode)
+  3. kernel   each kernel == its plain torch version bit for bit, on the
+              main path's batch shapes and on ragged lane counts: row_chain
+              == row_chain_ref and chain_digests == chain_digests_ref at
+              tweaks 0 / 0x5bd1e995 and lane offsets 0, 32 and 1000;
+              combine == combine_accs over each shape's whole blocks with
+              dead lanes and lengths 0, 1 and 4 MiB - 1
   4. digests  verify_backend() on the card == numpy spec; scan_step on a
               packed batch == numpy spec + dedup_digests
   5. scan     the main path: `gc --dedup` scan (cmd/gc.py dedup_scan, cuda
               backend) over a 1 GiB file:// volume of 4 MiB blocks with a
               ragged tail and ~25% planted duplicates; gates: every block
               hashed, sampled rows == numpy spec, duplicates == planted
-  6. timing   row_chain on a resident 1 GiB batch (16384 lanes), CUDA
-              events, median of 10 with the tweak varied per run, beside
-              the plain version and the memory/ALU bound
+  6. timing   both row-chain epilogues and the combine at 1, 8, 27, 32
+              blocks and 1 GiB (16384 lanes): device ms of calls queued
+              behind a spin of the card, on inputs cycling through 128 MiB
+              (L2 cold), median of 5, each beside its bound and its plain
+              version, and one whole hash call's ms
   7. batch    one main-path batch (32 x 4 MiB) split into host packing,
-              upload, kernel and torch fold time
+              upload, the hash as the main path runs it (lane digests,
+              combine) and, beside it, the states epilogue with the plain
+              torch fold
   8. ingest   the write leg of the main path: 256 x 4 MiB blocks (1 GiB)
               plus a 1 MiB + 7 B tail, ~25% from a 4-block duplicate pool,
               each its own slice, written through the port's CachedStore
@@ -100,8 +120,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               tail, ~25% duplicates) packed once: hash, scan (digests, dup,
               first) and estimator on ShardPlane([cuda:0] * k), k = 2, 4, 8
               (2x1, 2x2, 4x2 meshes), each equal bit for bit to the
-              one-card plane, one placement per batch and one launch per
-              mesh device per batch; k = 3 degrades (counted) and still
+              one-card plane, one placement per batch, one launch per
+              mesh device per batch and one combine per data row; k = 3 degrades (counted) and still
               agrees; sharded_scan_many (10 iterations, tweak in the
               kernel) on 1x1 and 2x2 meshes of the first 256 blocks gives
               one checksum; then multichip.dryrun_multichip on the 2x2 mesh
@@ -279,6 +299,15 @@ TIMING_LANES = 16384  # 1 GiB of words
 # 67 TFLOP/s FP32 (an FMA counts 2) gives 67e12 / 4 integer ops per second.
 INT32_OPS_PER_S = 67e12 / 4
 OPS_PER_WORD = 9  # xor tweak, xor, mul, shl, shr, or, mul, shr, xor
+FOLD_OPS_PER_STEP = 5  # fold or combine step: xor, mul, shl, shr, or, add (~5)
+DIGEST_BYTES = 32  # a lane's 8 digest words
+# the timing phase's sizes: a one-block batch (the one-writer ingest leg),
+# 8 blocks, the gateway's 27-block index batch, a full 32-block batch and
+# 1 GiB
+TIMING_BLOCKS = (1, 8, 27, 32, 256)
+COLD_BYTES = 128 << 20  # inputs a timed size cycles through: above the 50 MB L2
+SPIN_CYCLES = 10_000_000  # torch.cuda._sleep ahead of queued calls (ms on an H100)
+QUEUED = 10  # calls queued behind one spin
 
 
 def hbm_bytes_per_s(name: str) -> float:
@@ -292,13 +321,30 @@ def hbm_bytes_per_s(name: str) -> float:
     return 3.35e12  # H100 SXM (HBM3)
 
 
-def row_chain_bound_ms(n_lanes: int, smi: str) -> tuple[float, str]:
-    """Least time the card could take for row_chain over n_lanes: each
-    input word read once and each lane state written once at the memory
+def row_chain_bound_ms(n_lanes: int, smi: str,
+                       out_bytes_per_lane: int = COLS * 4) -> tuple[float, str]:
+    """Least time the card could take for the row chain over n_lanes: each
+    input word read once and each lane's output written once (512 B of
+    states, or 32 B of digests for the lane-digests epilogue) at the memory
     rate, or the integer operations at the ALU rate, whichever is larger."""
-    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * COLS * 4
+    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * out_bytes_per_lane
     bytes_ms = (in_bytes + out_bytes) / hbm_bytes_per_s(smi) * 1e3
-    ops_ms = in_bytes // 4 * OPS_PER_WORD / INT32_OPS_PER_S * 1e3
+    ops = in_bytes // 4 * OPS_PER_WORD
+    if out_bytes_per_lane == DIGEST_BYTES:
+        ops += n_lanes * 8 * 16 * FOLD_OPS_PER_STEP
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def combine_bound_ms(lane_counts: torch.Tensor, m: int, smi: str) -> tuple[float, str]:
+    """Least time for the combine: the live lanes' digests (32 B each), the
+    counts and lengths (16 B a block) read once and the (B, 8) int64
+    digests written once, or its integer operations (a combine step per
+    live lane and word, then the length mix and fmix)."""
+    live = int(lane_counts.clamp(0, m).sum())
+    n_blocks = int(lane_counts.numel())
+    bytes_ms = (live * DIGEST_BYTES + n_blocks * (16 + 64)) / hbm_bytes_per_s(smi) * 1e3
+    ops_ms = (live * 8 * FOLD_OPS_PER_STEP + n_blocks * 8 * 12) / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -371,10 +417,11 @@ def device_phase() -> tuple[str, str]:
 def build_phase() -> float:
     phase("build")
     t0 = time.perf_counter()
-    kernels.load_library("jth256_row_chain")
+    nvcc = kernels.build_all()  # one nvcc per source, all at once
     dt = time.perf_counter() - t0
-    print(f"built jth256_row_chain for sm_90a in {dt:.3f} s "
-          f"(nvcc {kernels.BUILD_SECONDS.get('jth256_row_chain', 0.0):.3f} s)")
+    print(f"built {', '.join(sorted(set(kernels.ENTRY_SOURCES.values())))} for sm_90a in "
+          f"{dt:.3f} s (nvcc, in parallel: "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in sorted(nvcc.items()))})")
     return dt
 
 
@@ -387,30 +434,60 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(((a.to(torch.int64) & MASK) - (b.to(torch.int64) & MASK)).abs().max())
 
 
-def kernel_phase(gen: torch.Generator) -> int:
+def kernel_phase(gen: torch.Generator) -> dict:
+    """Each kernel == its plain torch version on the same inputs, exactly:
+    the row chain's states and lane-digests epilogues at every tweak and
+    lane offset, and the combine over the shape's whole blocks with dead lanes. Returns each kernel's
+    largest error."""
     phase("kernel vs plain")
-    worst = 0
+    worst = {"jth256_row_chain": 0, "jth256_lane_digests": 0, "jth256_combine": 0}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{name} != its plain version at {what}")
+        worst[name] = max(worst[name], err)
+
     # (lanes, m): the main path's full batch (32 blocks x 64 lanes) and its
     # one-block tail batch, then lane counts that are not multiples of 16;
     # each with lane offsets as the lane-split meshes of phase 14 pass them
     for n_lanes, m in ((2048, 64), (64, 64), (37, 1), (150, 2), (201, 64)):
         words = random_words(gen, n_lanes)
-        errs = []
         for tweak in (0, 0x5BD1E995):
             for loff in (0, 32, 1000):
+                what = f"L={n_lanes} m={m} tweak={tweak:#x} lane_offset={loff}"
                 got = hash_torch.row_chain(words, m, tweak, loff)
-                torch.cuda.synchronize()
                 if hash_torch.last_kernel_mode() != "cuda":
                     raise AssertionError("row_chain on a CUDA tensor did not run the kernel")
-                want = hash_torch.row_chain_ref(words, m, tweak, loff)
-                err = max_abs_err(got, want)
-                if err != 0:
-                    raise AssertionError(f"row_chain != row_chain_ref at L={n_lanes} m={m} "
-                                         f"tweak={tweak:#x} lane_offset={loff}")
-                errs.append(err)
-        print(f"row_chain L={n_lanes} m={m}, tweak 0 / 0x5bd1e995 x lane_offset "
-              f"0 / 32 / 1000: max_abs_err {max(errs)}")
-        worst = max(worst, max(errs))
+                check("jth256_row_chain", got, hash_torch.row_chain_ref(words, m, tweak, loff),
+                      what)
+                got = hash_torch.chain_digests(words, m, tweak, loff)
+                if hash_torch.last_kernel_mode() != "cuda" \
+                        or hash_torch.last_fold_mode() != "cuda":
+                    raise AssertionError("chain_digests on a CUDA tensor did not run the kernel")
+                check("jth256_lane_digests", got,
+                      hash_torch.chain_digests_ref(words, m, tweak, loff), what)
+        # the combine over the shape's whole blocks: a full block, dead
+        # lanes past random counts, a one-lane block; lengths 0, 1, 4 MiB - 1
+        b = n_lanes // m
+        acc = hash_torch.chain_digests(words[:b * m], m).reshape(b, m, 8)
+        counts = torch.randint(1, m + 1, (b,), generator=gen, device="cuda",
+                               dtype=torch.int64)
+        counts[0] = m
+        counts[-1] = 1 if b > 1 else m
+        lengths = torch.tensor([(0, 1, BLOCK_BYTES - 1)[i % 3] for i in range(b)],
+                               dtype=torch.int64, device="cuda")
+        got = hash_torch.combine(acc, counts, lengths)
+        if hash_torch.last_fold_mode() != "cuda":
+            raise AssertionError("combine on a CUDA tensor did not run the kernel")
+        check("jth256_combine", got, hash_torch.combine_accs(acc, counts, lengths),
+              f"B={b} M={m}")
+        print(f"L={n_lanes} m={m}: row_chain and chain_digests, tweak 0 / 0x5bd1e995 x "
+              f"lane_offset 0 / 32 / 1000; "
+              f"combine over {b} blocks, lane counts {counts.min().item()}-"
+              f"{counts.max().item()}: max_abs_err 0")
+    print(f"max_abs_err {json.dumps(worst)}")
     return worst
 
 
@@ -499,7 +576,7 @@ def scan_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         scan = dedup_scan(meta, store, live, "cuda", "", bs, threads=16,
                           batch_blocks=32)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         print("scan " + json.dumps(scan))
         print(f"scan launches {launches}")
         if launches["jth256_row_chain"] == 0:
@@ -541,38 +618,169 @@ def time_cuda(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def time_queued(fn, runs: int = 5) -> tuple[float, float]:
+    """Median device ms of one fn(i), and the longest host time to queue
+    one run's calls: each run queues QUEUED calls behind a spin of the card
+    (torch.cuda._sleep), so the events bracket the device's work back to
+    back, not the host's launches."""
+    times, enqueue = [], []
+    for r in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(QUEUED):
+            fn(r * QUEUED + i)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / QUEUED)
+    return statistics.median(times), max(enqueue)
+
+
 def timing_phase(gen: torch.Generator, smi: str) -> dict:
+    """Both row-chain epilogues and the combine at TIMING_BLOCKS, each
+    beside its bound and its plain version. Device ms
+    come from `time_queued` on inputs cycling through COLD_BYTES (L2 cold,
+    as a batch just uploaded over PCIe would be at 32 blocks and up); the
+    plain versions, one states-epilogue call (`row_chain_call_ms`, its
+    host launch included) and one whole hash call (`call_ms`: lane digests
+    + combine, as a batch runs them) from `time_cuda` around single calls."""
     phase("kernel time")
     m = BLOCK_BYTES // LANE_BYTES
-    words = random_words(gen, TIMING_LANES)
-    hash_torch.row_chain(words, m, 1)  # warm-up
-    torch.cuda.synchronize()
-    ms = time_cuda(lambda i: hash_torch.row_chain(words, m, 0x1000 + i), 10)
-    hash_torch.row_chain_ref(words, m, 1)  # warm-up
-    plain_ms = time_cuda(lambda i: hash_torch.row_chain_ref(words, m, 0x2000 + i), 3)
-    in_bytes = TIMING_LANES * LANE_BYTES
-    rate = hbm_bytes_per_s(smi)
-    bound_ms, bound_by = row_chain_bound_ms(TIMING_LANES, smi)
+    spin_ms = time_cuda(lambda i: torch.cuda._sleep(SPIN_CYCLES), 3)
+    sizes, worst_enqueue = {}, 0.0
+    for blocks in TIMING_BLOCKS:
+        n = blocks * m
+        copies = max(1, -(-COLD_BYTES // (n * LANE_BYTES)))
+        pool = random_words(gen, n * copies).reshape(copies, n, ROWS, COLS)
+        counts = torch.full((blocks,), m, dtype=torch.int64, device="cuda")
+        lengths = torch.full((blocks,), BLOCK_BYTES, dtype=torch.int64, device="cuda")
+        acc = hash_torch.chain_digests(pool[0], m).reshape(blocks, m, 8)
+        hash_torch.row_chain(pool[0], m, 1)  # warm-up
+        torch.cuda.synchronize()
+        row = {"lanes": n}
+        for name, fn in (
+                ("row_chain", lambda i: hash_torch.row_chain(pool[i % copies], m, 0x1000 + i)),
+                ("lane_digests",
+                 lambda i: hash_torch.chain_digests(pool[i % copies], m, 0x1000 + i)),
+                ("combine", lambda i: hash_torch.combine(acc, counts, lengths))):
+            row[f"{name}_ms"], enq = time_queued(fn)
+            worst_enqueue = max(worst_enqueue, enq)
+        # one states-epilogue call bracketed from the host (launch included)
+        row["row_chain_call_ms"] = time_cuda(
+            lambda i: hash_torch.row_chain(pool[i % copies], m, 0x4000 + i), 10)
+        row["call_ms"] = time_cuda(lambda i: hash_torch.combine(hash_torch.lane_digests(
+            pool[i % copies].view(blocks, m, ROWS, COLS), i), counts, lengths), 5)
+        row["row_chain_plain_ms"] = time_cuda(
+            lambda i: hash_torch.row_chain_ref(pool[0], m, 0x2000 + i), 3)
+        row["lane_digests_plain_ms"] = time_cuda(
+            lambda i: hash_torch.chain_digests_ref(pool[0], m, 0x2000 + i), 3)
+        row["combine_plain_ms"] = time_cuda(
+            lambda i: hash_torch.combine_accs(acc, counts, lengths), 3)
+        row["row_chain_bound_ms"], row["row_chain_bound_by"] = row_chain_bound_ms(n, smi)
+        row["lane_digests_bound_ms"], row["lane_digests_bound_by"] = row_chain_bound_ms(
+            n, smi, DIGEST_BYTES)
+        row["combine_bound_ms"], row["combine_bound_by"] = combine_bound_ms(counts, m, smi)
+        sizes[blocks] = row
+        print(f"{blocks} blocks ({n} lanes): row_chain {row['row_chain_ms']:.4f} ms (bound "
+              f"{row['row_chain_bound_ms']:.4f}, {row['row_chain_bound_ms'] / row['row_chain_ms']:.3f}"
+              f" of it; plain {row['row_chain_plain_ms']:.3f}); lane_digests "
+              f"{row['lane_digests_ms']:.4f} ms (bound {row['lane_digests_bound_ms']:.4f}, "
+              f"{row['lane_digests_bound_ms'] / row['lane_digests_ms']:.3f} of it; plain "
+              f"{row['lane_digests_plain_ms']:.3f}); combine {row['combine_ms']:.4f} ms (bound "
+              f"{row['combine_bound_ms']:.6f}, {row['combine_bound_by']}; plain "
+              f"{row['combine_plain_ms']:.3f}); one hash call {row['call_ms']:.4f} ms")
+        del pool, acc
+    big = sizes[TIMING_BLOCKS[-1]]
     out = {
+        "sizes": sizes, "spin_ms": spin_ms, "enqueue_ms": worst_enqueue,
         "lanes": TIMING_LANES,
-        "ms": ms,
-        "gibs": in_bytes / (1 << 30) / (ms / 1e3),
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "hbm_bytes_per_s": rate,
+        "ms": big["row_chain_ms"],
+        "gibs": TIMING_LANES * LANE_BYTES / (1 << 30) / (big["row_chain_ms"] / 1e3),
+        "plain_ms": big["row_chain_plain_ms"],
+        "bound_ms": big["row_chain_bound_ms"],
+        "bound_by": big["row_chain_bound_by"],
+        "hbm_bytes_per_s": hbm_bytes_per_s(smi),
     }
-    print(f"row_chain 1 GiB ({TIMING_LANES} lanes): {ms:.4f} ms = "
-          f"{out['gibs']:.2f} GiB/s; plain {plain_ms:.3f} ms; bound "
-          f"{bound_ms:.4f} ms ({out['bound_by']}, {rate / 1e12} TB/s) "
-          f"= {bound_ms / ms:.3f} of bound; card {smi}")
+    if worst_enqueue >= spin_ms:
+        raise AssertionError(f"queueing {QUEUED} calls took {worst_enqueue:.3f} ms, longer "
+                             f"than the {spin_ms:.3f} ms spin: the device times hold host gaps")
+    print(f"row_chain 1 GiB ({TIMING_LANES} lanes): {out['ms']:.4f} ms = "
+          f"{out['gibs']:.2f} GiB/s; plain {out['plain_ms']:.3f} ms; bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {out['hbm_bytes_per_s'] / 1e12} TB/s) "
+          f"= {out['bound_ms'] / out['ms']:.3f} of bound; {QUEUED} calls queued in at most "
+          f"{worst_enqueue:.3f} ms behind a {spin_ms:.3f} ms spin; card {smi}")
+    print("kernel_times " + json.dumps(out))
     return out
+
+
+def compare_phase(gen: torch.Generator, smi: str, other: str, define: str | None) -> dict:
+    """`--compare-row-chain DIR`: DIR's jth256_row_chain.cu (another
+    checkout's row chain with the same C entry, e.g. an earlier commit
+    unpacked with `git archive`, or this one built with the macro
+    `define`, NAME=VALUE) built beside this one and timed against
+    this checkout's states epilogue at TIMING_BLOCKS, in turns (other,
+    this, this, other) by `time_queued` and by one host call (`time_cuda`,
+    launch included); both must give the same states."""
+    import ctypes
+
+    phase(f"row chain vs {other}" + (f" built with {define}" if define else ""))
+    kdir = os.path.join(other, "juicefs_tpu_torch", "gpu", "kernels")
+    out_dir = os.path.join(kernels.BUILD_DIR, "compare")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"libjth256_row_chain_other{os.getpid()}.so")
+    macro = [f"-D{define}"] if define else []
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, *macro, "-I", kdir, "-o", so,
+                           os.path.join(kdir, "jth256_row_chain.cu")],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc failed on {kdir}:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(so).jth256_row_chain
+    fn.argtypes = kernels._SIGNATURES["jth256_row_chain"]
+    fn.restype = ctypes.c_int
+    m = BLOCK_BYTES // LANE_BYTES
+
+    def run_other(words, tweak):
+        out = torch.empty((words.shape[0], COLS), dtype=torch.int32, device="cuda")
+        rc = fn(words.data_ptr(), out.data_ptr(), words.shape[0], m, 0, tweak & MASK,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"the other row chain's launch failed: CUDA error {rc}")
+        return out
+
+    rows = {}
+    for blocks in TIMING_BLOCKS:
+        n = blocks * m
+        copies = max(1, -(-COLD_BYTES // (n * LANE_BYTES)))
+        pool = random_words(gen, n * copies).reshape(copies, n, ROWS, COLS)
+        if max_abs_err(run_other(pool[0], 7), hash_torch.row_chain(pool[0], m, 7)) != 0:
+            raise AssertionError(f"{blocks} blocks: the two row chains disagree")
+        fns = {"other": lambda i: run_other(pool[i % copies], 0x5000 + i),
+               "this": lambda i: hash_torch.row_chain(pool[i % copies], m, 0x5000 + i)}
+        row = {k: [] for k in ("other_ms", "this_ms", "other_call_ms", "this_call_ms")}
+        for who in ("other", "this", "this", "other"):
+            row[f"{who}_ms"].append(time_queued(fns[who])[0])
+            row[f"{who}_call_ms"].append(time_cuda(fns[who], 10))
+        bound, _ = row_chain_bound_ms(n, smi)
+        rows[blocks] = {**row, "bound_ms": bound}
+        print(f"{blocks} blocks: other {row['other_ms'][0]:.4f} / {row['other_ms'][1]:.4f} ms, "
+              f"this {row['this_ms'][0]:.4f} / {row['this_ms'][1]:.4f} ms (queued); one call: "
+              f"other {row['other_call_ms'][0]:.4f} / {row['other_call_ms'][1]:.4f}, this "
+              f"{row['this_call_ms'][0]:.4f} / {row['this_call_ms'][1]:.4f}; bound {bound:.4f} ms; "
+              f"card {smi}")
+        del pool
+    print("row_chain_compare " + json.dumps(rows))
+    return rows
 
 
 def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     """Where one main-path hash batch (32 x 4 MiB blocks) spends its time:
-    host packing into the pinned slot, the upload, the row-chain kernel and
-    the torch fold ops, each timed alone (median of 5)."""
+    host packing into the pinned slot, the upload, then the hash as the
+    main path runs it (the lane-digests launch and the combine launch) and,
+    beside it, the states epilogue with the plain torch fold, each timed
+    alone (median of 5)."""
     phase("batch breakdown")
     n, m = 32, BLOCK_BYTES // LANE_BYTES
     blocks = [rng.bytes(BLOCK_BYTES) for _ in range(n)]
@@ -590,21 +798,34 @@ def batch_breakdown_phase(rng: np.random.Generator) -> dict:
         pack_ms.append((time.perf_counter() - t0) * 1e3)
     dev = host.to("cuda", non_blocking=True)
     h2d_ms = time_cuda(lambda i: dev.copy_(host, non_blocking=True), 5)
+    dcounts = torch.from_numpy(counts.astype(np.int64)).cuda()
+    dlengths = torch.from_numpy(lengths.astype(np.int64)).cuda()
+    hash_torch.hash_device(dev, dcounts, dlengths)
+    lane_digests_ms = time_cuda(lambda i: hash_torch.lane_digests(dev, i), 5)
+    acc = hash_torch.lane_digests(dev)
+    combine_ms = time_cuda(lambda i: hash_torch.combine(acc, dcounts, dlengths), 5)
+    hash_ms = time_cuda(lambda i: hash_torch.hash_device(dev, dcounts, dlengths, i), 5)
+    t0 = time.perf_counter()
+    got = hash_torch.hash_device(dev, dcounts, dlengths)
+    hash_enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue both launches
+    torch.cuda.synchronize()
     flat = dev.reshape(n * m, ROWS, COLS)
     hash_torch.row_chain(flat, m, 0)
     kernel_ms = time_cuda(lambda i: hash_torch.row_chain(flat, m, i), 5)
     states = hash_torch.row_chain(flat, m, 0).reshape(n, m, COLS)
-    dcounts = torch.from_numpy(counts.astype(np.int64)).cuda()
-    dlengths = torch.from_numpy(lengths.astype(np.int64)).cuda()
     fold = lambda i: hash_torch.combine_accs(hash_torch.lane_accs(states), dcounts, dlengths)
-    fold(0)
+    want = fold(0)
     fold_ms = time_cuda(fold, 5)
     t0 = time.perf_counter()
     fold(0)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue the fold
+    enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue the plain fold
     torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("hash_device != row_chain + the plain fold on the batch")
     out = {"blocks": n, "pack_ms": statistics.median(pack_ms), "h2d_ms": h2d_ms,
-           "kernel_ms": kernel_ms, "fold_ms": fold_ms, "fold_enqueue_ms": enqueue_ms}
+           "lane_digests_ms": lane_digests_ms, "combine_ms": combine_ms, "hash_ms": hash_ms,
+           "hash_enqueue_ms": hash_enqueue_ms, "kernel_ms": kernel_ms, "fold_ms": fold_ms,
+           "fold_enqueue_ms": enqueue_ms}
     print("batch_breakdown " + json.dumps(out))
     return out
 
@@ -677,7 +898,7 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
         store.flush_all()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         stages = stage_delta(stages0, stage_metrics_snapshot())
         hashed = int(counter_value("juicefs_torch_blocks_hashed") - hashed0)
         h2d = int(counter_value("juicefs_torch_h2d_bytes") - h2d0)
@@ -769,7 +990,7 @@ def ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         kernels.reset_launches()
         scan = dedup_scan(meta, cold, live, "cuda", "", bs, threads=16)
         torch.cuda.synchronize()
-        scan_launches = dict(kernels.LAUNCHES)
+        scan_launches = launch_counts()
         scan_rows = {block_key(sid, indx, bsize): d
                      for sid, indx, bsize, d in meta.scan_block_digests()}
         if scan["hashed_now"] != n_blocks:
@@ -916,9 +1137,37 @@ def format_device_volume(meta_url: str, base: str, name: str) -> None:
         raise AssertionError(f"format rc {rc}")
 
 
-def launches() -> int:
+def launches(lanes: int = 1) -> int:
+    """Row-chain launches since the last reset, checked against the fold's.
+    Every one of them ran the lane-digests epilogue, and every hash batch
+    ran one combine per data row: on one card one combine per row chain,
+    on a mesh of `lanes` lane shards one per `lanes` row chains. The fold
+    last ran in the kernels, never as the plain torch fold."""
     torch.cuda.synchronize()
-    return kernels.LAUNCHES["jth256_row_chain"]
+    n = kernels.LAUNCHES["jth256_row_chain"]
+    digests = kernels.LAUNCHES["jth256_lane_digests"]
+    combines = kernels.LAUNCHES["jth256_combine"]
+    if digests != n or combines * lanes != n:
+        raise AssertionError(f"{n} row-chain launches, {digests} with the lane-digests "
+                             f"epilogue, {combines} combines: want every row chain to fold "
+                             f"its lanes and one combine per {lanes} of them")
+    if n and hash_torch.last_fold_mode() != "cuda":
+        raise AssertionError(f"the fold last ran as {hash_torch.last_fold_mode()!r}, "
+                             "not in the kernels")
+    return n
+
+
+def launch_counts() -> dict:
+    """kernels.LAUNCHES since the last reset, after `launches()` checked them."""
+    launches()
+    return dict(kernels.LAUNCHES)
+
+
+def gauge_launches(text: str) -> dict:
+    """Each kernel's `juicefs_torch_kernel_launches` in another process's
+    metrics text."""
+    return {k: int(stats_value(text, f'juicefs_torch_kernel_launches{{kernel="{k}"}}'))
+            for k in kernels.LAUNCHES}
 
 
 def stage_count(name: str) -> int:
@@ -1788,8 +2037,11 @@ def mount_cli_run(meta_url: str, mp: str, block: bytes) -> dict:
                 raise AssertionError(f"mount process: {name} reads back other bytes")
         elided = (stats_value(after, "juicefs_ingest_put_elided")
                   - stats_value(before, "juicefs_ingest_put_elided"))
-        process_launches = int(stats_value(
-            after, 'juicefs_torch_kernel_launches{kernel="jth256_row_chain"}'))
+        gauge = gauge_launches(after)
+        process_launches = gauge["jth256_row_chain"]
+        if not gauge["jth256_lane_digests"] == gauge["jth256_combine"] == process_launches:
+            raise AssertionError(f"mount process: kernel launches {gauge}; want one "
+                                 "lane-digests epilogue and one combine per row chain")
         umount_run = subprocess.run([sys.executable, "-m", "juicefs_tpu_torch.cmd", "umount", mp],
                                     cwd=repo, capture_output=True, text=True, timeout=120)
         rc_umount = umount_run.returncode
@@ -2046,6 +2298,8 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
 
     card = torch.device("cuda", 0)
     by_path = {"shard_hash": 0, "shard_scan": 0}
+    # combines: one per data row per batch, on the row's lead device
+    combine_by_path = {"shard_hash": 0, "shard_scan": 0}
     meshes = {}
     deg0 = counter_value("juicefs_torch_shard_degraded")
     for k in (2, 4, 8, 3):
@@ -2056,6 +2310,7 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         if snap["mesh"] != want_mesh:
             raise AssertionError(f"[cuda:0] * {k}: mesh {snap['mesh']}, want {want_mesh}")
         ndev = k if plane.mesh is not None else 1
+        lanes = snap["mesh"]["lane"] if snap["mesh"] else 1
         h2d0 = counter_value("juicefs_torch_shard_h2d_batches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2068,12 +2323,14 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         t0 = time.perf_counter()
         got_h = plane.hash_packed(*sp, n=n)
         hash_ms = (time.perf_counter() - t0) * 1e3
-        hash_launches = launches()
+        hash_launches = launches(lanes)
+        hash_combines = kernels.LAUNCHES["jth256_combine"]
         kernels.reset_launches()
         t0 = time.perf_counter()
         got_d, got_dup, got_first = plane.scan_packed(*sp, n=n)
         scan_ms = (time.perf_counter() - t0) * 1e3
-        scan_launches = launches()
+        scan_launches = launches(lanes)
+        scan_combines = kernels.LAUNCHES["jth256_combine"]
         t0 = time.perf_counter()
         got_est = plane.make_estimator()(sp[0], sp[1])[:n]
         torch.cuda.synchronize()
@@ -2089,12 +2346,15 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
             raise AssertionError(f"[cuda:0] * {k}: estimator != the one-card plane")
         by_path["shard_hash"] += hash_launches
         by_path["shard_scan"] += scan_launches
+        combine_by_path["shard_hash"] += hash_combines
+        combine_by_path["shard_scan"] += scan_combines
         meshes[k] = {"snapshot": snap, "put_ms": put_ms, "hash_ms": hash_ms,
                      "scan_ms": scan_ms, "estimate_ms": est_ms,
                      "launches": hash_launches + scan_launches}
         print(f"[cuda:0] * {k}: {json.dumps(snap)}; place {put_ms:.3f} ms, hash "
               f"{hash_ms:.3f} ms, scan {scan_ms:.3f} ms, estimate {est_ms:.3f} ms; "
-              f"{hash_launches} + {scan_launches} launches; == one-card plane")
+              f"{hash_launches} + {scan_launches} launches ({hash_combines} + "
+              f"{scan_combines} combines); == one-card plane")
         del sp
     if counter_value("juicefs_torch_shard_degraded") != deg0 + 1:
         raise AssertionError("the odd count must be the one counted degrade")
@@ -2113,24 +2373,29 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         t0 = time.perf_counter()
         chk = sharding.sharded_scan_many(mesh)(*placed, 10)
         ms = (time.perf_counter() - t0) * 1e3 / 10
-        nl = launches()
+        nl = launches(lane)
+        combines = kernels.LAUNCHES["jth256_combine"]
         if nl != 10 * d * lane:
             raise AssertionError(f"scan_many {d}x{lane}: {nl} launches, want {10 * d * lane}")
-        many[f"{d}x{lane}"] = {"checksum": chk, "ms_per_iter": ms, "launches": nl}
+        many[f"{d}x{lane}"] = {"checksum": chk, "ms_per_iter": ms, "launches": nl,
+                               "combines": combines}
         del placed
     if many["1x1"]["checksum"] != many["2x2"]["checksum"]:
         raise AssertionError(f"sharded_scan_many checksums differ: {many}")
     by_path["shard_many"] = sum(v["launches"] for v in many.values())
+    combine_by_path["shard_many"] = sum(v["combines"] for v in many.values())
     print(f"sharded_scan_many over {n_even} blocks, 10 iterations: checksum "
           f"{many['1x1']['checksum']:#010x} at 1x1 and 2x2; "
           f"{many['1x1']['ms_per_iter']:.3f} ms / iteration at 1x1, "
           f"{many['2x2']['ms_per_iter']:.3f} at 2x2 (phase 6 kernel alone: "
-          f"{timing['ms']:.4f} ms per 1 GiB); card {smi}")
+          f"{timing['sizes'][TIMING_BLOCKS[-1]]['lane_digests_ms']:.4f} ms per 1 GiB); "
+          f"card {smi}")
 
     # the multichip run on the 2x2 mesh over the card, at the same size
     kernels.reset_launches()
     mc = dryrun_multichip([card] * 4, gib=volume_gib, block_mib=bs >> 20)
-    total = launches()
+    total = launches(2)
+    total_combines = kernels.LAUNCHES["jth256_combine"]
     scan_batches = -(-mc["blocks"] // 32)
     ingest_batches = mc["h2d_batches"] - scan_batches
     if mc["mesh"] != {"data": 2, "lane": 2} or mc["degraded"] or not mc["identity_ok"]:
@@ -2144,15 +2409,26 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         raise AssertionError(f"multichip launches {mc['ingest']['launches']} + "
                              f"{mc['scan']['launches']} (of {total}) for {ingest_batches} "
                              f"ingest and {scan_batches} scan batches on 4 mesh devices")
+    # each leg's combines, read at the leg's own ends by dryrun_multichip
+    if mc["ingest"]["combines"] + mc["scan"]["combines"] != total_combines \
+            or mc["scan"]["combines"] != 2 * scan_batches \
+            or mc["ingest"]["combines"] != 2 * ingest_batches:
+        raise AssertionError(f"multichip combines {mc['ingest']['combines']} + "
+                             f"{mc['scan']['combines']} (of {total_combines}) for "
+                             f"{ingest_batches} ingest and {scan_batches} scan batches "
+                             "on 2 data rows")
     by_path["multichip_ingest"] = mc["ingest"]["launches"]
     by_path["multichip_scan"] = mc["scan"]["launches"]
+    combine_by_path["multichip_ingest"] = mc["ingest"]["combines"]
+    combine_by_path["multichip_scan"] = mc["scan"]["combines"]
     print(f"gates ok: meshes 2x1, 2x2, 4x2 == one-card plane bit for bit, odd count "
           f"degraded and counted, scan_many checksums equal; multichip 2x2: ingest "
           f"{mc['ingest']['gibs']} GiB/s in {ingest_batches} batches ({ing['estimated']} "
           f"of {ing['hashed']} hashed blocks estimated on the mesh), cold scan "
           f"{mc['scan']['gibs']} GiB/s, {mc['duplicate_blocks']} duplicates; phase "
           f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
-    return {"launches": by_path, "meshes": meshes, "scan_many": many, "multichip": mc}
+    return {"launches": by_path, "combine_launches": combine_by_path, "meshes": meshes,
+            "scan_many": many, "multichip": mc}
 
 
 def recording_indexer(sample_every: int):
@@ -2384,15 +2660,20 @@ def settled_index_metrics(mport: int) -> tuple[int, int]:
         conn.request("GET", "/metrics")
         text = conn.getresponse().read().decode()
         conn.close()
-        now = (int(stats_value(text, 'juicefs_torch_kernel_launches{kernel="jth256_row_chain"}')),
+        gauge = gauge_launches(text)
+        now = (gauge["jth256_row_chain"],
                int(stats_value(text, 'juicefs_torch_stage_seconds_count{layer="gpu",'
                                      'op="index",stage="batch"}')),
-               int(stats_value(text, "juicefs_index_queue_blocks")))
-        if now == last and now[0] == now[1] and now[2] == 0:
+               int(stats_value(text, "juicefs_index_queue_blocks")),
+               gauge["jth256_lane_digests"], gauge["jth256_combine"])
+        # settled: one index batch per launch, one lane-digests epilogue
+        # and one combine per row chain, and nothing queued
+        if now == last and now[0] == now[1] == now[3] == now[4] and now[2] == 0:
             return now[0], now[1]
         last = now
         time.sleep(0.5)
-    raise AssertionError(f"webdav process: launches, index batches, queue {last}")
+    raise AssertionError(f"webdav process: launches, index batches, queue, lane-digests "
+                         f"and combine launches {last}")
 
 
 def sync_phase(rng: np.random.Generator, smi: str) -> dict:
@@ -3558,6 +3839,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-gib", type=float, default=1.0)
+    ap.add_argument("--compare-row-chain", metavar="DIR",
+                    help="only build and time DIR's row-chain kernel beside this one")
+    ap.add_argument("--compare-define", metavar="NAME=VALUE",
+                    help="a macro for DIR's build under --compare-row-chain")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -3567,11 +3852,15 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
+    if args.compare_row_chain:
+        compare_phase(gen, smi, args.compare_row_chain, args.compare_define)
+        end_phase()
+        return 0
     err = kernel_phase(gen)
     digests_phase(rng)
     scan = scan_phase(rng, args.volume_gib)
     timing = timing_phase(gen, smi)
-    batch_breakdown_phase(rng)
+    breakdown = batch_breakdown_phase(rng)
     ingest = ingest_phase(rng, args.volume_gib)
     conc = concurrent_ingest_phase(rng, args.volume_gib)
     estimator_phase(rng)
@@ -3599,6 +3888,15 @@ def main(argv=None) -> int:
                **shard["launches"], **objbench["launches"], **bench["launches"],
                **sync["launches"], **config["launches"], **meta["launches"],
                **group["launches"], **stores["launches"]}
+    # a read of the counts on a one-card path (launches()) fails unless it
+    # saw one combine per row chain; the phases that kept the whole count
+    # (launch_counts()) and the shard phase give the combines they read
+    combine_by_path = {**by_path,
+                       "scan": scan["launches"]["jth256_combine"],
+                       "ingest": ingest["launches"]["jth256_combine"],
+                       "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_combine"],
+                       "ingest_concurrent": conc["launches"]["jth256_combine"],
+                       **shard["combine_launches"]}
     print(f"launches of jth256_row_chain: {by_path} ({args.volume_gib} GiB each: scan, "
           "ingest, its cold scan, concurrent ingest, indexed write, gc, fsck; then the "
           "gateway's index batches, the SDK's, gc --compact --dedup, fsck; then the "
@@ -3637,18 +3935,49 @@ def main(argv=None) -> int:
           f"fsck {group['fsck_gibs']:.4f} GiB/s, gc {group['gc_seconds']:.3f} s; blob stores "
           f"{json.dumps(stores['legs'])} (encrypted leg {stores['encrypted']})")
     print(f"total {time.perf_counter() - t_start:.3f} s")
+    print(f"launches of jth256_combine: {combine_by_path}; card {smi}")
+    print(f"hash batch of 32 blocks: {breakdown['hash_ms']:.4f} ms in two launches "
+          f"(lane digests {breakdown['lane_digests_ms']:.4f}, combine "
+          f"{breakdown['combine_ms']:.4f}) against {breakdown['kernel_ms']:.4f} + "
+          f"{breakdown['fold_ms']:.3f} ms for the states epilogue and the plain fold; "
+          f"card {smi}")
+    at_32 = timing["sizes"][32]
+    big = timing["sizes"][TIMING_BLOCKS[-1]]
     print(json.dumps({"kernels": [{
+        # one kernel, two C entries: the main path launches the lane-digests
+        # entry alone (every read of the counts holds the row-chain launches
+        # to the lane-digests ones), so its launches and times are that
+        # entry's; the states entry's times stand beside them
         "name": "jth256_row_chain",
         "route": "cuda",
         "source": "juicefs_tpu_torch/gpu/kernels/jth256_row_chain.cu",
         "replaces": "juicefs_tpu/tpu/hash_jax.py:174",
+        "shape": f"{TIMING_LANES} lanes (1 GiB) through jth256_lane_digests, the entry "
+                 "the main path launches",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        "max_abs_err": max(err["jth256_row_chain"], err["jth256_lane_digests"]),
+        "ms": big["lane_digests_ms"],
+        "plain_ms": big["lane_digests_plain_ms"],
+        "bound_ms": big["lane_digests_bound_ms"],
+        "bound_by": big["lane_digests_bound_by"],
+        "library_ms": None,
+        "states_entry": {"entry": "jth256_row_chain", "main_path_launches": 0,
+                         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+                         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"]},
+    }, {
+        "name": "jth256_combine",
+        "route": "cuda",
+        "source": "juicefs_tpu_torch/gpu/kernels/jth256_combine.cu",
+        "replaces": "juicefs_tpu/tpu/hash_jax.py:103",
+        "shape": "32 blocks x 64 lanes (the main path's hash batch)",
+        "launches": sum(combine_by_path.values()),
+        "launches_by_path": combine_by_path,
+        "max_abs_err": err["jth256_combine"],
+        "ms": at_32["combine_ms"],
+        "plain_ms": at_32["combine_plain_ms"],
+        "bound_ms": at_32["combine_bound_ms"],
+        "bound_by": at_32["combine_bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

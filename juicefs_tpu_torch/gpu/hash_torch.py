@@ -1,20 +1,25 @@
 """Batched JTH-256 in PyTorch: the counterpart of juicefs_tpu/tpu/hash_jax.py.
 
-The row chain, which reads every input word once and does nearly all of
-the work, runs in the hand-written CUDA kernel `gpu/kernels/
-jth256_row_chain.cu` (counterpart of the Pallas `_pallas_row_chain`). The
-lane fold and combine (`lane_accs`, `combine_accs`, `fmix`, counterparts
-of hash_jax.py:57-128) are torch ops on the same device.
+A hash batch on the card is two hand-written CUDA kernels: the row chain
+with the lane fold in its epilogue (`gpu/kernels/jth256_row_chain.cu`,
+entry `jth256_lane_digests`, counterpart of the Pallas `_pallas_row_chain`
+and `_lane_accs`), then the per-block combine (`gpu/kernels/
+jth256_combine.cu`, counterpart of `_combine_accs` and `_fmix`). The row
+chain's other epilogue, `row_chain`, returns the lane states themselves.
 
-`row_chain` runs the kernel for a CUDA tensor and its plain torch version
-`row_chain_ref` only for a tensor on the CPU; it never falls back from the
-card to the CPU. `device=None` means the card: without one it raises.
+Every wrapper launches its kernel for a CUDA tensor and runs its plain
+torch version only for a tensor on the CPU: `row_chain_ref`,
+`chain_digests_ref` (= `row_chain_ref` + `lane_accs`) and `combine_accs`
+(with `fmix`), counterparts of hash_jax.py:57-128. It never falls back
+from the card to the CPU. `device=None` means the card: without one it
+raises.
 
 Torch has no right shift on uint32 on the CPU, and a right shift on int32
 keeps the sign, so the torch ops carry words as int64 values in
 [0, 2^32) and mask with 0xFFFFFFFF after every multiply, shift and add
 (the low 32 bits of a wrapped int64 product are the uint32 product).
-Words cross into the kernel as int32 tensors with the uint32 bits.
+Words and per-lane digests cross into the kernels as int32 tensors with
+the uint32 bits.
 """
 
 from __future__ import annotations
@@ -48,11 +53,26 @@ _FM2 = 0xC2B2AE35
 VERIFY_SIZES = (0, 1, 100, LANE_BYTES, LANE_BYTES + 7, 3 * LANE_BYTES)
 
 _LAST_KERNEL_MODE: str | None = None
+_LAST_FOLD_MODE: str | None = None
 
 
 def last_kernel_mode() -> str | None:
-    """'cuda' | 'torch-cpu' for the most recent row_chain, else None."""
+    """'cuda' | 'torch-cpu' for the most recent row chain (`row_chain` or
+    `chain_digests`), else None."""
     return _LAST_KERNEL_MODE
+
+
+def last_fold_mode() -> str | None:
+    """How the most recent fold ran, else None: 'cuda' (the digests
+    epilogue or the combine kernel), 'torch-cpu' (the plain versions on
+    the CPU) or 'torch-cuda' (a plain `lane_accs`/`combine_accs` given a
+    CUDA tensor: only a comparison with the kernels does that)."""
+    return _LAST_FOLD_MODE
+
+
+def _plain_fold(x: torch.Tensor) -> None:
+    global _LAST_FOLD_MODE
+    _LAST_FOLD_MODE = "torch-cuda" if x.device.type == "cuda" else "torch-cpu"
 
 
 def cuda_device_count() -> int:
@@ -137,56 +157,106 @@ def row_chain_ref(words_flat: torch.Tensor, m: int, tweak: int = 0,
     return _narrow(s)
 
 
+def _launch_chain(entry: str, words_flat: torch.Tensor, m: int, tweak: int,
+                  lane_offset: int, width: int) -> torch.Tensor:
+    """One launch of the row-chain kernel under `entry` (either epilogue):
+    int32 (L, width) out, counted under jth256_row_chain and `entry`."""
+    global _LAST_KERNEL_MODE
+    if words_flat.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cuda or cpu, not {words_flat.device}")
+    if words_flat.data_ptr() % 16:
+        raise ValueError("words must start on a 16-byte boundary (TMA bulk copies)")
+    n_lanes = words_flat.shape[0]
+    out = torch.empty((n_lanes, width), dtype=torch.int32, device=words_flat.device)
+    if n_lanes:
+        fn = kernels.function(entry)
+        with torch.cuda.device(words_flat.device):
+            stream = torch.cuda.current_stream(words_flat.device).cuda_stream
+            rc = fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
+                    int(lane_offset) & MASK, int(tweak) & MASK, stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        kernels.LAUNCHES["jth256_row_chain"] += 1
+        if entry != "jth256_row_chain":
+            kernels.LAUNCHES[entry] += 1
+    _LAST_KERNEL_MODE = "cuda"
+    return out
+
+
 def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0,
               lane_offset: int = 0) -> torch.Tensor:
     """Row chain: int32 (L, 128, 128) -> int32 (L, 128) lane states, lane l
     hashing as lane `lane_offset + l mod m` of its block.
 
-    A CUDA tensor goes through the hand kernel (one launch, counted in
-    kernels.LAUNCHES); a CPU tensor through `row_chain_ref`. Any other
-    device raises.
+    A CUDA tensor goes through the hand kernel's states epilogue (one
+    launch, counted in kernels.LAUNCHES); a CPU tensor through
+    `row_chain_ref`. Any other device raises.
     """
     global _LAST_KERNEL_MODE
     _check_words(words_flat, m)
     if words_flat.device.type == "cpu":
         _LAST_KERNEL_MODE = "torch-cpu"
         return row_chain_ref(words_flat, m, tweak, lane_offset)
-    if words_flat.device.type != "cuda":
-        raise ValueError(f"row_chain runs on cuda or cpu, not {words_flat.device}")
-    n_lanes = words_flat.shape[0]
-    out = torch.empty((n_lanes, COLS), dtype=torch.int32, device=words_flat.device)
-    if n_lanes:
-        fn = kernels.row_chain_function()
-        with torch.cuda.device(words_flat.device):
-            stream = torch.cuda.current_stream(words_flat.device).cuda_stream
-            rc = fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
-                    int(lane_offset) & MASK, int(tweak) & MASK, stream)
-        if rc != 0:
-            raise RuntimeError(f"jth256_row_chain launch failed: CUDA error {rc}")
-        kernels.LAUNCHES["jth256_row_chain"] += 1
-    _LAST_KERNEL_MODE = "cuda"
-    return out
+    return _launch_chain("jth256_row_chain", words_flat, m, tweak, lane_offset, COLS)
+
+
+def _fold(s: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """Lane fold of int64 states (..., 128) whose lane indices are `lanes`
+    (broadcast against the leading dims) -> int64 (..., 8)."""
+    k8 = torch.arange(8, dtype=torch.int64, device=s.device)
+    g = s.reshape(*s.shape[:-1], 16, 8)
+    acc = _P4 ^ _mul(lanes, _P2)[..., None] ^ _mul(k8, _P1)
+    for gi in range(16):
+        acc = (_rotl(_mul(acc ^ g[..., gi, :], _P3), 11) + ((gi * _P5) & MASK)) & MASK
+    return acc
 
 
 def lane_accs(s: torch.Tensor, lane_offset: int = 0) -> torch.Tensor:
-    """Fold lane states (B, M, 128) -> per-lane digests (B, M, 8), int64;
-    the M lanes are lanes [lane_offset, lane_offset + M) of each block."""
-    s = _widen(s)
-    b, m = s.shape[0], s.shape[1]
-    dev = s.device
-    lanes = torch.arange(lane_offset, lane_offset + m, dtype=torch.int64, device=dev)
-    k8 = torch.arange(8, dtype=torch.int64, device=dev)
-    g = s.reshape(b, m, 16, 8)
-    acc = (_P4 ^ _mul(lanes, _P2)[:, None] ^ _mul(k8, _P1)[None, :]).expand(b, m, 8)
-    for gi in range(16):
-        acc = (_rotl(_mul(acc ^ g[:, :, gi, :], _P3), 11) + ((gi * _P5) & MASK)) & MASK
-    return acc
+    """Plain lane fold: states (B, M, 128) -> per-lane digests (B, M, 8),
+    int64; the M lanes are lanes [lane_offset, lane_offset + M) of each
+    block."""
+    _plain_fold(s)
+    m = s.shape[1]
+    lanes = torch.arange(lane_offset, lane_offset + m, dtype=torch.int64, device=s.device)
+    return _fold(_widen(s), lanes[None, :])
+
+
+def chain_digests_ref(words_flat: torch.Tensor, m: int, tweak: int = 0,
+                      lane_offset: int = 0) -> torch.Tensor:
+    """Plain row chain + lane fold: int32 (L, 128, 128) -> int32 (L, 8)
+    per-lane digests, lane l folding as lane `lane_offset + l mod m`."""
+    s = row_chain_ref(words_flat, m, tweak, lane_offset)
+    _plain_fold(s)
+    lanes = torch.arange(s.shape[0], dtype=torch.int64, device=s.device) % m + lane_offset
+    return _narrow(_fold(_widen(s), lanes))
+
+
+def chain_digests(words_flat: torch.Tensor, m: int, tweak: int = 0,
+                  lane_offset: int = 0) -> torch.Tensor:
+    """Row chain and lane fold: int32 (L, 128, 128) -> int32 (L, 8) per-lane
+    digests (uint32 bits), lane l hashing as lane `lane_offset + l mod m`.
+
+    A CUDA tensor goes through the row-chain kernel's digests epilogue (one
+    launch, counted under jth256_row_chain and jth256_lane_digests); a CPU
+    tensor through `chain_digests_ref`. Any other device raises.
+    """
+    global _LAST_KERNEL_MODE, _LAST_FOLD_MODE
+    _check_words(words_flat, m)
+    if words_flat.device.type == "cpu":
+        _LAST_KERNEL_MODE = "torch-cpu"
+        return chain_digests_ref(words_flat, m, tweak, lane_offset)
+    out = _launch_chain("jth256_lane_digests", words_flat, m, tweak, lane_offset, 8)
+    _LAST_FOLD_MODE = "cuda"
+    return out
 
 
 def combine_accs(acc: torch.Tensor, lane_counts: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
-    """Sequentially combine per-lane digests (B, M, 8) -> digests (B, 8),
-    int64; lanes at or past lane_counts[b] leave the state unchanged."""
+    """Plain combine: per-lane digests (B, M, 8) (int64, or int32 with the
+    uint32 bits) -> digests (B, 8), int64; lanes at or past lane_counts[b]
+    leave the state unchanged."""
+    _plain_fold(acc)
+    acc = _widen(acc)
     b, m = acc.shape[0], acc.shape[1]
     dev = acc.device
     k8 = torch.arange(8, dtype=torch.int64, device=dev)
@@ -198,6 +268,46 @@ def combine_accs(acc: torch.Tensor, lane_counts: torch.Tensor,
     lens = lengths.to(device=dev, dtype=torch.int64) & MASK
     h = h ^ ((lens[:, None] + _mul(k8, _P4)[None, :]) & MASK)
     return fmix(h)
+
+
+def combine(acc: torch.Tensor, lane_counts: torch.Tensor,
+            lengths: torch.Tensor) -> torch.Tensor:
+    """Per-block combine: int32 per-lane digests (B, M, 8) with int64
+    lane_counts and lengths (B,) on the same device -> int64 (B, 8)
+    holding the uint32 digest words.
+
+    A CUDA tensor goes through the combine kernel (one launch, counted
+    under jth256_combine); a CPU tensor through `combine_accs`. Any other
+    device raises.
+    """
+    global _LAST_FOLD_MODE
+    if acc.dtype != torch.int32 or acc.dim() != 3 or acc.shape[1] < 1 or acc.shape[2] != 8:
+        raise ValueError(f"per-lane digests must be int32 (B, M >= 1, 8), got "
+                         f"{acc.dtype} {tuple(acc.shape)}")
+    if acc.device.type == "cpu":
+        return combine_accs(acc, lane_counts, lengths)
+    if acc.device.type != "cuda":
+        raise ValueError(f"combine runs on cuda or cpu, not {acc.device}")
+    b, m = acc.shape[0], acc.shape[1]
+    dev = acc.device
+    acc = acc.contiguous()
+    counts = lane_counts.to(device=dev, dtype=torch.int64).contiguous()
+    lens = lengths.to(device=dev, dtype=torch.int64).contiguous()
+    if counts.shape != (b,) or lens.shape != (b,):
+        raise ValueError(f"lane_counts and lengths must be ({b},), got "
+                         f"{tuple(counts.shape)} and {tuple(lens.shape)}")
+    out = torch.empty((b, 8), dtype=torch.int64, device=dev)
+    if b:
+        fn = kernels.function("jth256_combine")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(acc.data_ptr(), counts.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                    b, m, stream)
+        if rc != 0:
+            raise RuntimeError(f"jth256_combine launch failed: CUDA error {rc}")
+        kernels.LAUNCHES["jth256_combine"] += 1
+    _LAST_FOLD_MODE = "cuda"
+    return out
 
 
 def _as_words(words, dev: torch.device) -> torch.Tensor:
@@ -225,18 +335,19 @@ def _as_int64(a, dev: torch.device) -> torch.Tensor:
 def lane_digests(words: torch.Tensor, tweak: int = 0,
                  lane_offset: int = 0) -> torch.Tensor:
     """Per-lane digests of packed words on their device: int32 (B, M, 128,
-    128), lanes [lane_offset, lane_offset + M) of each block -> int64
-    (B, M, 8). One row-chain launch, then the fold."""
+    128), lanes [lane_offset, lane_offset + M) of each block -> int32
+    (B, M, 8) with the uint32 bits. One launch on the card."""
     b, m = words.shape[0], words.shape[1]
-    s = row_chain(words.reshape(b * m, ROWS, COLS), m, tweak, lane_offset)
-    return lane_accs(s.reshape(b, m, COLS), lane_offset)
+    d = chain_digests(words.reshape(b * m, ROWS, COLS), m, tweak, lane_offset)
+    return d.reshape(b, m, 8)
 
 
 def hash_device(words: torch.Tensor, lane_counts: torch.Tensor,
                 lengths: torch.Tensor, tweak: int = 0) -> torch.Tensor:
     """Digests of a packed batch already on its device: int32 words
-    (B, M, 128, 128) -> int64 (B, 8) holding the uint32 digest words."""
-    return combine_accs(lane_digests(words, tweak), lane_counts, lengths)
+    (B, M, 128, 128) -> int64 (B, 8) holding the uint32 digest words. Two
+    launches on the card: the row chain with its lane fold, the combine."""
+    return combine(lane_digests(words, tweak), lane_counts, lengths)
 
 
 def digests_to_numpy(h: torch.Tensor) -> np.ndarray:

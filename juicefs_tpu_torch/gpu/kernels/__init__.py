@@ -10,7 +10,10 @@ source is rebuilt and an unchanged one is loaded as it is.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with `reset_launches()` and reads them afterwards to show
-that a path went through the kernel. The gauge
+that a path went through the kernel. `jth256_row_chain` counts every
+launch of the row-chain kernel under either epilogue (states or lane
+digests), `jth256_lane_digests` those of the digests epilogue alone, and
+`jth256_combine` the per-block combine. The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
 process (a mount's `.stats` or `/metrics`) shows them too.
 """
@@ -25,6 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 from ...metric import global_registry
 
@@ -34,7 +38,12 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_ext")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES: dict[str, int] = {"jth256_row_chain": 0}
+LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_lane_digests": 0,
+                            "jth256_combine": 0}
+# the source file each C entry is built from
+ENTRY_SOURCES = {"jth256_row_chain": "jth256_row_chain",
+                 "jth256_lane_digests": "jth256_row_chain",
+                 "jth256_combine": "jth256_combine"}
 _LAUNCH_GAUGE = global_registry().gauge(
     "juicefs_torch_kernel_launches",
     "Launches of each hand-written CUDA kernel since the last reset",
@@ -48,6 +57,7 @@ for _name in LAUNCHES:
 BUILD_SECONDS: dict[str, float] = {}
 
 _lock = threading.Lock()
+_build_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -78,8 +88,11 @@ def _sources_digest() -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load `<name>.cu` as a ctypes library."""
+    """Build (once) and load `<name>.cu` as a ctypes library. Different
+    sources build in parallel when called from several threads."""
     with _lock:
+        build_lock = _build_locks.setdefault(name, threading.Lock())
+    with build_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -103,20 +116,50 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def row_chain_function():
-    """The C entry point of jth256_row_chain.cu, with its ctypes signature."""
-    fn = load_library("jth256_row_chain").jth256_row_chain
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+# (words, out, n_lanes, m, lane_offset, tweak, stream)
+_CHAIN_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+_SIGNATURES = {
+    "jth256_row_chain": _CHAIN_SIGNATURE,
+    "jth256_lane_digests": _CHAIN_SIGNATURE,
+    # (accs, lane_counts, lengths, out, n_blocks, m, stream)
+    "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
+}
+
+
+_fns: dict[str, object] = {}
+
+
+def function(entry: str):
+    """The C entry point `entry` (a key of ENTRY_SOURCES), with its ctypes
+    signature; its library is built at the first call."""
+    fn = _fns.get(entry)
+    if fn is None:
+        fn = getattr(load_library(ENTRY_SOURCES[entry]), entry)
+        fn.argtypes = _SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        _fns[entry] = fn
     return fn
+
+
+def build_all() -> dict[str, float]:
+    """Build every kernel source at once, one nvcc each in parallel;
+    returns the seconds each build took (absent: loaded as built)."""
+    names = sorted(set(ENTRY_SOURCES.values()))
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(load_library, names))
+    return {n: BUILD_SECONDS[n] for n in names if n in BUILD_SECONDS}
 
 
 def load_twin():
     """Build the CPU twin (jth256_twin.cpp, g++) with
-    torch.utils.cpp_extension.load and return its module;
-    `row_chain(words, m, tweak, lane_offset=0)` takes int32 (L, 128, 128)
-    words on the CPU."""
+    torch.utils.cpp_extension.load and return its module:
+    `row_chain(words, m, tweak, lane_offset=0)` and `lane_digests(words, m,
+    tweak, lane_offset=0)` take int32 (L, 128, 128) words on the CPU and
+    return int32 (L, 128) states or (L, 8) digests; `combine(accs,
+    lane_counts, lengths)` takes int32 (B, M, 8) digests and int64 counts
+    and lengths and returns int64 (B, 8)."""
     from torch.utils.cpp_extension import load
 
     build = os.path.join(REPO_ROOT, "build", "torch_ext", "twin")

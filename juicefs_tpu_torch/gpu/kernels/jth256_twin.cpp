@@ -1,12 +1,14 @@
-// CPU twin of jth256_row_chain.cu: the same per-lane chain, built with g++
-// from the same jth256_step.cuh, so the CPU tests can hold the arithmetic
-// the card runs against the JAX package (no nvcc is needed to build it).
+// CPU twin of jth256_row_chain.cu (both epilogues) and jth256_combine.cu:
+// the same per-lane chain, lane fold and combine, built with g++ from the
+// same jth256_step.cuh, so the CPU tests can hold the arithmetic the card
+// runs against the JAX package (no nvcc is needed to build it).
 #include <torch/extension.h>
 
 #include "jth256_step.cuh"
 
-torch::Tensor row_chain(torch::Tensor words, int64_t m, int64_t tweak,
-                        int64_t lane_offset) {
+namespace {
+
+void check_words(const torch::Tensor& words, int64_t m) {
   TORCH_CHECK(words.device().is_cpu(), "words must lie on the CPU");
   TORCH_CHECK(words.scalar_type() == torch::kInt32, "words must be int32");
   TORCH_CHECK(words.dim() == 3 && words.size(1) == jth256::kRows &&
@@ -14,21 +16,91 @@ torch::Tensor row_chain(torch::Tensor words, int64_t m, int64_t tweak,
               "words must be (L, 128, 128)");
   TORCH_CHECK(words.is_contiguous(), "words must be contiguous");
   TORCH_CHECK(m >= 1, "m must be >= 1");
+}
+
+// Final states of lane `lane` (its index in the batch) into s[128].
+void chain_lane(const uint32_t* w, int64_t lane, int64_t m, uint32_t tw,
+                uint32_t loff, uint32_t* s) {
+  const uint32_t* lw = w + lane * jth256::kRows * jth256::kCols;
+  const uint32_t idx = loff + static_cast<uint32_t>(lane % m);
+  for (uint32_t col = 0; col < static_cast<uint32_t>(jth256::kCols); ++col) {
+    uint32_t st = jth256::init_state(col, idx);
+    for (int r = 0; r < jth256::kRows; ++r) {
+      st = jth256::row_step(st, lw[r * jth256::kCols + col] ^ tw);
+    }
+    s[col] = st;
+  }
+}
+
+const uint32_t* words_u32(const torch::Tensor& words) {
+  return reinterpret_cast<const uint32_t*>(words.data_ptr<int32_t>());
+}
+
+}  // namespace
+
+torch::Tensor row_chain(torch::Tensor words, int64_t m, int64_t tweak,
+                        int64_t lane_offset) {
+  check_words(words, m);
   const int64_t n_lanes = words.size(0);
   auto out = torch::empty({n_lanes, jth256::kCols}, words.options());
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(words.data_ptr<int32_t>());
   uint32_t* o = reinterpret_cast<uint32_t*>(out.data_ptr<int32_t>());
-  const uint32_t tw = static_cast<uint32_t>(tweak);
+  for (int64_t lane = 0; lane < n_lanes; ++lane) {
+    chain_lane(words_u32(words), lane, m, static_cast<uint32_t>(tweak),
+               static_cast<uint32_t>(lane_offset), o + lane * jth256::kCols);
+  }
+  return out;
+}
+
+torch::Tensor lane_digests(torch::Tensor words, int64_t m, int64_t tweak,
+                           int64_t lane_offset) {
+  check_words(words, m);
+  const int64_t n_lanes = words.size(0);
+  auto out = torch::empty({n_lanes, jth256::kDigestWords}, words.options());
+  uint32_t* o = reinterpret_cast<uint32_t*>(out.data_ptr<int32_t>());
+  uint32_t s[jth256::kCols];
   const uint32_t loff = static_cast<uint32_t>(lane_offset);
   for (int64_t lane = 0; lane < n_lanes; ++lane) {
-    const uint32_t* lw = w + lane * jth256::kRows * jth256::kCols;
-    for (uint32_t col = 0; col < static_cast<uint32_t>(jth256::kCols); ++col) {
-      uint32_t s =
-          jth256::init_state(col, loff + static_cast<uint32_t>(lane % m));
-      for (int r = 0; r < jth256::kRows; ++r) {
-        s = jth256::row_step(s, lw[r * jth256::kCols + col] ^ tw);
+    chain_lane(words_u32(words), lane, m, static_cast<uint32_t>(tweak), loff, s);
+    const uint32_t idx = loff + static_cast<uint32_t>(lane % m);
+    for (uint32_t k = 0; k < static_cast<uint32_t>(jth256::kDigestWords); ++k) {
+      uint32_t acc = jth256::fold_seed(idx, k);
+      for (uint32_t gi = 0; gi < static_cast<uint32_t>(jth256::kGroups); ++gi) {
+        acc = jth256::fold_step(acc, s[gi * jth256::kDigestWords + k], gi);
       }
-      o[lane * jth256::kCols + col] = s;
+      o[lane * jth256::kDigestWords + k] = acc;
+    }
+  }
+  return out;
+}
+
+torch::Tensor combine(torch::Tensor accs, torch::Tensor lane_counts,
+                      torch::Tensor lengths) {
+  TORCH_CHECK(accs.device().is_cpu(), "accs must lie on the CPU");
+  TORCH_CHECK(accs.scalar_type() == torch::kInt32, "accs must be int32");
+  TORCH_CHECK(accs.dim() == 3 && accs.size(1) >= 1 &&
+                  accs.size(2) == jth256::kDigestWords,
+              "accs must be (B, M, 8)");
+  TORCH_CHECK(accs.is_contiguous(), "accs must be contiguous");
+  const int64_t b = accs.size(0), m = accs.size(1);
+  TORCH_CHECK(lane_counts.scalar_type() == torch::kInt64 && lane_counts.numel() == b &&
+                  lane_counts.is_contiguous(),
+              "lane_counts must be int64 (B,)");
+  TORCH_CHECK(lengths.scalar_type() == torch::kInt64 && lengths.numel() == b &&
+                  lengths.is_contiguous(),
+              "lengths must be int64 (B,)");
+  auto out = torch::empty({b, jth256::kDigestWords}, lane_counts.options());
+  const uint32_t* d = reinterpret_cast<const uint32_t*>(accs.data_ptr<int32_t>());
+  const int64_t* counts = lane_counts.data_ptr<int64_t>();
+  const int64_t* lens = lengths.data_ptr<int64_t>();
+  int64_t* o = out.data_ptr<int64_t>();
+  for (int64_t i = 0; i < b; ++i) {
+    const int64_t c = counts[i];
+    const uint32_t live = c <= 0 ? 0u : (c >= m ? static_cast<uint32_t>(m)
+                                                : static_cast<uint32_t>(c));
+    for (uint32_t k = 0; k < static_cast<uint32_t>(jth256::kDigestWords); ++k) {
+      o[i * jth256::kDigestWords + k] = jth256::finish_word(
+          d + i * m * jth256::kDigestWords, jth256::kDigestWords, live,
+          static_cast<uint32_t>(lens[i]), k);
     }
   }
   return out;
@@ -38,4 +110,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("row_chain", &row_chain, "JTH-256 row chain on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("tweak"),
           pybind11::arg("lane_offset") = 0);
+  mod.def("lane_digests", &lane_digests,
+          "JTH-256 row chain and lane fold on the CPU (twin)",
+          pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("tweak"),
+          pybind11::arg("lane_offset") = 0);
+  mod.def("combine", &combine, "JTH-256 per-block combine on the CPU (twin)",
+          pybind11::arg("accs"), pybind11::arg("lane_counts"),
+          pybind11::arg("lengths"));
 }

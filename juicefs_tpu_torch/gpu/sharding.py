@@ -39,7 +39,10 @@ Degrade ladder (never an error):
                                         counted
 
 The one-device path is the plain `hash_torch.hash_device` on tensors
-uploaded once: the same upload, launch and fold as without a plane.
+uploaded once: the same upload and the same two launches (row chain with
+its lane fold, combine) as without a plane. On a mesh each device runs
+the row chain with its lane fold over its lane shard, and each data
+row's lead device the combine over the gathered per-lane digests.
 
 Ragged batches pad B up to the data-axis extent by repeating the last
 block (pad rows can only mark themselves as duplicates); outputs are
@@ -65,7 +68,7 @@ from .hash_torch import (
     MASK,
     _as_int64,
     _as_words,
-    combine_accs,
+    combine,
     cuda_device_count,
     digests_to_numpy,
     hash_device,
@@ -218,10 +221,11 @@ def shard_batch(mesh: Mesh, words, lane_counts, lengths):
 
 
 def _lane_gather(mesh: Mesh, words: ShardedTensor, tweak: int) -> list[torch.Tensor]:
-    """Row chain + fold of every shard on its device with its global lane
-    offset, then per data row the per-lane digests on the row's lead
-    device in lane order (the reference's all_gather over "lane",
-    tiled on axis 1): one (B/data, M, 8) tensor per data row."""
+    """Row chain + lane fold of every shard on its device with its global
+    lane offset (one `jth256_lane_digests` launch each), then per data row
+    the per-lane digests on the row's lead device in lane order (the
+    reference's all_gather over "lane", tiled on axis 1): one int32
+    (B/data, M, 8) tensor per data row."""
     out = []
     for d, row in enumerate(words.shards):
         lead = mesh.devices[d][0]
@@ -235,10 +239,11 @@ def _hash_body(mesh: Mesh, words: ShardedTensor, lane_counts: ShardedTensor,
                lengths: ShardedTensor, tweak: int = 0) -> torch.Tensor:
     """Digests of a placed batch, gathered over data on the home device:
     int64 (B, 8). The combine masks by the global lane counts, so it runs
-    only after the lane gather."""
+    only after the lane gather: one `jth256_combine` launch per data row,
+    on the row's lead device."""
     rows = []
     for d, acc in enumerate(_lane_gather(mesh, words, tweak)):
-        h = combine_accs(acc, lane_counts.shards[d][0], lengths.shards[d][0])
+        h = combine(acc, lane_counts.shards[d][0], lengths.shards[d][0])
         rows.append(h.to(mesh.home, non_blocking=True))
     return torch.cat(rows, 0)
 

@@ -67,10 +67,24 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
         expect_dups += id(b) in seen_ids  # pool entries are reused objects
         seen_ids.add(id(b))
 
-    def row_chain_launches() -> int:
+    def kernel_launches() -> tuple[int, int]:
+        """(row-chain, combine) launches so far."""
         if any(d.type == "cuda" for d in plane.devices):
             torch.cuda.synchronize()
-        return kernels.LAUNCHES["jth256_row_chain"]
+        return kernels.LAUNCHES["jth256_row_chain"], kernels.LAUNCHES["jth256_combine"]
+
+    def stage_launches(since: tuple[int, int]) -> tuple[int, int]:
+        """(row-chain, combine) launches of a leg: a hash batch runs one
+        row chain per mesh device and one combine per data row, so the
+        combines times the lane extent must equal the row chains."""
+        now = kernel_launches()
+        chains, combines = now[0] - since[0], now[1] - since[1]
+        mesh = plane.snapshot()["mesh"]
+        lanes = mesh["lane"] if mesh else 1
+        if combines * lanes != chains:
+            raise AssertionError(f"{chains} row-chain launches and {combines} combines: "
+                                 f"want one combine per {lanes} row chains")
+        return chains, combines
 
     ctx = Context(uid=0, gid=0)
     base = tempfile.mkdtemp(prefix="jfs-torch-multichip-")
@@ -100,7 +114,7 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
             raise RuntimeError(f"create: errno {st}")
         per_chunk = CHUNK_SIZE // bs
         sids: list[int] = []
-        launches0 = row_chain_launches()
+        launches0 = kernel_launches()
         hashed0 = pipeline._BLOCKS_HASHED.value
         t0 = time.perf_counter()
         for i, data in enumerate(blocks):
@@ -117,7 +131,7 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
         store.ingest.flush()
         store.flush_all()
         ingest_s = time.perf_counter() - t0
-        ingest_launches = row_chain_launches() - launches0
+        ingest_launches, ingest_combines = stage_launches(launches0)
         ing = store.ingest.stats()
         hashed = int(pipeline._BLOCKS_HASHED.value - hashed0)
         comp = store.compress_plane.stats()
@@ -138,10 +152,10 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
         stale = [(sid, indx) for sid, indx, _b, _d in m.scan_block_digests()]
         if stale:
             m.delete_block_digests(stale)
-        launches0 = row_chain_launches()
+        launches0 = kernel_launches()
         scan = dedup_scan(m, store, live, "cuda", "", bs, threads=fetch_threads,
                           plane=plane)
-        scan_launches = row_chain_launches() - launches0
+        scan_launches, scan_combines = stage_launches(launches0)
 
         # the three identity gates, before any number is reported
         scan_rows = {block_key(sid, indx, bsz): digest
@@ -183,6 +197,7 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
                 "put_elided": ing.get("put_elided", 0),
                 "hot_hits": ing.get("hot_content", {}).get("hits", 0),
                 "launches": ingest_launches,
+                "combines": ingest_combines,
                 "hashed": hashed,
                 "estimated": comp["estimated"],
                 "compress_degraded": comp["degraded"],
@@ -194,6 +209,7 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
                 "fetch_window": scan["fetch_window"],
                 "shard": scan.get("shard"),
                 "launches": scan_launches,
+                "combines": scan_combines,
             },
             "identity_ok": True,
         }

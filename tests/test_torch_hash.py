@@ -16,7 +16,7 @@ import torch
 import juicefs_tpu.tpu  # noqa: F401  (loads the reference spec module)
 from juicefs_tpu.tpu import hash_jax as hj
 from juicefs_tpu_torch.gpu import hash_torch as ht
-from juicefs_tpu_torch.gpu import kernels
+from juicefs_tpu_torch.gpu import kernels, sharding
 from juicefs_tpu_torch.gpu.pipeline import HashPipeline, PipelineConfig
 
 ref_spec = sys.modules["juicefs_tpu.tpu.jth256"]
@@ -131,11 +131,13 @@ def test_verify_backend_and_mode_on_cpu():
         ht.make_hash_fn("pallas")
 
 
-def test_no_gpu_means_raise_never_cpu(monkeypatch):
+def test_no_gpu_means_raise_never_cpu(monkeypatch, tmp_path):
     """device=None is the card: without one every entry point raises and
-    nothing runs on the CPU (the reference's silent degrade is not kept)."""
+    nothing runs on the CPU (the reference's silent degrade is not kept);
+    without nvcc the kernels' entries raise instead of being replaced."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    ht._LAST_KERNEL_MODE = None
+    monkeypatch.setattr(sharding, "_plane", None)
+    ht._LAST_KERNEL_MODE = ht._LAST_FOLD_MODE = None
     words, counts, lengths = ref_spec.pack_blocks(_blocks(7, [100]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ht.hash_packed(words, counts, lengths)
@@ -145,7 +147,17 @@ def test_no_gpu_means_raise_never_cpu(monkeypatch):
         HashPipeline(PipelineConfig(backend="cuda"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HashPipeline()  # cuda is the default backend
-    assert ht.last_kernel_mode() is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ht.hash_blocks([b"abc"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharding.get_plane()
+    assert ht.last_kernel_mode() is None and ht.last_fold_mode() is None
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    for entry in ("jth256_lane_digests", "jth256_combine", "jth256_row_chain"):
+        if entry not in kernels._fns:
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                kernels.function(entry)
 
 
 def test_cpu_twin_of_kernel_arithmetic():

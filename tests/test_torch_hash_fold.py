@@ -1,0 +1,204 @@
+"""The hash batch's two kernels (the row chain's lane-digests epilogue and
+the combine) against hash_jax, bit for bit, on the CPU.
+
+The kernels' arithmetic is `jth256_step.cuh`, which the g++ twin
+(`kernels.load_twin()`) builds here from the same source nvcc builds on
+the card; the wrappers' plain versions (`chain_digests_ref`,
+`combine_accs`) are what a CPU tensor runs. Both are held against the JAX
+package: the Pallas row chain in interpret mode, `_row_chain_scan` with
+`_lane_states(w, lane_offset)` where a lane offset is given, `_lane_accs`,
+`_combine_accs` and the whole-batch `hash_packed_pallas` /
+`hash_packed_jax`. Inputs come from numpy with a seed. Tolerance: exact
+(uint32 words must be identical).
+"""
+
+from __future__ import annotations
+
+import shutil
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import juicefs_tpu.tpu  # noqa: F401  (loads the reference spec module)
+from juicefs_tpu.tpu import hash_jax as hj
+from juicefs_tpu_torch.gpu import hash_torch as ht
+from juicefs_tpu_torch.gpu import kernels, sharding
+
+ref_spec = sys.modules["juicefs_tpu.tpu.jth256"]
+LANE = ref_spec.LANE_BYTES
+CPU = torch.device("cpu")
+
+# (lanes, m, tweak), as tests/test_torch_hash.py's CHAIN_CASES
+CHAIN_CASES = [(5, 1, 0), (7, 3, 0x9E3779B9), (21, 3, 0), (70, 64, 0xDEADBEEF)]
+OFFSETS = [0, 32, 1000, (1 << 32) - 1]
+
+
+@pytest.fixture(scope="module")
+def twin():
+    if shutil.which("c++") is None and shutil.which("g++") is None:
+        pytest.skip("no C++ compiler: the CPU twin of the CUDA kernels cannot be built")
+    return kernels.load_twin()
+
+
+def _words(seed, n_lanes):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 1 << 32, size=(n_lanes, 128, 128), dtype=np.uint32)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().astype(np.int64).astype(np.uint32) if t.dtype == torch.int64 \
+        else t.numpy().view(np.uint32)
+
+
+def _ref_lane_digests(words, m, tweak, loff):
+    """The JAX lane digests of flat words (L, 128, 128): the Pallas chain
+    in interpret mode at offset 0, else `_row_chain_scan` from
+    `_lane_states(w, loff)` over the tweaked words (whole blocks only),
+    then `_lane_accs(s, loff)`."""
+    n_lanes = words.shape[0]
+    if loff == 0:
+        s = np.asarray(hj._pallas_row_chain(
+            jnp.asarray(words), m, jnp.asarray([tweak], dtype=jnp.uint32), interpret=True))
+        # _lane_accs folds lane index li of a (B, M, 128) view: one lane a
+        # row keeps lane l's index at l mod m when L is not a multiple of m
+        per_lane = [np.asarray(hj._lane_accs(jnp.asarray(s[l][None, None]), l % m))[0, 0]
+                    for l in range(n_lanes)] if n_lanes % m else \
+            np.asarray(hj._lane_accs(jnp.asarray(s.reshape(-1, m, 128)))).reshape(-1, 8)
+        return np.asarray(per_lane, dtype=np.uint32)
+    assert n_lanes % m == 0
+    w = jnp.asarray((words ^ np.uint32(tweak)).reshape(-1, m, 128, 128))
+    s = hj._row_chain_scan(w, hj._lane_states(w, loff))
+    return np.asarray(hj._lane_accs(s, loff)).reshape(-1, 8)
+
+
+@pytest.mark.parametrize("n_lanes,m,tweak", CHAIN_CASES)
+def test_twin_lane_digests_match_pallas_and_lane_accs(twin, n_lanes, m, tweak):
+    words = _words(n_lanes * 13 + m, n_lanes)
+    want = _ref_lane_digests(words, m, tweak, 0)
+    got = twin.lane_digests(_t(words), m, tweak)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n_lanes, 8)
+    assert np.array_equal(_u32(got), want)
+    plain = ht.chain_digests_ref(_t(words), m, tweak)
+    assert np.array_equal(_u32(plain), want)
+
+
+@pytest.mark.parametrize("loff", OFFSETS)
+@pytest.mark.parametrize("n_lanes,m,tweak", [(5, 1, 0), (6, 3, 0x9E3779B9), (64, 64, 0)])
+def test_twin_lane_digests_at_lane_offsets(twin, n_lanes, m, tweak, loff):
+    words = _words(n_lanes * 7 + m + loff % 97, n_lanes)
+    want = _ref_lane_digests(words, m, tweak, loff)
+    assert np.array_equal(_u32(twin.lane_digests(_t(words), m, tweak, loff)), want)
+    assert np.array_equal(_u32(ht.chain_digests_ref(_t(words), m, tweak, loff)), want)
+    # the wrapper on a CPU tensor is the plain version, by block
+    got = ht.lane_digests(_t(words).reshape(-1, m, 128, 128), tweak, loff)
+    assert tuple(got.shape) == (n_lanes // m, m, 8)
+    assert np.array_equal(_u32(got).reshape(-1, 8), want)
+
+
+def _combine_inputs(seed, b, m):
+    rng = np.random.default_rng(seed)
+    accs = rng.integers(0, 1 << 32, size=(b, m, 8), dtype=np.uint32)
+    # dead lanes (counts below m), a count of 0 and one past m
+    counts = rng.integers(1, m + 1, size=b).astype(np.int32)
+    counts[0] = 0
+    counts[-1] = m + 3
+    lengths = np.array([[0, 1, LANE + 1, 64 * LANE - 1][i % 4] for i in range(b)],
+                       dtype=np.uint32)
+    return accs, counts, lengths
+
+
+@pytest.mark.parametrize("m", [1, 3, 64])
+def test_twin_combine_matches_combine_accs(twin, m):
+    accs, counts, lengths = _combine_inputs(40 + m, 9, m)
+    want = np.asarray(hj._combine_accs(jnp.asarray(accs), jnp.asarray(counts),
+                                       jnp.asarray(lengths)))
+    t_counts = torch.from_numpy(counts.astype(np.int64))
+    t_lengths = torch.from_numpy(lengths.astype(np.int64))
+    got = twin.combine(_t(accs), t_counts, t_lengths)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (9, 8)
+    assert np.array_equal(_u32(got), want)
+    plain = ht.combine(_t(accs), t_counts, t_lengths)
+    assert plain.dtype == torch.int64 and np.array_equal(_u32(plain), want)
+    # the plain version takes the int64 digests of lane_accs as well
+    wide = torch.from_numpy(accs.astype(np.int64))
+    assert np.array_equal(_u32(ht.combine_accs(wide, t_counts, t_lengths)), want)
+
+
+@pytest.mark.parametrize("pad_lanes,tweak", [(None, 0), (8, 0), (None, 0x1234567)])
+def test_twin_and_plain_hash_end_to_end(twin, pad_lanes, tweak):
+    rng = np.random.default_rng(60)
+    blocks = [rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+              for n in (0, 1, 100, LANE - 1, LANE, LANE + 7, 3 * LANE, 5 * LANE + 1)]
+    words, counts, lengths = ref_spec.pack_blocks(blocks, pad_lanes=pad_lanes)
+    b, m = words.shape[:2]
+    want = np.asarray(hj.hash_packed_pallas(words, counts, lengths, interpret=True,
+                                            tweak=jnp.asarray([tweak], dtype=jnp.uint32)))
+    t_counts = torch.from_numpy(counts.astype(np.int64))
+    t_lengths = torch.from_numpy(lengths.astype(np.int64))
+    d = twin.lane_digests(_t(words.reshape(b * m, 128, 128)), m, tweak)
+    got = twin.combine(d.reshape(b, m, 8), t_counts, t_lengths)
+    assert np.array_equal(_u32(got), want)
+    plain = ht.hash_device(_t(words), t_counts, t_lengths, tweak)
+    assert np.array_equal(_u32(plain), want)
+    if tweak == 0:
+        assert np.array_equal(want, np.asarray(hj.hash_packed_jax(words, counts, lengths)))
+        assert ref_spec.digests_to_bytes(want) == [ref_spec.jth256(x) for x in blocks]
+
+
+def test_cpu_plain_path_sets_modes():
+    words, counts, lengths = ref_spec.pack_blocks([b"abc", b"x" * (LANE + 9)])
+    ht._LAST_KERNEL_MODE = ht._LAST_FOLD_MODE = None
+    before = dict(kernels.LAUNCHES)
+    got = ht.hash_packed(words, counts, lengths, device="cpu")
+    assert ht.last_kernel_mode() == "torch-cpu" and ht.last_fold_mode() == "torch-cpu"
+    assert dict(kernels.LAUNCHES) == before  # no kernel launch on the CPU
+    assert np.array_equal(got, np.asarray(hj.hash_packed_jax(words, counts, lengths)))
+
+
+@pytest.mark.parametrize("n", [8, 4, 2])
+def test_sharded_cpu_plane_equals_one_device(n):
+    rng = np.random.default_rng(70 + n)
+    blocks = [rng.integers(0, 256, size=s, dtype=np.uint8).tobytes()
+              for s in (4 * LANE, 1, 3 * LANE + 5, 2 * LANE, LANE - 3)]
+    words, counts, lengths = ref_spec.pack_blocks(blocks, pad_lanes=4)
+    plane = sharding.ShardPlane([CPU] * n)
+    assert plane.mesh is not None
+    got = plane.hash_packed(words, counts, lengths)
+    want = ht.hash_packed(words, counts, lengths, device="cpu")
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.asarray(hj.hash_packed_jax(words, counts, lengths)))
+
+
+def test_wrappers_validate_input():
+    with pytest.raises(ValueError):  # neither cuda nor cpu: never guessed
+        ht.chain_digests(torch.empty((2, 128, 128), dtype=torch.int32, device="meta"), 1)
+    with pytest.raises(ValueError):
+        ht.combine(torch.empty((2, 1, 8), dtype=torch.int32, device="meta"),
+                   torch.ones(2, dtype=torch.int64), torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError):  # digests must be int32 (B, M, 8)
+        ht.combine(torch.zeros((2, 1, 8), dtype=torch.int64),
+                   torch.ones(2, dtype=torch.int64), torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        ht.combine(torch.zeros((2, 0, 8), dtype=torch.int32),
+                   torch.ones(2, dtype=torch.int64), torch.ones(2, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        ht.chain_digests(torch.zeros((2, 128, 128), dtype=torch.int64), 1)
+
+
+def test_kernel_entries_have_sources_and_signatures():
+    assert set(kernels.ENTRY_SOURCES) == {"jth256_row_chain", "jth256_lane_digests",
+                                          "jth256_combine"}
+    for src in set(kernels.ENTRY_SOURCES.values()):
+        with open(f"{kernels.KERNEL_DIR}/{src}.cu") as f:
+            text = f.read()
+        for entry, s in kernels.ENTRY_SOURCES.items():
+            if s == src:
+                assert f'extern "C" int {entry}(' in text
+    assert {"jth256_row_chain", "jth256_lane_digests", "jth256_combine"} <= set(kernels.LAUNCHES)
