@@ -198,7 +198,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               on the same address: the two cached key sets are disjoint and
               cover every block, PUT-elided ones included, each block moved
               from the object store once (an elided one as its canonical
-              object), and warmup launched nothing; then a total backend
+              object; a hedged GET may add one twin each), and warmup
+              launched nothing; then a total backend
               blackout: B reads the whole file through its vfs byte-equal,
               with 0 backend calls and peer hits == the blocks A owns;
               member A pushes the registry (`--metrics-push`, `--graphite`,
@@ -218,6 +219,30 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               a flipped byte is refused by the checksum wrapper). Without
               the `cryptography` package the encrypted leg prints that it
               did not run; the other legs still gate
+
+  22. sdk_c   the port's libjfs C shim (juicefs_tpu_torch/sdk_c) built with g++
+              against this interpreter, and two C programs built against it:
+              the reference's sdk/c/example.c, run on a `format --hash-backend
+              pallas --compress lz4` sqlite3:// volume (exit 0, ALL OK), and
+              jfs_copy, which writes phase 5's plan (1 GiB + the tail) from a
+              host file into a fresh volume of that format in 1 MiB
+              jfs_pwrites, flushes, reopens, reads it back and compares, then
+              jfs_term drains the indexer. The programs are child processes
+              whose kernel launches this process cannot count: the digest
+              rows they leave are the proof, as such a volume hashes only on
+              the card. The child's stderr gives its indexer's account: no
+              "index batch of N failed" line may appear, and `sdk.jfs_term`'s
+              warning gives the blocks hashed and skipped under load (no
+              warning: none skipped). Gates: rc 0 and 0 mismatched pieces;
+              the volume lists exactly the file, with no session left; no
+              failed batch, rows == blocks hashed > 0, rows + skipped ==
+              written (no row missing otherwise), no stray row, sampled rows
+              and the tail's == the numpy spec; `gc --dedup` with a fifth of the rows deleted
+              hashes exactly the dropped and deleted blocks in one launch per
+              32 (counted here) and finds the planted duplicates; `fsck
+              --verify-data` 0 mismatches in one launch per 32; the port's
+              FileSystem reads the file back byte for byte. It prints the C
+              side's write and read GiB/s
 
 Each phase prints its seconds. It prints a `{"kernels": [...]}` line and,
 as its last line, `{"ok": true, "device": {...}}`. It imports nothing of
@@ -251,7 +276,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from juicefs_tpu_torch import cmd, native, sdk
+from juicefs_tpu_torch import cmd, native, sdk, sdk_c
 from juicefs_tpu_torch.chunk import CachedStore, ChunkConfig, ContentRefs, IngestPipeline
 from juicefs_tpu_torch.chunk import indexer as indexer_mod
 from juicefs_tpu_torch.chunk.cached_store import block_key, parse_block_key
@@ -836,6 +861,11 @@ INGEST_STAGES = ("chunk.ingest.pack", "chunk.ingest.hash", "chunk.ingest.lookup"
 
 def counter_value(name: str) -> float:
     return global_registry()._metrics[name].value
+
+
+def counter_total(name: str) -> float:
+    """A counter's value summed over its labelled series."""
+    return sum(s.value for s in global_registry()._metrics[name]._series())
 
 
 def stage_delta(before: dict, after: dict, names=INGEST_STAGES) -> dict:
@@ -3539,6 +3569,7 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
             # live session completes the ring. The member then restarts on
             # the same address and serves what warmup filled.
             mark = stacks.marks()
+            hedges0 = counter_total("juicefs_object_hedged_requests")
             kernels.reset_launches()
             warm_s = 0.0
             for side in ("a", "b"):
@@ -3557,6 +3588,7 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
                     raise AssertionError(f"member {side} came back on {members[side].addr}")
             warm_launches = launches()
             warm_gets = stacks.gets_since(mark)
+            warm_hedges = int(counter_total("juicefs_object_hedged_requests") - hedges0)
             in_cache = {side: cached_keys(cache_dir[side]) & set(keys) for side in port}
             for side in ("a", "b"):
                 live_members(members[side])
@@ -3570,11 +3602,15 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
                     f"{len(in_cache['a'] | in_cache['b'])} of {n_blocks}; owned "
                     f"{len(owned['a'])} + {len(owned['b'])}")
             # each block moved from the object store once (an elided block as
-            # its canonical object), and every stored object was fetched
-            if len(warm_gets) != n_blocks or set(warm_gets) != stored:
+            # its canonical object), and every stored object was fetched; a
+            # GET that outlived the hedge delay may add its hedged twin, so
+            # each GET beyond one per block must be a hedge of this warmup
+            if not n_blocks <= len(warm_gets) <= n_blocks + warm_hedges \
+                    or set(warm_gets) != stored:
                 raise AssertionError(f"warmup made {len(warm_gets)} data GETs of "
-                                     f"{len(set(warm_gets))} objects; want {n_blocks} GETs "
-                                     f"of the {len(stored)} stored objects")
+                                     f"{len(set(warm_gets))} objects with {warm_hedges} "
+                                     f"hedges; want {n_blocks} GETs (plus at most one per "
+                                     f"hedge) of the {len(stored)} stored objects")
 
             # 4. blackout: every backend call fails; B reads the whole file
             # from its own cache and A's peer server
@@ -3677,8 +3713,8 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
               f"{w['ingest_batches']} ingest + {w['index_batches']} index batches; "
               f"{len(stored)} objects; two members found through the sessions; warmup "
               f"filled {len(in_cache['a'])} + {len(in_cache['b'])} blocks, disjoint, the "
-              f"union every block, with {len(warm_gets)} data GETs of the {len(stored)} "
-              f"objects and 0 launches; the blackout read exact with 0 backend calls, "
+              f"union every block, with {len(warm_gets)} data GETs ({warm_hedges} hedges) of "
+              f"the {len(stored)} objects and 0 launches; the blackout read exact with 0 backend calls, "
               f"{peer_hits:.0f} peer hits == A's blocks; {pushes[0]} gateway and {pushes[1]} "
               f"graphite pushes, the latest == the registry's {len(want)} cache-group "
               f"series; fsck {n_blocks} blocks, 0 mismatches, {fsck_launches} launches; gc "
@@ -3835,6 +3871,183 @@ def stores_phase(rng: np.random.Generator, kind: str, smi: str) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+def sdk_c_run(exe: str, *args: str, timeout: float = 600) -> subprocess.CompletedProcess:
+    """Run a consumer of the port's C shim as its own process, in the
+    environment `sdk_c.child_env()` gives it."""
+    return subprocess.run([exe, *args], env=sdk_c.child_env(), capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def child_index_report(stderr: str) -> dict:
+    """What a shim consumer's stderr says of its content indexer: blocks in
+    batches that failed ("index batch of N failed" warnings), and the
+    counts `sdk.jfs_term` warns with when the drained indexer left blocks
+    without a row (no such line: it left none). The lines are printed."""
+    lines = [ln for ln in stderr.splitlines()
+             if "index batch of" in ln or "overloaded" in ln or "content index at" in ln]
+    for ln in lines:
+        print(f"child: {ln}")
+    failed = sum(int(n) for n in re.findall(r"index batch of (\d+) failed", stderr))
+    term = re.findall(r"content index at jfs_term: (\d+) blocks hashed, (\d+) skipped "
+                      r"under load, (\d+) failed", stderr)
+    hashed, skipped, term_failed = map(int, term[-1]) if term else (0, 0, 0)
+    return {"summary": bool(term), "hashed": hashed, "skipped": skipped,
+            "failed": max(failed, term_failed)}
+
+
+def sdk_c_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str) -> dict:
+    """Phase 22: the port's libjfs C shim driven by compiled C programs on
+    card-hashed, card-estimated volumes. The C programs run as child
+    processes, so their kernel launches (the indexer's, inside the embedded
+    interpreter) are not visible here: the digest rows they leave are the
+    proof, since such a volume hashes only on the card, and the child's
+    stderr says whether a batch failed and how many blocks its indexer
+    skipped (`child_index_report`). The launches this phase counts are the
+    parent's gc and fsck."""
+    phase("sdk_c: the port's libjfs C shim under compiled C programs, on the card")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sdk_c.build()
+    example = sdk_c.build_program(os.path.join(REPO, "sdk", "c", "example.c"))
+    copier = sdk_c.build_program(sdk_c.JFS_COPY)
+    print(f"built libjfs.so, example and jfs_copy in {time.perf_counter() - t0:.3f} s")
+    bs = BLOCK_BYTES
+    base = tempfile.mkdtemp(prefix="jfs-torch-sdkc-")
+    try:
+        # 1. the reference's consumer on a pallas + lz4 volume
+        ex_url = f"sqlite3://{base}/ex-meta.db"
+        format_device_volume(ex_url, os.path.join(base, "ex"), "sdkcex")
+        out = sdk_c_run(example, ex_url)
+        print("example: " + " | ".join(out.stdout.strip().splitlines()[-3:]))
+        if out.returncode != 0 or "ALL OK" not in out.stdout or "FAIL" in out.stdout:
+            raise AssertionError(f"example rc {out.returncode}:\n{out.stdout}{out.stderr[-3000:]}")
+
+        # 2. jfs_copy of the plan (1 GiB of 4 MiB blocks + a 1 MiB + 7 B tail)
+        blocks, planted = plan_blocks(rng, max(1, int(volume_gib * (1 << 30)) // bs), bs,
+                                      (1 << 20) + 7)
+        plan = b"".join(blocks)
+        nbytes = len(plan)
+        host = os.path.join(base, "plan.bin")
+        with open(host, "wb") as f:
+            f.write(plan)
+        url = f"sqlite3://{base}/cp-meta.db"
+        format_device_volume(url, os.path.join(base, "cp"), "sdkc")
+        t0 = time.perf_counter()
+        out = sdk_c_run(copier, url, host, "/plan.bin")
+        child_s = time.perf_counter() - t0
+        os.unlink(host)
+        if out.returncode != 0:
+            raise AssertionError(f"jfs_copy rc {out.returncode}:\n{out.stdout}"
+                                 f"{out.stderr[-3000:]}")
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"jfs_copy: {json.dumps(res)} ({child_s:.3f} s as a process)")
+        report = child_index_report(out.stderr)
+        if res["mismatches"] != 0 or res["bytes"] != nbytes:
+            raise AssertionError(f"jfs_copy read back {res['mismatches']} mismatched "
+                                 f"pieces of {res['bytes']} bytes, want 0 of {nbytes}")
+
+        # 3. the meta: exactly the written file, no session left, digest
+        # rows only for its blocks and equal to the numpy spec
+        m, fmt = cmd.open_meta(url)
+        ctx = Context(uid=0, gid=0)
+        st, entries = m.readdir(ctx, 1)
+        names = {bytes(e.name) for e in entries} - {b".", b".."}
+        st, ino, attr = m.lookup(ctx, 1, b"plan.bin")
+        if names != {b"plan.bin"} or st != 0 or attr.length != nbytes:
+            raise AssertionError(f"volume lists {names} (plan.bin: errno {st})")
+        if m.do_list_sessions():
+            raise AssertionError("the C program left a session behind")
+        order, spans = [], []
+        for c in range(-(-nbytes // CHUNK_SIZE)):
+            st, slices = m.read_chunk(ino, c)
+            for sl in slices:
+                if sl.id == 0 or sl.off != 0 or sl.len != sl.size:
+                    raise AssertionError(f"chunk {c}: slice {sl} is not one fresh write")
+                for i in range(-(-sl.size // bs)):
+                    size = min(bs, sl.size - i * bs)
+                    order.append(block_key(sl.id, i, size))
+                    spans.append((c * CHUNK_SIZE + sl.pos + i * bs, size))
+        rows = {block_key(sid, indx, bsize): d for sid, indx, bsize, d in m.scan_block_digests()}
+        close_meta(m)
+        stray = set(rows) - set(order)
+        if len(order) != len(blocks) or stray:
+            raise AssertionError(f"{len(order)} blocks in the file, want {len(blocks)}; "
+                                 f"{len(stray)} digest rows for no block of it")
+        by_order = [plan[off:off + size] for off, size in spans]
+        del plan
+        # the child's indexer, held as indexed_write holds one in-process:
+        # no failed batch, rows for every block it hashed, and every other
+        # block one it skipped under load; a row missing for another reason
+        # fails the phase
+        indexed = len(rows)
+        dropped = report["skipped"]
+        hashed = report["hashed"] if report["summary"] else len(order)
+        missing_other = len(order) - indexed - dropped
+        if report["failed"] or indexed == 0 or hashed != indexed or missing_other:
+            raise AssertionError(
+                f"the child's indexer: {report['failed']} blocks in failed batches, "
+                f"{hashed} hashed, {dropped} skipped under load; {indexed} rows for "
+                f"{len(order)} blocks ({missing_other} missing for another reason)")
+        for key in [k for k in order[::max(1, len(order) // 8)] if k in rows] + \
+                [k for k in order[-1:] if k in rows]:
+            if rows[key] != jth256(by_order[order.index(key)]):
+                raise AssertionError(f"{key}: digest row != numpy spec")
+
+        # 4. gc --dedup (a fifth of the rows deleted) and fsck, counted here
+        written = {"indexer": {"blocks": indexed, "dropped": dropped}, "rows": rows,
+                   "order": order}
+        gc, gc_s, gc_launches = dedup_gc(url, written, by_order, planted,
+                                         os.path.join(base, "sdkc-index.json"), lost=5)
+        m, _fmt = cmd.open_meta(url)
+        tail = order[-1]
+        tail_row = {block_key(sid, indx, bsize): d for sid, indx, bsize, d in
+                    m.scan_block_digests()}.get(tail)
+        close_meta(m)
+        if tail_row != jth256(by_order[-1]):
+            raise AssertionError(f"the tail's digest row {tail} != numpy spec")
+        fsck_s, fsck_launches = verified_fsck(url, len(order))
+
+        # 5. the port's FileSystem reads the file back byte for byte
+        from juicefs_tpu_torch.fs import FileSystem
+        from juicefs_tpu_torch.vfs import VFS
+
+        m, fmt = cmd.open_meta(url)
+        store = cmd.build_store(fmt, None, meta=m, with_indexer=False)
+        vfs = VFS(m, store, fmt=fmt)
+        try:
+            f = FileSystem(vfs).open("/plan.bin")
+            for (off, size), data in zip(spans, by_order):
+                if f.pread(off, size) != data:
+                    raise AssertionError(f"read back at {off}: bytes differ")
+            f.close()
+        finally:
+            vfs.close()
+            store.close()
+            close_meta(m)
+        gib = nbytes / (1 << 30)
+        write_gibs, read_gibs = gib / res["write_seconds"], gib / res["read_seconds"]
+        print(f"gates ok: example ALL OK on a pallas + lz4 volume; jfs_copy rc 0, 0 "
+              f"mismatches; the volume lists only plan.bin with no session left; "
+              f"the child's indexer hashed {indexed} blocks with no failed batch and "
+              f"skipped {dropped} under load, {indexed} + {dropped} == {len(order)} "
+              f"written, no row missing otherwise, no stray row, sampled rows and the "
+              f"tail's == numpy spec; gc hashed_now "
+              f"{gc['hashed_now']} (dropped + a fifth deleted) in {gc_launches} launches, "
+              f"{gc['duplicate_blocks']} duplicates == planted; fsck verified "
+              f"{len(order)} blocks in {fsck_launches} launches, 0 mismatches; the "
+              f"port's FileSystem read the file back exact")
+        print(f"sdk_c: C write {write_gibs:.4f} GiB/s ({res['write_seconds']:.3f} s, "
+              f"{res['pieces']} pwrites), read {read_gibs:.4f} GiB/s "
+              f"({res['read_seconds']:.3f} s), jfs_term {res['term_seconds']:.3f} s, child "
+              f"{child_s:.3f} s; gc {gc_s:.3f} s, fsck {gib / fsck_s:.4f} GiB/s; phase "
+              f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
+        return {"write_gibs": write_gibs, "read_gibs": read_gibs, "child_seconds": child_s,
+                "indexed": indexed, "dropped": dropped,
+                "launches": {"sdk_c_gc": gc_launches, "sdk_c_fsck": fsck_launches}}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3879,6 +4092,7 @@ def main(argv=None) -> int:
     meta = meta_phase(rng, args.volume_gib, kind, smi)
     group = group_phase(rng, args.volume_gib, kind, smi)
     stores = stores_phase(rng, kind, smi)
+    shim = sdk_c_phase(rng, args.volume_gib, kind, smi)
     end_phase()
     by_path = {"scan": scan["launches"]["jth256_row_chain"],
                "ingest": ingest["launches"]["jth256_row_chain"],
@@ -3887,7 +4101,7 @@ def main(argv=None) -> int:
                **main_path["launches"], **serve["launches"], **mount["launches"],
                **shard["launches"], **objbench["launches"], **bench["launches"],
                **sync["launches"], **config["launches"], **meta["launches"],
-               **group["launches"], **stores["launches"]}
+               **group["launches"], **stores["launches"], **shim["launches"]}
     # a read of the counts on a one-card path (launches()) fails unless it
     # saw one combine per row chain; the phases that kept the whole count
     # (launch_counts()) and the shard phase give the combines they read
@@ -3908,13 +4122,14 @@ def main(argv=None) -> int:
           "redis:// volume's indexer, fsck on the replica URL and gc after the AOF "
           "restart, and the sql:// volume's indexer, gc and fsck; then the cache-group "
           "volume's inline ingest, fsck and gc; then the sqlite3://, redis:// and encrypted "
-          "blob-store volumes' indexer, gc and fsck); card " + smi)
+          "blob-store volumes' indexer, gc and fsck; then gc and fsck after the C shim's "
+          "jfs_copy); card " + smi)
     idle = [p for p in ("index", "fsck", "serve_index", "mount_ingest", "mount_process",
                         "objbench_index", "objbench_s3_gateway", "bench_index",
                         "sync_gateway", "sync_webdav", "config_gc", "meta_redis_index",
                         "meta_redis_fsck", "meta_redis_gc", "meta_sql_index", "meta_sql_gc",
                         "meta_sql_fsck", "group_ingest", "group_fsck", "group_gc",
-                        *stores["launches"])
+                        *stores["launches"], *shim["launches"])
             if by_path[p] == 0]
     if idle:
         raise AssertionError(f"paths that launched no row-chain kernel: {idle}")
@@ -3933,7 +4148,8 @@ def main(argv=None) -> int:
           f"GiB/s; cache group: write {group['write_gibs']:.4f} GiB/s, warmup "
           f"{group['warmup_gibs']:.4f} GiB/s, blackout read {group['blackout_gibs']:.4f} GiB/s, "
           f"fsck {group['fsck_gibs']:.4f} GiB/s, gc {group['gc_seconds']:.3f} s; blob stores "
-          f"{json.dumps(stores['legs'])} (encrypted leg {stores['encrypted']})")
+          f"{json.dumps(stores['legs'])} (encrypted leg {stores['encrypted']}); C shim "
+          f"write {shim['write_gibs']:.4f} GiB/s, read {shim['read_gibs']:.4f} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(f"launches of jth256_combine: {combine_by_path}; card {smi}")
     print(f"hash batch of 32 blocks: {breakdown['hash_ms']:.4f} ms in two launches "

@@ -20,6 +20,7 @@ process (a mount's `.stats` or `/metrics`) shows them too.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -28,7 +29,6 @@ import shutil
 import subprocess
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 from ...metric import global_registry
 
@@ -87,31 +87,50 @@ def _sources_digest() -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load `<name>.cu` as a ctypes library. Different
-    sources build in parallel when called from several threads."""
+def _library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}-{_sources_digest()}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc on `<name>.cu` unless its library is built; returns
+    (process, temporary output, library path, start time) or None."""
+    so = _library_path(name)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-I", KERNEL_DIR, "-o", tmp,
+         os.path.join(KERNEL_DIR, name + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so, time.perf_counter()
+
+
+def _finish_build(name: str, started) -> None:
+    """Wait for a build `_start_build` started; raises if nvcc failed."""
+    proc, tmp, so, t0 = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name} (rc {proc.returncode}):\n{out}")
+    os.replace(tmp, so)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+
+
+def _build_lock(name: str) -> threading.Lock:
     with _lock:
-        build_lock = _build_locks.setdefault(name, threading.Lock())
-    with build_lock:
+        return _build_locks.setdefault(name, threading.Lock())
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (once) and load `<name>.cu` as a ctypes library."""
+    with _build_lock(name):
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(KERNEL_DIR, name + ".cu")
-        so = os.path.join(BUILD_DIR, f"lib{name}-{_sources_digest()}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", KERNEL_DIR, "-o", tmp, src],
-                capture_output=True, text=True, check=False)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {name} (rc {proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
+        started = _start_build(name)
+        if started is not None:
+            _finish_build(name, started)
+        lib = ctypes.CDLL(_library_path(name))
         _libs[name] = lib
         return lib
 
@@ -144,11 +163,25 @@ def function(entry: str):
 
 
 def build_all() -> dict[str, float]:
-    """Build every kernel source at once, one nvcc each in parallel;
-    returns the seconds each build took (absent: loaded as built)."""
+    """Build every kernel source at once, one nvcc process each started
+    side by side and then waited on; returns the seconds each build took
+    (absent: loaded as built)."""
     names = sorted(set(ENTRY_SOURCES.values()))
-    with ThreadPoolExecutor(len(names)) as ex:
-        list(ex.map(load_library, names))
+    with contextlib.ExitStack() as held:
+        for name in names:  # in sorted order, so two callers cannot deadlock
+            held.enter_context(_build_lock(name))
+        started = {name: _start_build(name) for name in names if name not in _libs}
+        try:
+            for name, build in started.items():
+                if build is not None:
+                    _finish_build(name, build)
+        finally:
+            for build in started.values():
+                if build is not None and build[0].poll() is None:
+                    build[0].kill()
+                    build[0].wait()
+    for name in names:
+        load_library(name)
     return {n: BUILD_SECONDS[n] for n in names if n in BUILD_SECONDS}
 
 

@@ -271,14 +271,27 @@ class Tracer:
             self._readers.pop(fh, None)
             self._active = bool(self._readers)
 
-    def drain(self, fh: int) -> list[dict]:
-        """Every buffered event of one reader, oldest first."""
-        with self._lock:
-            buf = self._readers.get(fh)
-            lines = list(buf) if buf else []
-            if buf:
-                buf.clear()
-        return [json.loads(line) for line in lines]
+    def read(self, fh: int, max_bytes: int = 1 << 16) -> bytes:
+        """Drain buffered events for one reader (blocking up to 1s so
+        `tail -f` style consumers don't spin; same shape as accesslog)."""
+        deadline = time.time() + 1.0
+        while True:
+            with self._lock:
+                buf = self._readers.get(fh)
+                if buf is None:
+                    return b""
+                out = bytearray()
+                while buf:
+                    line = buf[0]
+                    if len(out) + len(line) > max_bytes:
+                        if not out:  # a single oversized line: split it
+                            out += line[:max_bytes]
+                            buf[0] = line[max_bytes:]
+                        break
+                    out += buf.popleft()
+            if out or time.time() >= deadline:
+                return bytes(out)
+            time.sleep(0.02)
 
 
 _tracer = Tracer()

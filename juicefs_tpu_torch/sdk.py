@@ -2,8 +2,9 @@
 reference sdk/java/libjfs/main.go:409-900: the Go c-shared layer keeps a
 per-mount wrapper table and exposes `jfs_*` functions, which do all
 marshalling in Python so a C shim embedding CPython stays a thin
-trampoline). The C shim of the repo, `sdk/c/libjfs.cpp`, embeds the JAX
-package's module; the port's own copy of it is not written yet.
+trampoline). The port's C shim, `sdk_c/libjfs.cpp` (built by
+`sdk_c.build()`), embeds this module behind the reference's C ABI
+(`sdk_c/jfs.h`).
 
 Conventions (mirroring the reference C ABI):
   - every function returns >= 0 on success or -errno on failure;
@@ -21,8 +22,11 @@ that would ask for the CPU: on such a host, use a volume formatted with
 from __future__ import annotations
 
 import errno as _errno
+import logging
 import os
 import threading
+
+logger = logging.getLogger(__name__)
 
 _lock = threading.Lock()
 _mounts: dict[int, tuple] = {}   # mid -> (FileSystem, VFS, meta)
@@ -98,7 +102,23 @@ def jfs_term(mid: int) -> int:
         # lock is released for the next mount
         ent[1].store.close()
         ent[2].close_session()
+        _report_index(ent[1].store)
     return 0
+
+
+def _report_index(store) -> None:
+    """Warn at jfs_term when the store's content indexer, now drained, left
+    blocks without a digest row: skipped because hashing fell behind, or in
+    a batch that failed. gc --dedup backfills both; the line tells a
+    caller of the C ABI, which cannot read the indexer, how many there
+    were."""
+    idx = getattr(store, "indexer", None)
+    if idx is not None and (idx.dropped or idx.errors):
+        logger.warning(
+            "content index at jfs_term: %d blocks hashed, %d skipped under load, "
+            "%d failed (gc --dedup backfills their digests)",
+            idx.blocks, idx.dropped, idx.errors,
+        )
 
 
 @_wrap

@@ -9,6 +9,7 @@ compared as whole dotted components.
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -84,6 +85,23 @@ def test_sources_import_no_jax():
             else:
                 continue
             found += [f"{path}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    assert found == []
+
+
+def test_c_shim_embeds_only_the_port():
+    """The port's C shim (sdk_c/*.cpp, *.c) imports no module of the
+    reference: every module name it passes to CPython is the port's."""
+    found = []
+    sdk_c = os.path.join(PORT, "sdk_c")
+    sources = [fn for fn in sorted(os.listdir(sdk_c)) if fn.endswith((".cpp", ".c", ".h"))]
+    assert "libjfs.cpp" in sources
+    for fn in sources:
+        with open(os.path.join(sdk_c, fn)) as f:
+            text = f.read()
+        for name in re.findall(r'PyImport_\w+\(\s*"([\w.]+)"', text):
+            if _forbidden(name) or not name.startswith("juicefs_tpu_torch"):
+                found.append(f"{fn}: {name}")
+        found += [f"{fn}: {m}" for m in re.findall(r'"(juicefs_tpu(?:\.[\w.]*)?)"', text)]
     assert found == []
 
 

@@ -4,6 +4,7 @@ the hash-backend mapping of reference-formatted volumes.
 Blocks come from numpy with a seed; digests must be identical (exact).
 """
 
+import json
 import sys
 import threading
 import time
@@ -176,7 +177,7 @@ def test_spans_and_registry_expose_the_hash_stages():
     try:
         pipe = HashPipeline(PipelineConfig(batch_blocks=2, pad_lanes=4), device="cpu")
         assert len(pipe.hash_blocks([b"x" * 10, b"y" * 20, b"z"])) == 3
-        events = tr.drain(4242)
+        events = [json.loads(line) for line in tr.read(4242, 1 << 22).decode().splitlines()]
     finally:
         tr.close_reader(4242)
     assert not tr.active

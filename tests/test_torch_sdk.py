@@ -111,6 +111,35 @@ def test_sdk_calls_match_reference(tmp_path, seed):
     assert errnos >= {errno.EEXIST, errno.ENOENT, errno.ENOTEMPTY, errno.EBADF}
 
 
+def test_jfs_term_reports_blocks_left_without_a_row(tmp_path, caplog):
+    """jfs_term warns with the drained indexer's counts when it left blocks
+    without a digest row (the only account a C caller gets), and says
+    nothing when every block was hashed."""
+    data = np.random.default_rng(3).bytes(3 * BS)
+    for fail in (False, True):
+        url = _format(port_cmd.main, tmp_path, f"rep{int(fail)}")
+        mid = port_sdk.jfs_init(url)
+        assert mid > 0
+        if fail:
+            def refuse(_blocks):
+                raise RuntimeError("hash backend unavailable")
+
+            port_sdk._mounts[mid][1].store.indexer._pipe.hash_blocks = refuse
+        fd = port_sdk.jfs_open(mid, "/f", os.O_CREAT | os.O_RDWR, 0o644)
+        assert port_sdk.jfs_pwrite(mid, fd, 0, data) == len(data)
+        assert port_sdk.jfs_flush(mid, fd) == 0
+        assert port_sdk.jfs_close(mid, fd) == 0
+        caplog.clear()
+        with caplog.at_level("WARNING", logger="juicefs_tpu_torch.sdk"):
+            assert port_sdk.jfs_term(mid) == 0
+        lines = [r.getMessage() for r in caplog.records if r.name == "juicefs_tpu_torch.sdk"]
+        if fail:
+            assert lines == ["content index at jfs_term: 0 blocks hashed, 0 skipped under "
+                             "load, 3 failed (gc --dedup backfills their digests)"]
+        else:
+            assert lines == []
+
+
 @pytest.mark.parametrize("volume", ["pallas", "lz4"])
 def test_jfs_init_needs_the_card_for_a_device_volume(tmp_path, volume):
     """jfs_init(meta_url) has no way to ask for the CPU: a volume hashed or
