@@ -6,9 +6,10 @@
     python3 chip_smoke.py --compare-row-chain . --compare-define JTH256_STAGES=8
 
 With --compare-row-chain it only builds DIR's row-chain kernel beside this
-checkout's and times the two at the timing phase's sizes, in turns;
---compare-define passes a macro to DIR's build (the second form times
-another ring size of this checkout's kernel against its 4 stages).
+checkout's and times their lane-digests entries at the timing phase's
+sizes, in turns; --compare-define passes a macro to DIR's build (the
+second form times another ring size of this checkout's kernel against its
+4 stages).
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -16,38 +17,48 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               liblz4 (the ingest phase compresses with it)
   2. build    compile the two kernel sources from the repo's sources
               (sm_90a), one nvcc each, in parallel: jth256_row_chain.cu
-              (the row chain, with a states and a lane-digests epilogue)
-              and jth256_combine.cu; the process-wide sharding plane
+              (the row chain, with a block-digests entry that also
+              combines each block and a lane-digests entry) and
+              jth256_combine.cu; the process-wide sharding plane
               (gpu/sharding.py get_plane) must be the one-card rung:
               devices 1, no mesh, no degrade counted. Phases 5-13 run
               through it (gc, ingest, the estimator, the indexer, fsck, the
               gateway and the mount all take device=None), and their
               one-launch-per-batch gates hold on that rung. Every such gate
-              also holds the fold to the kernels: each row-chain launch
-              ran the lane-digests epilogue, each hash batch launched one
-              combine (one per data row on a phase-14 mesh), and the fold
-              last ran in the kernels (hash_torch.last_fold_mode)
-  3. kernel   each kernel == its plain torch version bit for bit, on the
-              main path's batch shapes and on ragged lane counts: row_chain
-              == row_chain_ref and chain_digests == chain_digests_ref at
-              tweaks 0 / 0x5bd1e995 and lane offsets 0, 32 and 1000;
-              combine == combine_accs over each shape's whole blocks with
-              dead lanes and lengths 0, 1 and 4 MiB - 1
+              also holds the fold to the kernels: on one card (or a mesh of
+              one lane shard) each row-chain launch is the block-digests
+              entry and no combine runs; on a phase-14 mesh of lane shards
+              each is the lane-digests entry with one combine per data row;
+              and the fold last ran in the kernels
+              (hash_torch.last_fold_mode)
+  3. kernel   each kernel entry == its plain torch version bit for bit, on
+              the main path's batch shapes and on ragged lane counts:
+              hash_device (the block entry) == the plain chain, fold and
+              combine at (2048, 64), (64, 64), (150, 2) and (37, 1) lanes
+              per block with dead lanes and lengths 0, 1 and 4 MiB - 1,
+              each twice in a row on one stream, on two streams at once
+              and on a stream whose counters grow; chain_digests ==
+              chain_digests_ref at tweaks 0 / 0x5bd1e995 and lane offsets
+              0, 32 and 1000; combine == combine_accs over each shape's
+              whole blocks
   4. digests  verify_backend() on the card == numpy spec; scan_step on a
               packed batch == numpy spec + dedup_digests
   5. scan     the main path: `gc --dedup` scan (cmd/gc.py dedup_scan, cuda
               backend) over a 1 GiB file:// volume of 4 MiB blocks with a
               ragged tail and ~25% planted duplicates; gates: every block
               hashed, sampled rows == numpy spec, duplicates == planted
-  6. timing   both row-chain epilogues and the combine at 1, 8, 27, 32
-              blocks and 1 GiB (16384 lanes): device ms of calls queued
-              behind a spin of the card, on inputs cycling through 128 MiB
-              (L2 cold), median of 5, each beside its bound and its plain
-              version, and one whole hash call's ms
+  6. timing   the block entry, the lane-digests entry, the combine and
+              the lane-digests + combine pair at 1, 8, 27, 32 blocks and 1
+              GiB (16384 lanes): device ms of calls queued behind a spin of
+              the card, on inputs cycling through 128 MiB (L2 cold), median
+              of 5, each beside its bound and its plain version, and one
+              whole hash call's ms
   7. batch    one main-path batch (32 x 4 MiB) split into host packing,
-              upload, the hash as the main path runs it (lane digests,
-              combine) and, beside it, the states epilogue with the plain
-              torch fold
+              upload, the hash as the main path runs it (one launch) and,
+              beside it, the lane-digests + combine pair and the plain
+              torch version; the host microseconds to queue one batch's
+              hash, block entry against pair in turns at 1 and 32 blocks,
+              and a torch.profiler trace of one one-block call's host ops
   8. ingest   the write leg of the main path: 256 x 4 MiB blocks (1 GiB)
               plus a 1 MiB + 7 B tail, ~25% from a 4-block duplicate pool,
               each its own slice, written through the port's CachedStore
@@ -121,7 +132,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               first) and estimator on ShardPlane([cuda:0] * k), k = 2, 4, 8
               (2x1, 2x2, 4x2 meshes), each equal bit for bit to the
               one-card plane, one placement per batch, one launch per
-              mesh device per batch and one combine per data row; k = 3 degrades (counted) and still
+              mesh device per batch and, on the lane-split 2x2 and 4x2,
+              one combine per data row; k = 3 degrades (counted) and still
               agrees; sharded_scan_many (10 iterations, tweak in the
               kernel) on 1x1 and 2x2 meshes of the first 256 blocks gives
               one checksum; then multichip.dryrun_multichip on the 2x2 mesh
@@ -195,13 +207,14 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               found through the meta sessions; `warmup META / --cache-group g
               --group-self <member>` through `cmd.main` into each member's
               cache dir while that member is down, then the member restarts
-              on the same address: the two cached key sets are disjoint and
-              cover every block, PUT-elided ones included, each block moved
-              from the object store once (an elided one as its canonical
-              object; a hedged GET may add one twin each), and warmup
-              launched nothing; then a total backend
-              blackout: B reads the whole file through its vfs byte-equal,
-              with 0 backend calls and peer hits == the blocks A owns;
+              on the same address: ring ownership goes by the object a
+              block's bytes live under (an elided block's canonical), so
+              each member's cache holds exactly the stored objects it owns;
+              each stored object moved from the object store once (a hedged
+              GET may add one twin each), warmup asked no peer and launched
+              nothing; then a total backend blackout: B reads the whole file
+              through its vfs byte-equal, with 0 backend calls and peer hits
+              == the stored objects A owns;
               member A pushes the registry (`--metrics-push`, `--graphite`,
               `--push-interval 0.5`) to a stdlib HTTP sink and a TCP sink:
               the latest push's juicefs_cache_group_* values == the
@@ -347,16 +360,24 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 def row_chain_bound_ms(n_lanes: int, smi: str,
-                       out_bytes_per_lane: int = COLS * 4) -> tuple[float, str]:
-    """Least time the card could take for the row chain over n_lanes: each
-    input word read once and each lane's output written once (512 B of
-    states, or 32 B of digests for the lane-digests epilogue) at the memory
-    rate, or the integer operations at the ALU rate, whichever is larger."""
-    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * out_bytes_per_lane
+                       lane_counts: torch.Tensor | None = None) -> tuple[float, str]:
+    """Least time the card could take for the row chain over n_lanes with
+    its lane fold (the lane-digests entry): each input word read once and
+    32 B of digests a lane written once at the memory rate, or the integer
+    operations at the ALU rate, whichever is larger. With `lane_counts`
+    (the block entry, B blocks of n_lanes / B lanes) also each live lane's
+    digests read back once, the counts and lengths (16 B a block) read and
+    the (B, 8) int64 digests (64 B a block) written, and the combine's
+    operations."""
+    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * DIGEST_BYTES
+    ops = in_bytes // 4 * OPS_PER_WORD + n_lanes * 8 * 16 * FOLD_OPS_PER_STEP
+    if lane_counts is not None:
+        n_blocks = int(lane_counts.numel())
+        live = int(lane_counts.clamp(0, n_lanes // n_blocks).sum())
+        in_bytes += live * DIGEST_BYTES + n_blocks * 16
+        out_bytes += n_blocks * 64
+        ops += live * 8 * FOLD_OPS_PER_STEP + n_blocks * 8 * 12
     bytes_ms = (in_bytes + out_bytes) / hbm_bytes_per_s(smi) * 1e3
-    ops = in_bytes // 4 * OPS_PER_WORD
-    if out_bytes_per_lane == DIGEST_BYTES:
-        ops += n_lanes * 8 * 16 * FOLD_OPS_PER_STEP
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
@@ -459,13 +480,37 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(((a.to(torch.int64) & MASK) - (b.to(torch.int64) & MASK)).abs().max())
 
 
+def block_inputs(gen: torch.Generator, n_lanes: int, m: int):
+    """Lane counts and lengths for the n_lanes // m whole blocks of a
+    shape: a full block, dead lanes past random counts, a one-lane block;
+    lengths 0, 1 and 4 MiB - 1."""
+    b = n_lanes // m
+    counts = torch.randint(1, m + 1, (b,), generator=gen, device="cuda", dtype=torch.int64)
+    counts[0] = m
+    counts[-1] = 1 if b > 1 else m
+    lengths = torch.tensor([(0, 1, BLOCK_BYTES - 1)[i % 3] for i in range(b)],
+                           dtype=torch.int64, device="cuda")
+    return counts, lengths
+
+
+def plain_block_digests(words: torch.Tensor, m: int, counts, lengths, tweak: int = 0):
+    """The plain torch version of the block entry: the plain row chain and
+    lane fold, then the plain combine."""
+    b = words.shape[0] // m
+    return hash_torch.combine_accs(
+        hash_torch.chain_digests_ref(words, m, tweak).reshape(b, m, 8), counts, lengths)
+
+
 def kernel_phase(gen: torch.Generator) -> dict:
-    """Each kernel == its plain torch version on the same inputs, exactly:
-    the row chain's states and lane-digests epilogues at every tweak and
-    lane offset, and the combine over the shape's whole blocks with dead lanes. Returns each kernel's
+    """Each kernel entry == its plain torch version on the same inputs,
+    exactly: the block entry (`hash_device`) on whole blocks with dead
+    lanes, twice in a row on one stream (a counter left non-zero shows as a
+    wrong digest), on two streams at once and on a stream whose counter
+    buffer grows; the lane-digests entry at every tweak and lane offset;
+    the combine over the shape's whole blocks. Returns each entry's
     largest error."""
     phase("kernel vs plain")
-    worst = {"jth256_row_chain": 0, "jth256_lane_digests": 0, "jth256_combine": 0}
+    worst = {"jth256_block_digests": 0, "jth256_lane_digests": 0, "jth256_combine": 0}
 
     def check(name, got, want, what):
         torch.cuda.synchronize()
@@ -474,44 +519,82 @@ def kernel_phase(gen: torch.Generator) -> dict:
             raise AssertionError(f"{name} != its plain version at {what}")
         worst[name] = max(worst[name], err)
 
+    def block_digests(words, m, counts, lengths, tweak=0):
+        got = hash_torch.hash_device(words.view(-1, m, ROWS, COLS), counts, lengths, tweak)
+        if hash_torch.last_kernel_mode() != "cuda" or hash_torch.last_fold_mode() != "cuda":
+            raise AssertionError("hash_device on a CUDA tensor did not run the kernel")
+        return got
+
     # (lanes, m): the main path's full batch (32 blocks x 64 lanes) and its
     # one-block tail batch, then lane counts that are not multiples of 16;
-    # each with lane offsets as the lane-split meshes of phase 14 pass them
-    for n_lanes, m in ((2048, 64), (64, 64), (37, 1), (150, 2), (201, 64)):
+    # the lane-digests entry with lane offsets as phase 14's lane-split
+    # meshes pass them
+    shapes = {}
+    for n_lanes, m in ((37, 1), (64, 64), (150, 2), (2048, 64), (201, 64)):
         words = random_words(gen, n_lanes)
         for tweak in (0, 0x5BD1E995):
             for loff in (0, 32, 1000):
                 what = f"L={n_lanes} m={m} tweak={tweak:#x} lane_offset={loff}"
-                got = hash_torch.row_chain(words, m, tweak, loff)
-                if hash_torch.last_kernel_mode() != "cuda":
-                    raise AssertionError("row_chain on a CUDA tensor did not run the kernel")
-                check("jth256_row_chain", got, hash_torch.row_chain_ref(words, m, tweak, loff),
-                      what)
                 got = hash_torch.chain_digests(words, m, tweak, loff)
                 if hash_torch.last_kernel_mode() != "cuda" \
                         or hash_torch.last_fold_mode() != "cuda":
                     raise AssertionError("chain_digests on a CUDA tensor did not run the kernel")
                 check("jth256_lane_digests", got,
                       hash_torch.chain_digests_ref(words, m, tweak, loff), what)
-        # the combine over the shape's whole blocks: a full block, dead
-        # lanes past random counts, a one-lane block; lengths 0, 1, 4 MiB - 1
         b = n_lanes // m
-        acc = hash_torch.chain_digests(words[:b * m], m).reshape(b, m, 8)
-        counts = torch.randint(1, m + 1, (b,), generator=gen, device="cuda",
-                               dtype=torch.int64)
-        counts[0] = m
-        counts[-1] = 1 if b > 1 else m
-        lengths = torch.tensor([(0, 1, BLOCK_BYTES - 1)[i % 3] for i in range(b)],
-                               dtype=torch.int64, device="cuda")
+        whole = words[:b * m]
+        counts, lengths = block_inputs(gen, n_lanes, m)
+        acc = hash_torch.chain_digests(whole, m).reshape(b, m, 8)
         got = hash_torch.combine(acc, counts, lengths)
         if hash_torch.last_fold_mode() != "cuda":
             raise AssertionError("combine on a CUDA tensor did not run the kernel")
         check("jth256_combine", got, hash_torch.combine_accs(acc, counts, lengths),
               f"B={b} M={m}")
-        print(f"L={n_lanes} m={m}: row_chain and chain_digests, tweak 0 / 0x5bd1e995 x "
-              f"lane_offset 0 / 32 / 1000; "
-              f"combine over {b} blocks, lane counts {counts.min().item()}-"
-              f"{counts.max().item()}: max_abs_err 0")
+        if n_lanes % m == 0:
+            for tweak in (0, 0x5BD1E995):
+                want = plain_block_digests(whole, m, counts, lengths, tweak)
+                for run in (1, 2):  # back to back on one stream
+                    check("jth256_block_digests", block_digests(whole, m, counts, lengths, tweak),
+                          want, f"B={b} M={m} tweak={tweak:#x}, launch {run}")
+            shapes[(n_lanes, m)] = (whole, counts, lengths, plain_block_digests(
+                whole, m, counts, lengths))
+        print(f"L={n_lanes} m={m}: chain_digests at tweak 0 / 0x5bd1e995 x lane_offset "
+              f"0 / 32 / 1000; combine over {b} blocks, lane counts {counts.min().item()}-"
+              f"{counts.max().item()}"
+              + ("; hash_device twice a tweak" if n_lanes % m == 0 else "") + ": max_abs_err 0")
+
+    # two streams at once: each has its own counters, and their launches
+    # interleave on the card
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pair = [shapes[(2048, 64)], shapes[(150, 2)]]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            words, counts, lengths, _want = pair[i]
+            with torch.cuda.stream(st):
+                outs[i].append(block_digests(words, words.shape[0] // counts.numel(), counts,
+                                             lengths))
+    torch.cuda.synchronize()
+    for i, (words, counts, lengths, want) in enumerate(pair):
+        for got in outs[i]:
+            check("jth256_block_digests", got, want, f"stream {i}, B={counts.numel()}")
+    # counter growth on a fresh stream: 1 block, then 32, then 75
+    grow = torch.cuda.Stream()
+    grow.wait_stream(torch.cuda.current_stream())
+    sizes = []
+    with torch.cuda.stream(grow):
+        for key in ((64, 64), (2048, 64), (150, 2)):
+            words, counts, lengths, want = shapes[key]
+            got = block_digests(words, key[1], counts, lengths)
+            sizes.append(hash_torch._ARRIVALS[(0, grow.cuda_stream)][1])
+            check("jth256_block_digests", got, want, f"growing stream, B={counts.numel()}")
+    torch.cuda.synchronize()
+    if sizes != sorted(sizes) or sizes[-1] < 75:
+        raise AssertionError(f"the growing stream's counter buffer took sizes {sizes}")
+    print(f"hash_device on two streams at once (32 and 75 blocks, 4 launches each) and on "
+          f"a stream whose counters grew {sizes}: max_abs_err 0")
     print(f"max_abs_err {json.dumps(worst)}")
     return worst
 
@@ -664,14 +747,30 @@ def time_queued(fn, runs: int = 5) -> tuple[float, float]:
     return statistics.median(times), max(enqueue)
 
 
+def host_call_us(fn, calls: int = 100) -> float:
+    """Median host microseconds of one fn(i) over `calls` calls, each
+    queued behind a spin of the card, so the device never pushes back on
+    the host: what a caller's thread spends to queue the work."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4 * SPIN_CYCLES)
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def timing_phase(gen: torch.Generator, smi: str) -> dict:
-    """Both row-chain epilogues and the combine at TIMING_BLOCKS, each
-    beside its bound and its plain version. Device ms
-    come from `time_queued` on inputs cycling through COLD_BYTES (L2 cold,
-    as a batch just uploaded over PCIe would be at 32 blocks and up); the
-    plain versions, one states-epilogue call (`row_chain_call_ms`, its
-    host launch included) and one whole hash call (`call_ms`: lane digests
-    + combine, as a batch runs them) from `time_cuda` around single calls."""
+    """The block entry (`hash_device`, one launch a hash batch), the
+    lane-digests entry, the combine, and the pair a lane-split batch runs
+    (lane digests, then the combine) at TIMING_BLOCKS, each beside its
+    bound and its plain version. Device ms come from `time_queued` on
+    inputs cycling through COLD_BYTES (L2 cold, as a batch just uploaded
+    over PCIe would be at 32 blocks and up); the plain versions and one
+    whole hash call (`call_ms`, its host launch included) from `time_cuda`
+    around single calls."""
     phase("kernel time")
     m = BLOCK_BYTES // LANE_BYTES
     spin_ms = time_cuda(lambda i: torch.cuda._sleep(SPIN_CYCLES), 3)
@@ -679,60 +778,63 @@ def timing_phase(gen: torch.Generator, smi: str) -> dict:
     for blocks in TIMING_BLOCKS:
         n = blocks * m
         copies = max(1, -(-COLD_BYTES // (n * LANE_BYTES)))
-        pool = random_words(gen, n * copies).reshape(copies, n, ROWS, COLS)
+        pool = random_words(gen, n * copies).reshape(copies, blocks, m, ROWS, COLS)
         counts = torch.full((blocks,), m, dtype=torch.int64, device="cuda")
         lengths = torch.full((blocks,), BLOCK_BYTES, dtype=torch.int64, device="cuda")
-        acc = hash_torch.chain_digests(pool[0], m).reshape(blocks, m, 8)
-        hash_torch.row_chain(pool[0], m, 1)  # warm-up
+        flat = lambda i: pool[i % copies].view(n, ROWS, COLS)  # noqa: E731
+        acc = hash_torch.chain_digests(flat(0), m).reshape(blocks, m, 8)
+        hash_torch.hash_device(pool[0], counts, lengths, 1)  # warm-up
         torch.cuda.synchronize()
         row = {"lanes": n}
         for name, fn in (
-                ("row_chain", lambda i: hash_torch.row_chain(pool[i % copies], m, 0x1000 + i)),
-                ("lane_digests",
-                 lambda i: hash_torch.chain_digests(pool[i % copies], m, 0x1000 + i)),
-                ("combine", lambda i: hash_torch.combine(acc, counts, lengths))):
+                ("block_digests",
+                 lambda i: hash_torch.hash_device(pool[i % copies], counts, lengths, 0x1000 + i)),
+                ("lane_digests", lambda i: hash_torch.chain_digests(flat(i), m, 0x1000 + i)),
+                ("combine", lambda i: hash_torch.combine(acc, counts, lengths)),
+                ("pair", lambda i: hash_torch.combine(hash_torch.lane_digests(
+                    pool[i % copies], 0x1000 + i), counts, lengths))):
             row[f"{name}_ms"], enq = time_queued(fn)
             worst_enqueue = max(worst_enqueue, enq)
-        # one states-epilogue call bracketed from the host (launch included)
-        row["row_chain_call_ms"] = time_cuda(
-            lambda i: hash_torch.row_chain(pool[i % copies], m, 0x4000 + i), 10)
-        row["call_ms"] = time_cuda(lambda i: hash_torch.combine(hash_torch.lane_digests(
-            pool[i % copies].view(blocks, m, ROWS, COLS), i), counts, lengths), 5)
-        row["row_chain_plain_ms"] = time_cuda(
-            lambda i: hash_torch.row_chain_ref(pool[0], m, 0x2000 + i), 3)
+        # one whole hash call bracketed from the host (its launch included)
+        row["call_ms"] = time_cuda(
+            lambda i: hash_torch.hash_device(pool[i % copies], counts, lengths, 0x4000 + i), 10)
         row["lane_digests_plain_ms"] = time_cuda(
-            lambda i: hash_torch.chain_digests_ref(pool[0], m, 0x2000 + i), 3)
+            lambda i: hash_torch.chain_digests_ref(flat(0), m, 0x2000 + i), 3)
         row["combine_plain_ms"] = time_cuda(
             lambda i: hash_torch.combine_accs(acc, counts, lengths), 3)
-        row["row_chain_bound_ms"], row["row_chain_bound_by"] = row_chain_bound_ms(n, smi)
-        row["lane_digests_bound_ms"], row["lane_digests_bound_by"] = row_chain_bound_ms(
-            n, smi, DIGEST_BYTES)
+        row["block_digests_plain_ms"] = time_cuda(
+            lambda i: plain_block_digests(flat(0), m, counts, lengths, 0x2000 + i), 3)
+        row["block_digests_bound_ms"], row["block_digests_bound_by"] = row_chain_bound_ms(
+            n, smi, counts)
+        row["lane_digests_bound_ms"], row["lane_digests_bound_by"] = row_chain_bound_ms(n, smi)
         row["combine_bound_ms"], row["combine_bound_by"] = combine_bound_ms(counts, m, smi)
         sizes[blocks] = row
-        print(f"{blocks} blocks ({n} lanes): row_chain {row['row_chain_ms']:.4f} ms (bound "
-              f"{row['row_chain_bound_ms']:.4f}, {row['row_chain_bound_ms'] / row['row_chain_ms']:.3f}"
-              f" of it; plain {row['row_chain_plain_ms']:.3f}); lane_digests "
-              f"{row['lane_digests_ms']:.4f} ms (bound {row['lane_digests_bound_ms']:.4f}, "
-              f"{row['lane_digests_bound_ms'] / row['lane_digests_ms']:.3f} of it; plain "
-              f"{row['lane_digests_plain_ms']:.3f}); combine {row['combine_ms']:.4f} ms (bound "
-              f"{row['combine_bound_ms']:.6f}, {row['combine_bound_by']}; plain "
+        print(f"{blocks} blocks ({n} lanes): block_digests {row['block_digests_ms']:.4f} ms "
+              f"(bound {row['block_digests_bound_ms']:.4f}, "
+              f"{row['block_digests_bound_ms'] / row['block_digests_ms']:.3f} of it; plain "
+              f"{row['block_digests_plain_ms']:.3f}); the pair lane_digests + combine "
+              f"{row['pair_ms']:.4f} ms (lane_digests {row['lane_digests_ms']:.4f}, bound "
+              f"{row['lane_digests_bound_ms']:.4f}, "
+              f"{row['lane_digests_bound_ms'] / row['lane_digests_ms']:.3f} of it, plain "
+              f"{row['lane_digests_plain_ms']:.3f}; combine {row['combine_ms']:.4f}, bound "
+              f"{row['combine_bound_ms']:.6f}, {row['combine_bound_by']}, plain "
               f"{row['combine_plain_ms']:.3f}); one hash call {row['call_ms']:.4f} ms")
         del pool, acc
     big = sizes[TIMING_BLOCKS[-1]]
     out = {
         "sizes": sizes, "spin_ms": spin_ms, "enqueue_ms": worst_enqueue,
         "lanes": TIMING_LANES,
-        "ms": big["row_chain_ms"],
-        "gibs": TIMING_LANES * LANE_BYTES / (1 << 30) / (big["row_chain_ms"] / 1e3),
-        "plain_ms": big["row_chain_plain_ms"],
-        "bound_ms": big["row_chain_bound_ms"],
-        "bound_by": big["row_chain_bound_by"],
+        "ms": big["block_digests_ms"],
+        "gibs": TIMING_LANES * LANE_BYTES / (1 << 30) / (big["block_digests_ms"] / 1e3),
+        "plain_ms": big["block_digests_plain_ms"],
+        "bound_ms": big["block_digests_bound_ms"],
+        "bound_by": big["block_digests_bound_by"],
         "hbm_bytes_per_s": hbm_bytes_per_s(smi),
     }
     if worst_enqueue >= spin_ms:
         raise AssertionError(f"queueing {QUEUED} calls took {worst_enqueue:.3f} ms, longer "
                              f"than the {spin_ms:.3f} ms spin: the device times hold host gaps")
-    print(f"row_chain 1 GiB ({TIMING_LANES} lanes): {out['ms']:.4f} ms = "
+    print(f"block_digests 1 GiB ({TIMING_LANES} lanes): {out['ms']:.4f} ms = "
           f"{out['gibs']:.2f} GiB/s; plain {out['plain_ms']:.3f} ms; bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {out['hbm_bytes_per_s'] / 1e12} TB/s) "
           f"= {out['bound_ms'] / out['ms']:.3f} of bound; {QUEUED} calls queued in at most "
@@ -743,12 +845,15 @@ def timing_phase(gen: torch.Generator, smi: str) -> dict:
 
 def compare_phase(gen: torch.Generator, smi: str, other: str, define: str | None) -> dict:
     """`--compare-row-chain DIR`: DIR's jth256_row_chain.cu (another
-    checkout's row chain with the same C entry, e.g. an earlier commit
-    unpacked with `git archive`, or this one built with the macro
-    `define`, NAME=VALUE) built beside this one and timed against
-    this checkout's states epilogue at TIMING_BLOCKS, in turns (other,
-    this, this, other) by `time_queued` and by one host call (`time_cuda`,
-    launch included); both must give the same states."""
+    checkout's row chain with the same `jth256_lane_digests` C entry,
+    e.g. an earlier commit unpacked with `git archive`, or this one built
+    with the macro `define`, NAME=VALUE) built beside this one
+    and timed against this checkout's lane-digests entry at TIMING_BLOCKS,
+    in turns (other, this, this, other) by `time_queued` and by one host
+    call (`time_cuda`, launch included); both must give the same lane
+    digests. Where DIR's source has the `jth256_block_digests` entry, the
+    two block entries are timed the same way, on whole blocks with dead
+    lanes, and must give the same digests."""
     import ctypes
 
     phase(f"row chain vs {other}" + (f" built with {define}" if define else ""))
@@ -762,17 +867,36 @@ def compare_phase(gen: torch.Generator, smi: str, other: str, define: str | None
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise AssertionError(f"nvcc failed on {kdir}:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(so).jth256_row_chain
-    fn.argtypes = kernels._SIGNATURES["jth256_row_chain"]
+    lib = ctypes.CDLL(so)
+    fn = lib.jth256_lane_digests
+    fn.argtypes = kernels._SIGNATURES["jth256_lane_digests"]
     fn.restype = ctypes.c_int
+    # DIR's block entry, where it has one
+    fn_block = getattr(lib, "jth256_block_digests", None)
+    if fn_block is not None:
+        fn_block.argtypes = kernels._SIGNATURES["jth256_block_digests"]
+        fn_block.restype = ctypes.c_int
     m = BLOCK_BYTES // LANE_BYTES
 
     def run_other(words, tweak):
-        out = torch.empty((words.shape[0], COLS), dtype=torch.int32, device="cuda")
+        out = torch.empty((words.shape[0], 8), dtype=torch.int32, device="cuda")
         rc = fn(words.data_ptr(), out.data_ptr(), words.shape[0], m, 0, tweak & MASK,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise AssertionError(f"the other row chain's launch failed: CUDA error {rc}")
+        return out
+
+    arrivals = torch.zeros(max(TIMING_BLOCKS), dtype=torch.int32, device="cuda")
+
+    def run_other_block(words, counts, lengths, tweak):
+        b = counts.numel()
+        scratch = torch.empty((b * m, 8), dtype=torch.int32, device="cuda")
+        out = torch.empty((b, 8), dtype=torch.int64, device="cuda")
+        rc = fn_block(words.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
+                      lengths.data_ptr(), arrivals.data_ptr(), out.data_ptr(), b, m,
+                      tweak & MASK, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"the other block entry's launch failed: CUDA error {rc}")
         return out
 
     rows = {}
@@ -780,21 +904,40 @@ def compare_phase(gen: torch.Generator, smi: str, other: str, define: str | None
         n = blocks * m
         copies = max(1, -(-COLD_BYTES // (n * LANE_BYTES)))
         pool = random_words(gen, n * copies).reshape(copies, n, ROWS, COLS)
-        if max_abs_err(run_other(pool[0], 7), hash_torch.row_chain(pool[0], m, 7)) != 0:
+        if max_abs_err(run_other(pool[0], 7), hash_torch.chain_digests(pool[0], m, 7)) != 0:
             raise AssertionError(f"{blocks} blocks: the two row chains disagree")
         fns = {"other": lambda i: run_other(pool[i % copies], 0x5000 + i),
-               "this": lambda i: hash_torch.row_chain(pool[i % copies], m, 0x5000 + i)}
+               "this": lambda i: hash_torch.chain_digests(pool[i % copies], m, 0x5000 + i)}
         row = {k: [] for k in ("other_ms", "this_ms", "other_call_ms", "this_call_ms")}
         for who in ("other", "this", "this", "other"):
             row[f"{who}_ms"].append(time_queued(fns[who])[0])
             row[f"{who}_call_ms"].append(time_cuda(fns[who], 10))
         bound, _ = row_chain_bound_ms(n, smi)
         rows[blocks] = {**row, "bound_ms": bound}
-        print(f"{blocks} blocks: other {row['other_ms'][0]:.4f} / {row['other_ms'][1]:.4f} ms, "
-              f"this {row['this_ms'][0]:.4f} / {row['this_ms'][1]:.4f} ms (queued); one call: "
-              f"other {row['other_call_ms'][0]:.4f} / {row['other_call_ms'][1]:.4f}, this "
+        print(f"{blocks} blocks, lane digests: other {row['other_ms'][0]:.4f} / "
+              f"{row['other_ms'][1]:.4f} ms, this {row['this_ms'][0]:.4f} / "
+              f"{row['this_ms'][1]:.4f} ms (queued); one call: other "
+              f"{row['other_call_ms'][0]:.4f} / {row['other_call_ms'][1]:.4f}, this "
               f"{row['this_call_ms'][0]:.4f} / {row['this_call_ms'][1]:.4f}; bound {bound:.4f} ms; "
               f"card {smi}")
+        if fn_block is not None:
+            counts, lengths = block_inputs(gen, n, m)
+            blocked = pool.view(copies, blocks, m, ROWS, COLS)
+            if max_abs_err(run_other_block(pool[0], counts, lengths, 7),
+                           hash_torch.hash_device(blocked[0], counts, lengths, 7)) != 0:
+                raise AssertionError(f"{blocks} blocks: the two block entries disagree")
+            fns = {"other": lambda i: run_other_block(pool[i % copies], counts, lengths,
+                                                      0x5000 + i),
+                   "this": lambda i: hash_torch.hash_device(blocked[i % copies], counts,
+                                                            lengths, 0x5000 + i)}
+            brow = {"other_ms": [], "this_ms": []}
+            for who in ("other", "this", "this", "other"):
+                brow[f"{who}_ms"].append(time_queued(fns[who])[0])
+            bbound, _ = row_chain_bound_ms(n, smi, counts)
+            rows[blocks]["block_digests"] = {**brow, "bound_ms": bbound}
+            print(f"{blocks} blocks, block digests: other {brow['other_ms'][0]:.4f} / "
+                  f"{brow['other_ms'][1]:.4f} ms, this {brow['this_ms'][0]:.4f} / "
+                  f"{brow['this_ms'][1]:.4f} ms (queued); bound {bbound:.4f} ms; card {smi}")
         del pool
     print("row_chain_compare " + json.dumps(rows))
     return rows
@@ -803,9 +946,9 @@ def compare_phase(gen: torch.Generator, smi: str, other: str, define: str | None
 def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     """Where one main-path hash batch (32 x 4 MiB blocks) spends its time:
     host packing into the pinned slot, the upload, then the hash as the
-    main path runs it (the lane-digests launch and the combine launch) and,
-    beside it, the states epilogue with the plain torch fold, each timed
-    alone (median of 5)."""
+    main path runs it (one launch of the block entry) and, beside it, the
+    pair a lane-split mesh runs (lane digests, then the combine) and the
+    plain torch version, each timed alone (median of 5)."""
     phase("batch breakdown")
     n, m = 32, BLOCK_BYTES // LANE_BYTES
     blocks = [rng.bytes(BLOCK_BYTES) for _ in range(n)]
@@ -826,31 +969,53 @@ def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     dcounts = torch.from_numpy(counts.astype(np.int64)).cuda()
     dlengths = torch.from_numpy(lengths.astype(np.int64)).cuda()
     hash_torch.hash_device(dev, dcounts, dlengths)
-    lane_digests_ms = time_cuda(lambda i: hash_torch.lane_digests(dev, i), 5)
-    acc = hash_torch.lane_digests(dev)
-    combine_ms = time_cuda(lambda i: hash_torch.combine(acc, dcounts, dlengths), 5)
     hash_ms = time_cuda(lambda i: hash_torch.hash_device(dev, dcounts, dlengths, i), 5)
     t0 = time.perf_counter()
     got = hash_torch.hash_device(dev, dcounts, dlengths)
-    hash_enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue both launches
+    hash_enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue the launch
+    torch.cuda.synchronize()
+    lane_digests_ms = time_cuda(lambda i: hash_torch.lane_digests(dev, i), 5)
+    acc = hash_torch.lane_digests(dev)
+    combine_ms = time_cuda(lambda i: hash_torch.combine(acc, dcounts, dlengths), 5)
+    pair = lambda i: hash_torch.combine(hash_torch.lane_digests(dev, i), dcounts,  # noqa: E731
+                                        dlengths)
+    pair_ms = time_cuda(pair, 5)
+    t0 = time.perf_counter()
+    pair_got = pair(0)
+    pair_enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue both launches
     torch.cuda.synchronize()
     flat = dev.reshape(n * m, ROWS, COLS)
-    hash_torch.row_chain(flat, m, 0)
-    kernel_ms = time_cuda(lambda i: hash_torch.row_chain(flat, m, i), 5)
-    states = hash_torch.row_chain(flat, m, 0).reshape(n, m, COLS)
-    fold = lambda i: hash_torch.combine_accs(hash_torch.lane_accs(states), dcounts, dlengths)
-    want = fold(0)
-    fold_ms = time_cuda(fold, 5)
-    t0 = time.perf_counter()
-    fold(0)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3  # host time to queue the plain fold
+    plain = lambda i: plain_block_digests(flat, m, dcounts, dlengths, i)  # noqa: E731
+    want = plain(0)
+    plain_ms = time_cuda(plain, 5)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("hash_device != row_chain + the plain fold on the batch")
+    if not (torch.equal(got, want) and torch.equal(pair_got, want)):
+        raise AssertionError("hash_device or the pair != the plain version on the batch")
+    # host time to queue one batch's hash: the block entry's one launch
+    # against the pair's two, at one block (the one-writer ingest's batch)
+    # and 32, in turns
+    host_us = {}
+    for nb in (1, n):
+        w, c, ln = dev[:nb], dcounts[:nb], dlengths[:nb]
+        fns = {"block": lambda i, w=w, c=c, ln=ln: hash_torch.hash_device(w, c, ln, i),
+               "pair": lambda i, w=w, c=c, ln=ln: hash_torch.combine(
+                   hash_torch.lane_digests(w, i), c, ln)}
+        row = {"block": [], "pair": []}
+        for who in ("block", "pair", "pair", "block"):
+            row[who].append(host_call_us(fns[who]))
+        host_us[nb] = row
+    # a trace of one one-block call: the torch ops it runs on the host
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        hash_torch.hash_device(dev[:1], dcounts[:1], dlengths[:1], 1)
+    torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    trace = {e.key: [e.count, round(e.self_cpu_time_total, 1)] for e in ops[:8]}
     out = {"blocks": n, "pack_ms": statistics.median(pack_ms), "h2d_ms": h2d_ms,
-           "lane_digests_ms": lane_digests_ms, "combine_ms": combine_ms, "hash_ms": hash_ms,
-           "hash_enqueue_ms": hash_enqueue_ms, "kernel_ms": kernel_ms, "fold_ms": fold_ms,
-           "fold_enqueue_ms": enqueue_ms}
+           "hash_ms": hash_ms, "hash_enqueue_ms": hash_enqueue_ms,
+           "lane_digests_ms": lane_digests_ms, "combine_ms": combine_ms, "pair_ms": pair_ms,
+           "pair_enqueue_ms": pair_enqueue_ms, "plain_ms": plain_ms,
+           "host_us": host_us, "trace_one_block_us": trace}
     print("batch_breakdown " + json.dumps(out))
     return out
 
@@ -1167,20 +1332,29 @@ def format_device_volume(meta_url: str, base: str, name: str) -> None:
         raise AssertionError(f"format rc {rc}")
 
 
+def expected_entries(n: int, lanes: int = 1) -> dict:
+    """What `n` row-chain launches must be by entry: with whole blocks on
+    each device (one card, or a mesh of one lane shard) every one is a
+    block-digests launch and no combine runs; on a mesh of `lanes` > 1
+    lane shards every one is a lane-digests launch, with one combine per
+    data row, i.e. per `lanes` row chains."""
+    if lanes == 1:
+        return {"jth256_block_digests": n, "jth256_lane_digests": 0, "jth256_combine": 0}
+    return {"jth256_block_digests": 0, "jth256_lane_digests": n,
+            "jth256_combine": n / lanes}
+
+
 def launches(lanes: int = 1) -> int:
-    """Row-chain launches since the last reset, checked against the fold's.
-    Every one of them ran the lane-digests epilogue, and every hash batch
-    ran one combine per data row: on one card one combine per row chain,
-    on a mesh of `lanes` lane shards one per `lanes` row chains. The fold
-    last ran in the kernels, never as the plain torch fold."""
+    """Row-chain launches since the last reset, checked by entry against
+    `expected_entries`. The fold last ran in the kernels, never as the
+    plain torch fold."""
     torch.cuda.synchronize()
     n = kernels.LAUNCHES["jth256_row_chain"]
-    digests = kernels.LAUNCHES["jth256_lane_digests"]
-    combines = kernels.LAUNCHES["jth256_combine"]
-    if digests != n or combines * lanes != n:
-        raise AssertionError(f"{n} row-chain launches, {digests} with the lane-digests "
-                             f"epilogue, {combines} combines: want every row chain to fold "
-                             f"its lanes and one combine per {lanes} of them")
+    want = expected_entries(n, lanes)
+    got = {k: kernels.LAUNCHES[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{n} row-chain launches on a plane of {lanes} lane shards: "
+                             f"by entry {got}, want {want}")
     if n and hash_torch.last_fold_mode() != "cuda":
         raise AssertionError(f"the fold last ran as {hash_torch.last_fold_mode()!r}, "
                              "not in the kernels")
@@ -1911,10 +2085,15 @@ def serve_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
         batch_blocks = max(1, round(ix["blocks"] / max(1, index_batches)))
         gen = torch.Generator(device="cuda")
         gen.manual_seed(int(rng.integers(1 << 31)))
-        words = random_words(gen, batch_blocks * m_lanes)
-        hash_torch.row_chain(words, m_lanes, 1)  # warm-up
-        batch_ms = time_cuda(lambda i: hash_torch.row_chain(words, m_lanes, 0x3000 + i), 10)
-        batch_bound_ms, batch_bound_by = row_chain_bound_ms(batch_blocks * m_lanes, smi)
+        words = random_words(gen, batch_blocks * m_lanes).view(batch_blocks, m_lanes, ROWS,
+                                                                COLS)
+        bcounts = torch.full((batch_blocks,), m_lanes, dtype=torch.int64, device="cuda")
+        blengths = torch.full((batch_blocks,), bs, dtype=torch.int64, device="cuda")
+        hash_torch.hash_device(words, bcounts, blengths, 1)  # warm-up
+        batch_ms = time_cuda(
+            lambda i: hash_torch.hash_device(words, bcounts, blengths, 0x3000 + i), 10)
+        batch_bound_ms, batch_bound_by = row_chain_bound_ms(batch_blocks * m_lanes, smi,
+                                                            bcounts)
         del words
         print(f"gates ok: every PUT 200, ETags == spec, GET/Range/SDK reads exact, "
               f"{len(listed)} keys listed, 403 unsigned, 400 + absent on a lying hash; "
@@ -1926,7 +2105,7 @@ def serve_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
         print(f"serve: gc --compact --dedup {gc_s:.3f} s (dedup_scan {gc['seconds']} s, so "
               f"compaction and listing {gc_s - gc['seconds']:.3f} s), fsck --verify-data "
               f"{fsck_s:.3f} s ({n_live} blocks); indexer busy {ix['busy_seconds']} s, "
-              f"{ix['dropped']} dropped; row_chain on a resident {batch_blocks}-block "
+              f"{ix['dropped']} dropped; hash_device on a resident {batch_blocks}-block "
               f"batch {batch_ms:.4f} ms, bound {batch_bound_ms:.4f} ms ({batch_bound_by}) = "
               f"{batch_bound_ms / batch_ms:.3f} of bound; phase "
               f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
@@ -2069,9 +2248,9 @@ def mount_cli_run(meta_url: str, mp: str, block: bytes) -> dict:
                   - stats_value(before, "juicefs_ingest_put_elided"))
         gauge = gauge_launches(after)
         process_launches = gauge["jth256_row_chain"]
-        if not gauge["jth256_lane_digests"] == gauge["jth256_combine"] == process_launches:
-            raise AssertionError(f"mount process: kernel launches {gauge}; want one "
-                                 "lane-digests epilogue and one combine per row chain")
+        if {k: gauge[k] for k in expected_entries(0)} != expected_entries(process_launches):
+            raise AssertionError(f"mount process: kernel launches {gauge}; want every row "
+                                 "chain a block-digests launch and no combine")
         umount_run = subprocess.run([sys.executable, "-m", "juicefs_tpu_torch.cmd", "umount", mp],
                                     cwd=repo, capture_output=True, text=True, timeout=120)
         rc_umount = umount_run.returncode
@@ -2328,7 +2507,10 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
 
     card = torch.device("cuda", 0)
     by_path = {"shard_hash": 0, "shard_scan": 0}
-    # combines: one per data row per batch, on the row's lead device
+    # the row chains of lane-split meshes, all lane-digests launches (the
+    # rest are block-digests launches), and their combines: one per data
+    # row per batch, on the row's lead device
+    lane_by_path = {"shard_hash": 0, "shard_scan": 0}
     combine_by_path = {"shard_hash": 0, "shard_scan": 0}
     meshes = {}
     deg0 = counter_value("juicefs_torch_shard_degraded")
@@ -2376,6 +2558,9 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
             raise AssertionError(f"[cuda:0] * {k}: estimator != the one-card plane")
         by_path["shard_hash"] += hash_launches
         by_path["shard_scan"] += scan_launches
+        if lanes > 1:
+            lane_by_path["shard_hash"] += hash_launches
+            lane_by_path["shard_scan"] += scan_launches
         combine_by_path["shard_hash"] += hash_combines
         combine_by_path["shard_scan"] += scan_combines
         meshes[k] = {"snapshot": snap, "put_ms": put_ms, "hash_ms": hash_ms,
@@ -2408,11 +2593,12 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         if nl != 10 * d * lane:
             raise AssertionError(f"scan_many {d}x{lane}: {nl} launches, want {10 * d * lane}")
         many[f"{d}x{lane}"] = {"checksum": chk, "ms_per_iter": ms, "launches": nl,
-                               "combines": combines}
+                               "lane_launches": nl if lane > 1 else 0, "combines": combines}
         del placed
     if many["1x1"]["checksum"] != many["2x2"]["checksum"]:
         raise AssertionError(f"sharded_scan_many checksums differ: {many}")
     by_path["shard_many"] = sum(v["launches"] for v in many.values())
+    lane_by_path["shard_many"] = sum(v["lane_launches"] for v in many.values())
     combine_by_path["shard_many"] = sum(v["combines"] for v in many.values())
     print(f"sharded_scan_many over {n_even} blocks, 10 iterations: checksum "
           f"{many['1x1']['checksum']:#010x} at 1x1 and 2x2; "
@@ -2447,8 +2633,8 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
                              f"{mc['scan']['combines']} (of {total_combines}) for "
                              f"{ingest_batches} ingest and {scan_batches} scan batches "
                              "on 2 data rows")
-    by_path["multichip_ingest"] = mc["ingest"]["launches"]
-    by_path["multichip_scan"] = mc["scan"]["launches"]
+    by_path["multichip_ingest"] = lane_by_path["multichip_ingest"] = mc["ingest"]["launches"]
+    by_path["multichip_scan"] = lane_by_path["multichip_scan"] = mc["scan"]["launches"]
     combine_by_path["multichip_ingest"] = mc["ingest"]["combines"]
     combine_by_path["multichip_scan"] = mc["scan"]["combines"]
     print(f"gates ok: meshes 2x1, 2x2, 4x2 == one-card plane bit for bit, odd count "
@@ -2457,8 +2643,9 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
           f"of {ing['hashed']} hashed blocks estimated on the mesh), cold scan "
           f"{mc['scan']['gibs']} GiB/s, {mc['duplicate_blocks']} duplicates; phase "
           f"{time.perf_counter() - t_phase:.3f} s; card {smi}")
-    return {"launches": by_path, "combine_launches": combine_by_path, "meshes": meshes,
-            "scan_many": many, "multichip": mc}
+    return {"launches": by_path, "lane_launches": lane_by_path,
+            "combine_launches": combine_by_path, "meshes": meshes, "scan_many": many,
+            "multichip": mc}
 
 
 def recording_indexer(sample_every: int):
@@ -2695,15 +2882,16 @@ def settled_index_metrics(mport: int) -> tuple[int, int]:
                int(stats_value(text, 'juicefs_torch_stage_seconds_count{layer="gpu",'
                                      'op="index",stage="batch"}')),
                int(stats_value(text, "juicefs_index_queue_blocks")),
-               gauge["jth256_lane_digests"], gauge["jth256_combine"])
-        # settled: one index batch per launch, one lane-digests epilogue
-        # and one combine per row chain, and nothing queued
-        if now == last and now[0] == now[1] == now[3] == now[4] and now[2] == 0:
+               gauge["jth256_block_digests"],
+               gauge["jth256_lane_digests"] + gauge["jth256_combine"])
+        # settled: one index batch per launch, every row chain a
+        # block-digests launch with no combine, and nothing queued
+        if now == last and now[0] == now[1] == now[3] and now[2] == now[4] == 0:
             return now[0], now[1]
         last = now
         time.sleep(0.5)
-    raise AssertionError(f"webdav process: launches, index batches, queue, lane-digests "
-                         f"and combine launches {last}")
+    raise AssertionError(f"webdav process: launches, index batches, queue, block-digests "
+                         f"launches and lane-digests + combine launches {last}")
 
 
 def sync_phase(rng: np.random.Generator, smi: str) -> dict:
@@ -3493,6 +3681,10 @@ def group_write(meta_url: str, blocks: list, planted: int) -> dict:
             "hashed": hashed, "stats": st}
 
 
+PEER_SERIES = ("juicefs_cache_group_peer_hits", "juicefs_cache_group_peer_misses",
+               "juicefs_cache_group_peer_errors")
+
+
 def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str) -> dict:
     """Phase 20: a peer-served, card-hashed inline-dedup volume. Two
     cache-group members, a distributed `warmup`, a backend blackout that
@@ -3549,10 +3741,15 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
             keys = w["keys"]
             content = dict(zip(keys, blocks))
             m, fmt = cmd.open_meta(meta_url)
+            refs = ContentRefs(m)
+            # each elided block's canonical: the stored object that serves it
+            canonical = {k: c for k in keys if (c := refs.resolve(k)) is not None}
             m.client.close()
             stored = {o.key for o in stacks.real(fmt).list_all("chunks/")}
-            if len(stored) != n_blocks - planted:
-                raise AssertionError(f"{len(stored)} objects stored, want {n_blocks - planted}")
+            if len(stored) != n_blocks - planted or len(canonical) != planted \
+                    or not set(canonical.values()) <= stored:
+                raise AssertionError(f"{len(stored)} objects stored, {len(canonical)} elided "
+                                     f"blocks; want {n_blocks - planted} and {planted}")
 
             # 2. two members, found through the meta sessions
             for side in ("a", "b"):
@@ -3560,7 +3757,9 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
             for side in ("a", "b"):
                 live_members(members[side])
             owner = {k: members["a"].mounted.store.cache_group.ring.owner(k) for k in keys}
-            owned = {side: {k for k in keys if owner[k] == members[side].addr}
+            # warmup goes by the object a block's bytes live under, so a
+            # member owns the stored objects the ring gives it
+            owned = {side: {k for k in stored if owner[k] == members[side].addr}
                      for side in port}
 
             # 3. distributed warmup: each member's cache dir is filled while
@@ -3570,8 +3769,9 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
             # the same address and serves what warmup filled.
             mark = stacks.marks()
             hedges0 = counter_total("juicefs_object_hedged_requests")
+            peer0 = {n: counter_total(n) for n in PEER_SERIES}
             kernels.reset_launches()
-            warm_s = 0.0
+            warm_side = {}
             for side in ("a", "b"):
                 addr = members[side].addr
                 members.pop(side).close()
@@ -3579,38 +3779,45 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
                 rc, out, _ = cli(["warmup", meta_url, "/", "--cache-group", GROUP,
                                   "--group-self", addr, "--cache-dir", cache_dir[side],
                                   "--cache-size", "4096", "--threads", "16"])
-                warm_s += time.perf_counter() - t0
+                warm_side[side] = time.perf_counter() - t0
                 if rc != 0 or f"warmed 1 files / {len(range(0, n_blocks, 8))} slices" \
                         not in out:
                     raise AssertionError(f"warmup for {side}: rc {rc}")
                 members[side] = GroupMember(member_argv(side))
                 if members[side].addr != addr:
                     raise AssertionError(f"member {side} came back on {members[side].addr}")
+            warm_s = sum(warm_side.values())
             warm_launches = launches()
             warm_gets = stacks.gets_since(mark)
             warm_hedges = int(counter_total("juicefs_object_hedged_requests") - hedges0)
+            # the warmups' peer rung: hits, clean misses, failures
+            warm_peer = {n.rsplit("_", 1)[1]: int(counter_total(n) - peer0[n])
+                         for n in PEER_SERIES}
             in_cache = {side: cached_keys(cache_dir[side]) & set(keys) for side in port}
             for side in ("a", "b"):
                 live_members(members[side])
             if warm_launches != 0:
                 raise AssertionError(f"warmup launched {warm_launches} kernels")
-            if in_cache["a"] & in_cache["b"] or in_cache["a"] | in_cache["b"] != set(keys) \
-                    or in_cache != owned:
+            if any(warm_peer.values()):
+                raise AssertionError(f"warmup asked a peer: {warm_peer}")
+            # each member holds exactly the stored objects it owns, each
+            # under its own key (an elided block is cached as its canonical)
+            if any(in_cache[side] != owned[side] for side in port):
                 raise AssertionError(
                     f"warm caches: a {len(in_cache['a'])}, b {len(in_cache['b'])}, shared "
                     f"{len(in_cache['a'] & in_cache['b'])}, union "
-                    f"{len(in_cache['a'] | in_cache['b'])} of {n_blocks}; owned "
-                    f"{len(owned['a'])} + {len(owned['b'])}")
-            # each block moved from the object store once (an elided block as
-            # its canonical object), and every stored object was fetched; a
-            # GET that outlived the hedge delay may add its hedged twin, so
-            # each GET beyond one per block must be a hedge of this warmup
-            if not n_blocks <= len(warm_gets) <= n_blocks + warm_hedges \
+                    f"{len(in_cache['a'] | in_cache['b'])} of {n_blocks} blocks; owned "
+                    f"{len(owned['a'])} + {len(owned['b'])} of {len(stored)} objects")
+            # each stored object moved from the object store once, an elided
+            # block's canonical included (only the canonical's owner loads
+            # it); a GET that outlived the hedge delay may add its hedged
+            # twin, so each GET beyond one per stored object must be a hedge
+            if not len(stored) <= len(warm_gets) <= len(stored) + warm_hedges \
                     or set(warm_gets) != stored:
                 raise AssertionError(f"warmup made {len(warm_gets)} data GETs of "
                                      f"{len(set(warm_gets))} objects with {warm_hedges} "
-                                     f"hedges; want {n_blocks} GETs (plus at most one per "
-                                     f"hedge) of the {len(stored)} stored objects")
+                                     f"hedges; want one GET (plus at most one per hedge) "
+                                     f"of each of the {len(stored)} stored objects")
 
             # 4. blackout: every backend call fails; B reads the whole file
             # from its own cache and A's peer server
@@ -3642,9 +3849,11 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
                 raise AssertionError("the blackout read through B differs from the plan")
             if after != before:
                 raise AssertionError(f"backend touched during the blackout: {before} -> {after}")
+            # B reads from A, once each, the stored objects A owns (an
+            # elided block through its canonical's key)
             if peer_hits != len(owned["a"]):
-                raise AssertionError(f"B's peer hits {peer_hits} != {len(owned['a'])} blocks "
-                                     "A owns")
+                raise AssertionError(f"B's peer hits {peer_hits} != the {len(owned['a'])} "
+                                     "objects A owns")
 
             # 5. the pusher of member A: a push after the blackout carries the
             # registry's juicefs_cache_group_* values to both sinks
@@ -3712,15 +3921,17 @@ def group_phase(rng: np.random.Generator, volume_gib: float, kind: str, smi: str
         print(f"gates ok: {planted} elided == planted in {w['launches']} launches == "
               f"{w['ingest_batches']} ingest + {w['index_batches']} index batches; "
               f"{len(stored)} objects; two members found through the sessions; warmup "
-              f"filled {len(in_cache['a'])} + {len(in_cache['b'])} blocks, disjoint, the "
-              f"union every block, with {len(warm_gets)} data GETs ({warm_hedges} hedges) of "
-              f"the {len(stored)} objects and 0 launches; the blackout read exact with 0 backend calls, "
-              f"{peer_hits:.0f} peer hits == A's blocks; {pushes[0]} gateway and {pushes[1]} "
+              f"filled {len(in_cache['a'])} + {len(in_cache['b'])} objects == each member's "
+              f"own, with {len(warm_gets)} data GETs ({warm_hedges} hedges) of the "
+              f"{len(stored)} objects, 0 peer calls and 0 launches; the blackout read exact "
+              f"with 0 backend calls, {peer_hits:.0f} peer hits == A's objects; "
+              f"{pushes[0]} gateway and {pushes[1]} "
               f"graphite pushes, the latest == the registry's {len(want)} cache-group "
               f"series; fsck {n_blocks} blocks, 0 mismatches, {fsck_launches} launches; gc "
               f"hashed the {len(gone)} deleted rows in {gc_launches} launches, == spec")
         print(f"group: write {gib / w['seconds']:.4f} GiB/s, warmup {gib / warm_s:.4f} GiB/s "
-              f"({warm_s:.3f} s for both members), blackout read {gib / blackout_s:.4f} GiB/s "
+              f"({warm_side['a']:.3f} + {warm_side['b']:.3f} s for the two members; peer "
+              f"rung {json.dumps(warm_peer)}), blackout read {gib / blackout_s:.4f} GiB/s "
               f"({blackout_launches} launches), fsck --verify-data {gib / fsck_s:.4f} GiB/s, "
               f"gc --dedup {gc_s:.3f} s; phase {time.perf_counter() - t_phase:.3f} s; card {smi}")
         return {"write_gibs": gib / w["seconds"], "warmup_gibs": gib / warm_s,
@@ -4102,10 +4313,13 @@ def main(argv=None) -> int:
                **shard["launches"], **objbench["launches"], **bench["launches"],
                **sync["launches"], **config["launches"], **meta["launches"],
                **group["launches"], **stores["launches"], **shim["launches"]}
-    # a read of the counts on a one-card path (launches()) fails unless it
-    # saw one combine per row chain; the phases that kept the whole count
-    # (launch_counts()) and the shard phase give the combines they read
-    combine_by_path = {**by_path,
+    # a read of the counts (launches()) fails unless every row chain of a
+    # one-card path was a block-digests launch with no combine, and every
+    # row chain of a lane-split mesh a lane-digests launch with one combine
+    # per data row; the shard phase gives the lane-split meshes' launches
+    lane_by_path = shard["lane_launches"]
+    block_by_path = {p: n - lane_by_path.get(p, 0) for p, n in by_path.items()}
+    combine_by_path = {**{p: 0 for p in by_path},
                        "scan": scan["launches"]["jth256_combine"],
                        "ingest": ingest["launches"]["jth256_combine"],
                        "ingest_cold_scan": ingest["cold_scan_launches"]["jth256_combine"],
@@ -4151,36 +4365,41 @@ def main(argv=None) -> int:
           f"{json.dumps(stores['legs'])} (encrypted leg {stores['encrypted']}); C shim "
           f"write {shim['write_gibs']:.4f} GiB/s, read {shim['read_gibs']:.4f} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
-    print(f"launches of jth256_combine: {combine_by_path}; card {smi}")
-    print(f"hash batch of 32 blocks: {breakdown['hash_ms']:.4f} ms in two launches "
-          f"(lane digests {breakdown['lane_digests_ms']:.4f}, combine "
-          f"{breakdown['combine_ms']:.4f}) against {breakdown['kernel_ms']:.4f} + "
-          f"{breakdown['fold_ms']:.3f} ms for the states epilogue and the plain fold; "
+    print(f"launches of jth256_block_digests: {block_by_path}; of jth256_lane_digests: "
+          f"{lane_by_path}; of jth256_combine: {combine_by_path}; card {smi}")
+    print(f"hash batch of 32 blocks: {breakdown['hash_ms']:.4f} ms in one launch, against "
+          f"{breakdown['pair_ms']:.4f} ms for the pair (lane digests "
+          f"{breakdown['lane_digests_ms']:.4f}, combine {breakdown['combine_ms']:.4f}) and "
+          f"{breakdown['plain_ms']:.3f} ms for the plain torch version; host us to queue "
+          f"one batch (block entry / pair, in turns): {json.dumps(breakdown['host_us'])}; "
           f"card {smi}")
     at_32 = timing["sizes"][32]
     big = timing["sizes"][TIMING_BLOCKS[-1]]
+    row_chain = {"route": "cuda", "source": "juicefs_tpu_torch/gpu/kernels/jth256_row_chain.cu",
+                 "replaces": "juicefs_tpu/tpu/hash_jax.py:174",
+                 "shape": f"{TIMING_LANES} lanes (1 GiB)", "library_ms": None}
     print(json.dumps({"kernels": [{
-        # one kernel, two C entries: the main path launches the lane-digests
-        # entry alone (every read of the counts holds the row-chain launches
-        # to the lane-digests ones), so its launches and times are that
-        # entry's; the states entry's times stand beside them
-        "name": "jth256_row_chain",
-        "route": "cuda",
-        "source": "juicefs_tpu_torch/gpu/kernels/jth256_row_chain.cu",
-        "replaces": "juicefs_tpu/tpu/hash_jax.py:174",
-        "shape": f"{TIMING_LANES} lanes (1 GiB) through jth256_lane_digests, the entry "
-                 "the main path launches",
-        "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
-        "max_abs_err": max(err["jth256_row_chain"], err["jth256_lane_digests"]),
+        # one kernel, two C entries: a batch whose blocks lie whole on one
+        # device launches the block entry, a lane shard of a mesh the
+        # lane-digests entry
+        "name": "jth256_block_digests", **row_chain,
+        "launches": sum(block_by_path.values()),
+        "launches_by_path": block_by_path,
+        "max_abs_err": err["jth256_block_digests"],
+        "ms": big["block_digests_ms"],
+        "plain_ms": big["block_digests_plain_ms"],
+        "bound_ms": big["block_digests_bound_ms"],
+        "bound_by": big["block_digests_bound_by"],
+        "pair_ms": big["pair_ms"],
+    }, {
+        "name": "jth256_lane_digests", **row_chain,
+        "launches": sum(lane_by_path.values()),
+        "launches_by_path": lane_by_path,
+        "max_abs_err": err["jth256_lane_digests"],
         "ms": big["lane_digests_ms"],
         "plain_ms": big["lane_digests_plain_ms"],
         "bound_ms": big["lane_digests_bound_ms"],
         "bound_by": big["lane_digests_bound_by"],
-        "library_ms": None,
-        "states_entry": {"entry": "jth256_row_chain", "main_path_launches": 0,
-                         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-                         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"]},
     }, {
         "name": "jth256_combine",
         "route": "cuda",

@@ -29,6 +29,7 @@ from __future__ import annotations
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -64,6 +65,8 @@ _H_UPLOAD = stage_hist("chunk", "upload", "put")
 _H_STAGE = stage_hist("chunk", "upload", "stage")
 _H_PACK = stage_hist("chunk", "upload", "pack")
 _H_COMPRESS = stage_hist("chunk", "upload", "compress")
+# elided-block memo bound: ~150 B an entry, so ~10 MiB at the cap
+_CANONICALS_MAX = 1 << 16
 
 # staging backlog gauges (reference juicefs_staging_blocks/bytes) aggregate
 # over every live store — weak refs so a gauge closure never pins a
@@ -294,6 +297,12 @@ class CachedStore:
         # inline-dedup stage itself (--inline-dedup mounts only).
         self.content_refs = None
         self.ingest = None
+        # elided block key -> its canonical's key, as resolved. An elided
+        # block's bytes are cached, fetched and asked of peers under the
+        # canonical's key only; an alias's canonical does not change while
+        # the alias lives, so the memo needs no invalidation but a delete's
+        self._canonicals: OrderedDict[str, str] = OrderedDict()
+        self._canonicals_lock = threading.Lock()
         # cache group (cache/group.py), attached by cmd/mount or tests:
         # the peer rung between the local cache and the object store
         self.cache_group = None
@@ -364,17 +373,34 @@ class CachedStore:
         _MISS.labels(self.cache_tier).inc()
 
     def _load_block(self, key: str, bsize: int, cache_after: bool = True,
-                    parent=None) -> bytes:
-        """Singleflight full-block load (reference cached_store.go:673-749)."""
+                    parent=None, resolved: bool = False) -> bytes:
+        """Singleflight full-block load (reference cached_store.go:673-749).
+        An elided block loads as its canonical, under the canonical's key;
+        `resolved` says `key` is already the key its bytes live under."""
+        block = key
+        key = self._cached_as(key)
 
         def do() -> bytes:
             cached = self.cache.load(key)
             if cached is not None:
-                self._note_cache_hit(key, bsize)
+                self._note_cache_hit(block, bsize)
                 return cached
             staged = self._staged_lookup(key)
             if staged is not None:
                 return staged
+
+            # inline dedup: an elided block has no object of its own.
+            # Resolve the alias before the peer and backend rungs and load
+            # the canonical through the cache and the single-flight group
+            # under ITS key, so a block and its aliases cost one GET of the
+            # stored object (the reference GETs the block's own key first
+            # and resolves on the NotFound). One content_resolve per cold
+            # block the memo lacks; a store without the plane pays nothing.
+            if not resolved:
+                canonical = self._canonical_key(key)
+                if canonical != key:
+                    return self._load_block(canonical, bsize, cache_after,
+                                            parent, resolved=True)
 
             # peer rung: the ring owner's cache, tried BEFORE
             # the backend and regardless of the backend breaker's state —
@@ -390,17 +416,7 @@ class CachedStore:
                     return peer_data
 
             def fetch() -> bytes:
-                try:
-                    data = self.storage.get(key)
-                except NotFoundError:
-                    # inline dedup: an elided block has no object
-                    # of its own — resolve the alias and fetch the
-                    # canonical. Untracked blocks re-raise (a real miss);
-                    # the non-dedup hot path pays nothing here.
-                    canonical = self._resolve_alias(key)
-                    if canonical is None:
-                        raise
-                    data = self.storage.get(canonical)
+                data = self.storage.get(key)
                 raw = self.compressor.decompress(data, bsize)
                 if len(raw) != bsize:
                     # short/over-long response (flaky backend, truncated
@@ -425,7 +441,8 @@ class CachedStore:
 
     def _resolve_alias(self, key: str) -> Optional[str]:
         """Canonical block key for an elided (aliased) block, or None when
-        the block is untracked by the content-ref plane."""
+        the block is its own canonical, is untracked by the content-ref
+        plane, or the store has no plane."""
         refs = self.content_refs
         if refs is None:
             return None
@@ -434,6 +451,27 @@ class CachedStore:
         except Exception as e:  # meta hiccup: surface the original miss
             logger.warning("alias resolve %s: %s", key, e)
             return None
+
+    def _cached_as(self, key: str) -> str:
+        """The key a block's bytes are cached and fetched under: its
+        canonical's for an elided block already resolved, else its own.
+        Reads the memo only, never meta."""
+        return self._canonicals.get(key, key)
+
+    def _canonical_key(self, key: str) -> str:
+        """As _cached_as, resolving a block the memo lacks through the
+        content-ref plane (one content_resolve; none without the plane)."""
+        canonical = self._canonicals.get(key)
+        if canonical is not None:
+            return canonical
+        canonical = self._resolve_alias(key)
+        if canonical is None:
+            return key
+        with self._canonicals_lock:
+            self._canonicals[key] = canonical
+            if len(self._canonicals) > _CANONICALS_MAX:
+                self._canonicals.popitem(last=False)
+        return canonical
 
     @property
     def prefetcher(self) -> Prefetcher:
@@ -450,6 +488,8 @@ class CachedStore:
             # outage: warming would only burn EIO fast-fails (with a cache
             # group the peer rung may still warm us, so keep trying)
             return False
+        # an elided block warms as its canonical, on the canonical's owner
+        key = self._canonical_key(key)
         if self.cache.load(key, count_miss=False) is not None:
             return False
         if group is not None and not group.owns(key):
@@ -462,7 +502,7 @@ class CachedStore:
             group.warm(key)
             return False
         try:
-            self._load_block(key, bsize)
+            self._load_block(key, bsize, resolved=True)
             return True
         except (NotFoundError, BreakerOpenError):
             pass
@@ -491,7 +531,7 @@ class CachedStore:
         and dilute the used/issued ratio the readahead window feedback
         steers by."""
         for key, bsize in self._block_range(sid, length, off, size):
-            if bsize > 0 and not self.cache.contains(key):
+            if bsize > 0 and not self.cache.contains(self._cached_as(key)):
                 self._fetcher.fetch((key, bsize))
 
     def new_writer(self, sid: int) -> "WSlice":
@@ -535,6 +575,8 @@ class CachedStore:
 
         def drop(key: str) -> int:
             self.cache.remove(key)
+            with self._canonicals_lock:
+                self._canonicals.pop(key, None)
             self._unpark_staged(key)
             target = targets.get(key, key)
             if target is None:
@@ -555,16 +597,23 @@ class CachedStore:
     def fill_cache(self, sid: int, length: int, only=None) -> None:
         """Warm every block of a slice (reference vfs/fill.go FillCache);
         loads overlap on the download pool, failures propagate.  `only`
-        filters block keys — distributed warmup fills just the blocks this
-        member owns on the cache-group ring (cmd/warmup.py)."""
+        filters by the key a block's bytes live under — distributed warmup
+        fills just the objects this member owns on the cache-group ring
+        (cmd/warmup.py). An elided block belongs to its canonical's
+        owner, so a fleet-wide warmup fetches each stored object once
+        (the reference filters by the block's own key)."""
+
+        def load(kb) -> None:
+            key, bsize = kb
+            if only is not None:
+                key = self._canonical_key(key)
+                if not only(key):
+                    return
+            self._load_block(key, bsize, resolved=only is not None)
+
         if length > 0:
-            blocks = [
-                kb for kb in self._block_range(sid, length)
-                if only is None or only(kb[0])
-            ]
             for _ in fetch_ordered(
-                blocks,
-                lambda kb: self._load_block(kb[0], kb[1]),
+                list(self._block_range(sid, length)), load,
                 self._bulk_pool, self.conf.max_download,
             ):
                 pass
@@ -573,15 +622,23 @@ class CachedStore:
         """Number of cached blocks for a slice."""
         if length <= 0:
             return 0
-        return sum(
-            1 for key, _ in self._block_range(sid, length)
-            if self.cache.load(key, count_miss=False) is not None
-        )
+        return sum(1 for key, _ in self._block_range(sid, length)
+                   if any(self.cache.load(k, count_miss=False) is not None
+                          for k in self._cache_keys(key)))
 
     def evict_cache(self, sid: int, length: int) -> None:
         if length > 0:
             for key, _ in self._block_range(sid, length):
-                self.cache.remove(key)
+                for k in self._cache_keys(key):
+                    self.cache.remove(k)
+
+    def _cache_keys(self, key: str):
+        """The keys a block's bytes may be cached under: its own (a written
+        block), then its canonical's when it is elided."""
+        yield key
+        canonical = self._canonical_key(key)
+        if canonical != key:
+            yield canonical
 
     def flush_all(self, timeout: float = 60.0) -> None:
         """Drain pending writeback uploads (used by fsync paths and tests)."""
@@ -966,7 +1023,8 @@ class RSlice:
             key = block_key(self.id, indx, bsize)
             # speculative probe: a miss here falls through to _load_block,
             # which re-probes and counts the miss exactly once
-            cached = self.store.cache.load(key, count_miss=False)
+            cached = self.store.cache.load(self.store._cached_as(key),
+                                           count_miss=False)
             if cached is not None:
                 self.store._note_cache_hit(key, bsize)
                 if sp.active:
@@ -996,7 +1054,8 @@ class RSlice:
             ref = _TR.current_ref()
             for indx, bsize, _boff, _n in segs:
                 key = block_key(self.id, indx, bsize)
-                cached = self.store.cache.load(key, count_miss=False)
+                cached = self.store.cache.load(self.store._cached_as(key),
+                                               count_miss=False)
                 if cached is not None:
                     self.store._note_cache_hit(key, bsize)
                     warm[indx] = cached
@@ -1037,12 +1096,15 @@ class RSlice:
                         # speculative probe above suppressed lands here
                         self.store._count_miss()
                         def ranged(k=key, o=boff, ln=n) -> bytes:
+                            target = self.store._cached_as(k)
                             try:
-                                data = self.store.storage.get(k, o, ln)
+                                data = self.store.storage.get(target, o, ln)
                             except NotFoundError:
-                                # elided block: ranged-read its canonical
-                                canonical = self.store._resolve_alias(k)
-                                if canonical is None:
+                                # elided block seen first here: ranged-read
+                                # its canonical. GET first, so a block that
+                                # is its own object pays no meta read
+                                canonical = self.store._canonical_key(k)
+                                if canonical == target:
                                     raise
                                 data = self.store.storage.get(canonical, o, ln)
                             if len(data) != ln:

@@ -13,7 +13,10 @@ With `--cache-group` the fill is DISTRIBUTED: each invocation
 warms only the blocks this member owns on the group's consistent-hash
 ring, so a fleet-wide warmup moves each block from the object store
 exactly once instead of once per client — everyone else reads it from
-the owner's peer server."""
+the owner's peer server. A PUT-elided block belongs to the owner of its
+canonical object, so on an inline-dedup volume each stored object leaves
+the object store once per fleet-wide warmup (the reference's ring goes
+by the block's own key, and fetches a shared object once per owner)."""
 
 from __future__ import annotations
 

@@ -1,18 +1,21 @@
 """Batched JTH-256 in PyTorch: the counterpart of juicefs_tpu/tpu/hash_jax.py.
 
-A hash batch on the card is two hand-written CUDA kernels: the row chain
-with the lane fold in its epilogue (`gpu/kernels/jth256_row_chain.cu`,
-entry `jth256_lane_digests`, counterpart of the Pallas `_pallas_row_chain`
-and `_lane_accs`), then the per-block combine (`gpu/kernels/
-jth256_combine.cu`, counterpart of `_combine_accs` and `_fmix`). The row
-chain's other epilogue, `row_chain`, returns the lane states themselves.
+A hash batch on the card is one launch of a hand-written CUDA kernel:
+the row chain with the lane fold and the per-block combine in its
+epilogue (`gpu/kernels/jth256_row_chain.cu`, entry `jth256_block_digests`,
+counterpart of the Pallas `_pallas_row_chain` with `_lane_accs`,
+`_combine_accs` and `_fmix`). A lane shard of a mesh holds only part of
+each block, so it runs the entry that stops after the lane fold
+(`jth256_lane_digests`, `chain_digests`), and the mesh combines the
+gathered lane digests with `gpu/kernels/jth256_combine.cu` (`combine`).
 
 Every wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version only for a tensor on the CPU: `row_chain_ref`,
 `chain_digests_ref` (= `row_chain_ref` + `lane_accs`) and `combine_accs`
 (with `fmix`), counterparts of hash_jax.py:57-128. It never falls back
 from the card to the CPU. `device=None` means the card: without one it
-raises.
+raises. `row_chain` (the lane states) is the plain version alone: no
+entry of the kernel writes the states out.
 
 Torch has no right shift on uint32 on the CPU, and a right shift on int32
 keeps the sign, so the torch ops carry words as int64 values in
@@ -24,7 +27,9 @@ the uint32 bits.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -57,13 +62,13 @@ _LAST_FOLD_MODE: str | None = None
 
 
 def last_kernel_mode() -> str | None:
-    """'cuda' | 'torch-cpu' for the most recent row chain (`row_chain` or
-    `chain_digests`), else None."""
+    """'cuda' | 'torch-cpu' for the most recent row chain (`row_chain`,
+    `chain_digests` or `hash_device`), else None."""
     return _LAST_KERNEL_MODE
 
 
 def last_fold_mode() -> str | None:
-    """How the most recent fold ran, else None: 'cuda' (the digests
+    """How the most recent fold ran, else None: 'cuda' (the row chain's
     epilogue or the combine kernel), 'torch-cpu' (the plain versions on
     the CPU) or 'torch-cuda' (a plain `lane_accs`/`combine_accs` given a
     CUDA tensor: only a comparison with the kernels does that)."""
@@ -157,30 +162,20 @@ def row_chain_ref(words_flat: torch.Tensor, m: int, tweak: int = 0,
     return _narrow(s)
 
 
-def _launch_chain(entry: str, words_flat: torch.Tensor, m: int, tweak: int,
-                  lane_offset: int, width: int) -> torch.Tensor:
-    """One launch of the row-chain kernel under `entry` (either epilogue):
-    int32 (L, width) out, counted under jth256_row_chain and `entry`."""
-    global _LAST_KERNEL_MODE
-    if words_flat.device.type != "cuda":
-        raise ValueError(f"{entry} runs on cuda or cpu, not {words_flat.device}")
-    if words_flat.data_ptr() % 16:
+def _cuda_words(words: torch.Tensor, entry: str) -> None:
+    if words.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cuda or cpu, not {words.device}")
+    if words.data_ptr() % 16:
         raise ValueError("words must start on a 16-byte boundary (TMA bulk copies)")
-    n_lanes = words_flat.shape[0]
-    out = torch.empty((n_lanes, width), dtype=torch.int32, device=words_flat.device)
-    if n_lanes:
-        fn = kernels.function(entry)
-        with torch.cuda.device(words_flat.device):
-            stream = torch.cuda.current_stream(words_flat.device).cuda_stream
-            rc = fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
-                    int(lane_offset) & MASK, int(tweak) & MASK, stream)
-        if rc != 0:
-            raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-        kernels.LAUNCHES["jth256_row_chain"] += 1
-        if entry != "jth256_row_chain":
-            kernels.LAUNCHES[entry] += 1
-    _LAST_KERNEL_MODE = "cuda"
-    return out
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_rc(entry: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
 def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0,
@@ -188,16 +183,17 @@ def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0,
     """Row chain: int32 (L, 128, 128) -> int32 (L, 128) lane states, lane l
     hashing as lane `lane_offset + l mod m` of its block.
 
-    A CUDA tensor goes through the hand kernel's states epilogue (one
-    launch, counted in kernels.LAUNCHES); a CPU tensor through
-    `row_chain_ref`. Any other device raises.
+    The plain version on a CPU tensor. No kernel entry writes the states
+    out (the card folds them in the chain's epilogue): a CUDA tensor
+    raises, and `chain_digests` is its kernel path.
     """
     global _LAST_KERNEL_MODE
     _check_words(words_flat, m)
-    if words_flat.device.type == "cpu":
-        _LAST_KERNEL_MODE = "torch-cpu"
-        return row_chain_ref(words_flat, m, tweak, lane_offset)
-    return _launch_chain("jth256_row_chain", words_flat, m, tweak, lane_offset, COLS)
+    if words_flat.device.type != "cpu":
+        raise ValueError(f"row_chain runs on the cpu only, not {words_flat.device}: on "
+                         "the card use chain_digests (the row chain with its lane fold)")
+    _LAST_KERNEL_MODE = "torch-cpu"
+    return row_chain_ref(words_flat, m, tweak, lane_offset)
 
 
 def _fold(s: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
@@ -245,8 +241,19 @@ def chain_digests(words_flat: torch.Tensor, m: int, tweak: int = 0,
     if words_flat.device.type == "cpu":
         _LAST_KERNEL_MODE = "torch-cpu"
         return chain_digests_ref(words_flat, m, tweak, lane_offset)
-    out = _launch_chain("jth256_lane_digests", words_flat, m, tweak, lane_offset, 8)
-    _LAST_FOLD_MODE = "cuda"
+    entry = "jth256_lane_digests"
+    _cuda_words(words_flat, entry)
+    n_lanes = words_flat.shape[0]
+    out = torch.empty((n_lanes, 8), dtype=torch.int32, device=words_flat.device)
+    if n_lanes:
+        fn = kernels.function(entry)
+        with torch.cuda.device(words_flat.device):
+            _check_rc(entry, fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
+                                int(lane_offset) & MASK, int(tweak) & MASK,
+                                _stream(words_flat.device)))
+        kernels.LAUNCHES["jth256_row_chain"] += 1
+        kernels.LAUNCHES[entry] += 1
+    _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
     return out
 
 
@@ -300,11 +307,8 @@ def combine(acc: torch.Tensor, lane_counts: torch.Tensor,
     if b:
         fn = kernels.function("jth256_combine")
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(acc.data_ptr(), counts.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    b, m, stream)
-        if rc != 0:
-            raise RuntimeError(f"jth256_combine launch failed: CUDA error {rc}")
+            _check_rc("jth256_combine", fn(acc.data_ptr(), counts.data_ptr(), lens.data_ptr(),
+                                           out.data_ptr(), b, m, _stream(dev)))
         kernels.LAUNCHES["jth256_combine"] += 1
     _LAST_FOLD_MODE = "cuda"
     return out
@@ -342,12 +346,82 @@ def lane_digests(words: torch.Tensor, tweak: int = 0,
     return d.reshape(b, m, 8)
 
 
+# Arrival counters of the block entry, one zeroed int32 buffer per (card,
+# stream) with its length: every launch leaves its counters at zero, and
+# launches on one stream run in order, so the pipeline's host threads can
+# share a stream's buffer; two streams never share one.
+_ARRIVALS: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+_ARRIVALS_LOCK = threading.Lock()
+
+
+def _arrivals(dev: torch.device, stream: int, n_blocks: int) -> torch.Tensor:
+    """The stream's counters, at least n_blocks of them. A larger batch gets
+    a new zeroed buffer, allocated and zeroed on the same stream, so it is
+    ready only after the launches queued on the old one. Only growth takes
+    the lock: a buffer once published is never changed by the host."""
+    key = (dev.index, stream)
+    held = _ARRIVALS.get(key)
+    if held is not None and held[1] >= n_blocks:
+        return held[0]
+    with _ARRIVALS_LOCK:
+        held = _ARRIVALS.get(key)
+        if held is None or held[1] < n_blocks:
+            size = max(n_blocks, 2 * (0 if held is None else held[1]), 32)
+            held = (torch.zeros(size, dtype=torch.int32, device=dev), size)
+            _ARRIVALS[key] = held
+        return held[0]
+
+
+def _int64_on(a: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`a` as a contiguous int64 tensor on `dev`; itself when it is one."""
+    if a.device == dev and a.dtype == torch.int64 and a.is_contiguous():
+        return a
+    return a.to(device=dev, dtype=torch.int64).contiguous()
+
+
 def hash_device(words: torch.Tensor, lane_counts: torch.Tensor,
                 lengths: torch.Tensor, tweak: int = 0) -> torch.Tensor:
     """Digests of a packed batch already on its device: int32 words
-    (B, M, 128, 128) -> int64 (B, 8) holding the uint32 digest words. Two
-    launches on the card: the row chain with its lane fold, the combine."""
-    return combine(lane_digests(words, tweak), lane_counts, lengths)
+    (B, M, 128, 128) -> int64 (B, 8) holding the uint32 digest words.
+
+    On the card, one launch of the row chain with the lane fold and the
+    combine in its epilogue (counted under jth256_row_chain and
+    jth256_block_digests); on the CPU the plain versions
+    (`combine_accs(chain_digests_ref(...))`). Any other device raises."""
+    global _LAST_KERNEL_MODE, _LAST_FOLD_MODE
+    if words.dim() != 4:
+        raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return combine(lane_digests(words, tweak), lane_counts, lengths)
+    # one pass of checks: this call runs once per hash batch, 214 one-block
+    # batches in a one-writer ingest, so its host time is on the path
+    b, m = words.shape[0], words.shape[1]
+    if words.dtype != torch.int32 or words.shape[2:] != (ROWS, COLS) or m < 1 \
+            or not words.is_contiguous():
+        raise ValueError(f"words must be contiguous int32 (B, M >= 1, {ROWS}, {COLS}), "
+                         f"got {words.dtype} {tuple(words.shape)}")
+    entry = "jth256_block_digests"
+    _cuda_words(words, entry)
+    dev = words.device
+    counts, lens = _int64_on(lane_counts, dev), _int64_on(lengths, dev)
+    if counts.shape != (b,) or lens.shape != (b,):
+        raise ValueError(f"lane_counts and lengths must be ({b},), got "
+                         f"{tuple(counts.shape)} and {tuple(lens.shape)}")
+    out = torch.empty((b, 8), dtype=torch.int64, device=dev)
+    if b:
+        lane_out = torch.empty((b * m, 8), dtype=torch.int32, device=dev)  # scratch
+        fn = kernels.function(entry)
+        switch = dev.index != torch.cuda.current_device()
+        with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+            stream = _stream(dev)
+            arrivals = _arrivals(dev, stream, b)
+            _check_rc(entry, fn(words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(),
+                                lens.data_ptr(), arrivals.data_ptr(), out.data_ptr(), b, m,
+                                int(tweak) & MASK, stream))
+        kernels.LAUNCHES["jth256_row_chain"] += 1
+        kernels.LAUNCHES[entry] += 1
+    _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
+    return out
 
 
 def digests_to_numpy(h: torch.Tensor) -> np.ndarray:

@@ -11,9 +11,11 @@ source is rebuilt and an unchanged one is loaded as it is.
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with `reset_launches()` and reads them afterwards to show
 that a path went through the kernel. `jth256_row_chain` counts every
-launch of the row-chain kernel under either epilogue (states or lane
-digests), `jth256_lane_digests` those of the digests epilogue alone, and
-`jth256_combine` the per-block combine. The gauge
+launch of the row-chain kernel under either entry, `jth256_block_digests`
+those of the entry that also combines each block (a one-card hash batch),
+`jth256_lane_digests` those of the lane-fold entry alone (a lane shard of
+a mesh), and `jth256_combine` the per-block combine kernel that a
+lane-split mesh runs after its gather. The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
 process (a mount's `.stats` or `/metrics`) shows them too.
 """
@@ -38,10 +40,10 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_ext")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_lane_digests": 0,
-                            "jth256_combine": 0}
+LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_block_digests": 0,
+                            "jth256_lane_digests": 0, "jth256_combine": 0}
 # the source file each C entry is built from
-ENTRY_SOURCES = {"jth256_row_chain": "jth256_row_chain",
+ENTRY_SOURCES = {"jth256_block_digests": "jth256_row_chain",
                  "jth256_lane_digests": "jth256_row_chain",
                  "jth256_combine": "jth256_combine"}
 _LAUNCH_GAUGE = global_registry().gauge(
@@ -135,12 +137,14 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-# (words, out, n_lanes, m, lane_offset, tweak, stream)
-_CHAIN_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
 _SIGNATURES = {
-    "jth256_row_chain": _CHAIN_SIGNATURE,
-    "jth256_lane_digests": _CHAIN_SIGNATURE,
+    # (words, out, n_lanes, m, lane_offset, tweak, stream)
+    "jth256_lane_digests": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                            ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
+    # (words, lane_digests, lane_counts, lengths, arrivals, out, n_blocks, m,
+    #  tweak, stream)
+    "jth256_block_digests": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_uint,
+                                                     ctypes.c_uint, ctypes.c_void_p],
     # (accs, lane_counts, lengths, out, n_blocks, m, stream)
     "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
@@ -192,7 +196,9 @@ def load_twin():
     tweak, lane_offset=0)` take int32 (L, 128, 128) words on the CPU and
     return int32 (L, 128) states or (L, 8) digests; `combine(accs,
     lane_counts, lengths)` takes int32 (B, M, 8) digests and int64 counts
-    and lengths and returns int64 (B, 8)."""
+    and lengths and returns int64 (B, 8); `block_digests(words, m,
+    lane_counts, lengths, tweak)` takes int32 (B*M, 128, 128) words and
+    returns int64 (B, 8), as the block entry computes them."""
     from torch.utils.cpp_extension import load
 
     build = os.path.join(REPO_ROOT, "build", "torch_ext", "twin")

@@ -2,11 +2,14 @@
 //
 // Replaces the rest of the program that juicefs_tpu/tpu/hash_jax.py
 // _hash_packed_pallas_impl (hash_jax.py:247) runs after the Pallas row
-// chain: _combine_accs (hash_jax.py:103) and _fmix (:57). Input: the
-// per-lane digests (B, M, 8) uint32 that jth256_row_chain.cu's
-// jth256_lane_digests writes (on a lane-sharded mesh, gathered from every
-// lane shard), int64 lane_counts (B,) and lengths (B,). Output: int64
-// (B, 8) holding the uint32 digest words, the type hash_device returns.
+// chain: _combine_accs (hash_jax.py:103) and _fmix (:57), for a batch whose
+// blocks are split over the lane shards of a mesh. Input: the per-lane
+// digests (B, M, 8) uint32 that jth256_row_chain.cu's jth256_lane_digests
+// writes on each lane shard, gathered in lane order on the data row's lead
+// device, int64 lane_counts (B,) and lengths (B,). Output: int64 (B, 8)
+// holding the uint32 digest words, the type hash_device returns. A batch
+// whose blocks lie whole on one device runs the same combine in the row
+// chain's own epilogue (jth256_block_digests) and never launches this one.
 //
 // Design: one thread per (block b, word k). It runs the combine's
 // sequential chain over the block's live lanes, li < min(lane_counts[b],
@@ -18,8 +21,8 @@
 // 64 B out a block): at the card's memory rate that is well under a
 // microsecond for any batch of the main path, below one launch's latency,
 // so the kernel's time is its launch and its dependent chain of at most
-// 64 steps. It exists to replace the ~800 small torch launches of the
-// plain fold with one.
+// 64 steps. It replaces the ~800 small torch launches of the plain fold
+// with one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

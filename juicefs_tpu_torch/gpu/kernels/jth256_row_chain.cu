@@ -1,24 +1,28 @@
 // JTH-256 row chain on Hopper (sm_90a), hand-written CUDA C++, with two
-// epilogues: the lane states, or the lane fold.
+// epilogues: the lane fold alone, or the lane fold and the per-block
+// combine in one launch.
 //
 // Replaces the Pallas kernel juicefs_tpu/tpu/hash_jax.py _pallas_row_chain
-// (pl.pallas_call at hash_jax.py:228) and, under the second entry, the
-// per-lane half of the fold that the TPU program runs after it in the same
-// compiled program (_lane_accs, hash_jax.py:88):
-//   jth256_row_chain:   words (L, 128, 128) uint32 -> (L, 128) lane states
-//   jth256_lane_digests: words (L, 128, 128) uint32 -> (L, 8) lane digests
-// L = B*M lanes of 64 KiB. Lane l runs with the lane index lane_offset +
-// l mod m (uint32 arithmetic), as _lane_states(words, lane_offset) and
-// _lane_accs(s, lane_offset) do: a device that holds lanes [lane_offset,
-// lane_offset + m) of each block passes its offset so that its lanes hash
-// with their global indices. `tweak` is xor'ed into every word as it is
-// read, so a timing loop can vary it without an extra copy of the batch.
-// The per-block combine is jth256_combine.cu.
+// (pl.pallas_call at hash_jax.py:228) and the fold the TPU program runs
+// after it in the same compiled program: _lane_accs (hash_jax.py:88) under
+// both entries, and _combine_accs (:103) with _fmix (:57) under the second:
+//   jth256_lane_digests:  words (L, 128, 128) uint32 -> (L, 8) lane digests
+//   jth256_block_digests: words (B*M, 128, 128) uint32 -> (B, 8) digests
+// L = B*M lanes of 64 KiB, M lanes a block. Lane l runs with the lane index
+// lane_offset + l mod m (uint32 arithmetic), as _lane_states(words,
+// lane_offset) and _lane_accs(s, lane_offset) do: a device that holds lanes
+// [lane_offset, lane_offset + m) of each block passes its offset so that its
+// lanes hash with their global indices, and a lane-split mesh combines the
+// gathered lane digests with jth256_combine.cu. A batch whose blocks lie
+// whole on one device takes jth256_block_digests: one launch a hash batch.
+// `tweak` is xor'ed into every word as it is read, so a timing loop can vary
+// it without an extra copy of the batch.
 //
 // What bounds it: every input word is read once and takes ~9 integer
 // operations, so both entries are bound by device-memory bytes: the input
-// plus 512 B of states a lane, or plus 32 B of digests a lane, at the
-// card's memory rate (1 GiB of words per 16384 lanes).
+// plus 32 B of digests a lane written (and, for the block entry, read back
+// once) plus 64 B a block out, at the card's memory rate (1 GiB of words
+// per 16384 lanes).
 //
 // What held the first design back: one CTA per lane, each thread loading
 // its column 8 rows ahead with __ldg, kept 4 KiB a CTA in flight. A
@@ -45,10 +49,36 @@
 // -DJTH256_STAGES=n (1-8) sets another ring for such a sweep
 // (chip_smoke.py --compare-row-chain . --compare-define JTH256_STAGES=n).
 //
-// The digests epilogue writes the 128 column states to shared memory;
-// after one __syncthreads, 8 threads each run the 16 fold steps of their
-// k (column gi*8 + k) and write the lane's 8 digest words: 32 B a lane
-// leave the kernel instead of 512.
+// The lane fold: the 128 column states go to shared memory; after one
+// __syncthreads, 8 threads each run the 16 fold steps of their k (column
+// gi*8 + k) and write the lane's 8 digest words: 32 B a lane leave the
+// chain instead of 512.
+//
+// The combine, in the block entry: the combine is a sequential chain over
+// a block's lanes, so it needs every lane digest of the block, and a block
+// is M = 64 CTAs (4 MiB). On a TPU the program's next stage reads them; on
+// Hopper no CTA can wait for the others (they are not all resident, and
+// nothing orders them), and a thread-block cluster holds at most 16 CTAs
+// (8 portable), so distributed shared memory cannot hold a block's lanes.
+// The handoff goes through L2 instead: each lane CTA writes its digests,
+// fences them (release, one thread after a CTA barrier) and takes a ticket
+// from the block's arrival counter; the CTA that draws the last ticket
+// (M - 1) fences (acquire),
+// reads the block's live lane digests from L2 (__ldcg, not through L1)
+// into the ring it no longer needs, in one coalesced pass, and 8 threads
+// run the combine chain (jth256::finish_word, min(lane_counts[b], M)
+// lanes), the length mix and fmix. It then sets the counter back to 0, so
+// the counters are zero for the next launch on the stream (the wrapper
+// keeps one zeroed counter buffer per stream). Every lane of a block
+// arrives, dead padding lanes too: the combine masks by count, not by
+// arrivals. The extra work falls on one CTA a block, the ticket's round
+// trip, 2 KiB from L2 and a 64-step dependent chain, and overlaps the
+// other blocks' chains except on the last wave. That replaces a second
+// launch (jth256_combine, ~4 us queued) and its host call. Measured on an
+// H100 (PERF.md section 6) the tail costs ~3 us on a one-block batch, all
+// of it serial on the last CTA; unrolling the chain, acquire-release
+// instead of sequentially consistent fences and loading each block's count
+// and length while the chain runs each took a few percent off it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,14 +141,29 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-template <bool kDigests>
+// A gpu-scope acquire-release fence: lighter than __threadfence() (a
+// sequentially consistent fence), and all the arrival handoff needs.
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// The block entry's extra arguments (unused by the lane-digests entry).
+struct BlockArgs {
+  const long long* lane_counts;  // (B,) live lanes of each block
+  const long long* lengths;      // (B,) byte length of each block
+  unsigned int* arrivals;        // (>= B,) zero at launch, zero at exit
+  long long* out;                // (B, 8) digest words
+};
+
+template <bool kBlocks>
 __global__ void __launch_bounds__(jth256::kCols)
 row_chain_kernel(const uint32_t* __restrict__ words,
-                 uint32_t* __restrict__ out, uint32_t m,
-                 uint32_t lane_offset, uint32_t tweak) {
+                 uint32_t* __restrict__ lane_out, uint32_t m,
+                 uint32_t lane_offset, uint32_t tweak, BlockArgs blk) {
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ uint32_t states[jth256::kCols];
+  __shared__ uint32_t is_last, block_live, block_len;
   const long long lane = blockIdx.x;
   const uint32_t col = threadIdx.x;
   const uint8_t* src = reinterpret_cast<const uint8_t*>(words) + lane * kLaneBytes;
@@ -133,6 +178,14 @@ row_chain_kernel(const uint32_t* __restrict__ words,
       mbar_expect_tx(&full[c], kStageBytes);
       bulk_load(ring + c * kStageBytes, src + c * kStageBytes, kStageBytes, &full[c]);
     }
+  }
+
+  // the block's count and length, loaded while the chain runs, so that the
+  // last lane to arrive does not wait on device memory for them
+  long long count = 0, length = 0;
+  if (kBlocks && col == 0) {
+    count = blk.lane_counts[lane / m];
+    length = blk.lengths[lane / m];
   }
 
   const uint32_t lane_idx = lane_offset + static_cast<uint32_t>(lane % m);
@@ -157,33 +210,62 @@ row_chain_kernel(const uint32_t* __restrict__ words,
     }
   }
 
-  if constexpr (kDigests) {
-    states[col] = s;
+  // the lane fold; the barrier also retires the ring (every chunk consumed)
+  states[col] = s;
+  __syncthreads();
+  if (col < jth256::kDigestWords) {
+    uint32_t acc = jth256::fold_seed(lane_idx, col);
+#pragma unroll
+    for (uint32_t gi = 0; gi < jth256::kGroups; ++gi) {
+      acc = jth256::fold_step(acc, states[gi * jth256::kDigestWords + col], gi);
+    }
+    lane_out[lane * jth256::kDigestWords + col] = acc;
+  }
+  if constexpr (kBlocks) {
+    const long long b = lane / m;
+    __syncthreads();  // the lane's words are written (CTA scope)
+    if (col == 0) {
+      // release: the fence is cumulative over the writes the barrier
+      // ordered before it, so the ticket publishes the lane's words
+      fence_acq_rel_gpu();
+      is_last = atomicAdd(&blk.arrivals[b], 1u) == m - 1;
+      if (is_last) fence_acq_rel_gpu();  // acquire: every lane's words
+      block_live = count <= 0 ? 0u : (count >= m ? m : static_cast<uint32_t>(count));
+      block_len = static_cast<uint32_t>(length);
+    }
+    __syncthreads();
+    if (!is_last) return;
+    const uint32_t live = block_live;
+    const uint32_t* block_src = lane_out + b * m * jth256::kDigestWords;
+    uint32_t* stage = reinterpret_cast<uint32_t*>(ring);
+    for (uint32_t i = col; i < live * jth256::kDigestWords; i += jth256::kCols) {
+      stage[i] = __ldcg(block_src + i);
+    }
     __syncthreads();
     if (col < jth256::kDigestWords) {
-      uint32_t acc = jth256::fold_seed(lane_idx, col);
-#pragma unroll
-      for (uint32_t gi = 0; gi < jth256::kGroups; ++gi) {
-        acc = jth256::fold_step(acc, states[gi * jth256::kDigestWords + col], gi);
-      }
-      out[lane * jth256::kDigestWords + col] = acc;
+      blk.out[b * jth256::kDigestWords + col] = static_cast<long long>(
+          jth256::finish_word(stage, jth256::kDigestWords, live, block_len, col));
     }
-  } else {
-    out[lane * jth256::kCols + col] = s;
+    if (col == 0) blk.arrivals[b] = 0;  // zero again for the next launch
   }
 }
 
-template <bool kDigests>
-int launch(const void* words, void* out, long long n_lanes, unsigned int m,
-           unsigned int lane_offset, unsigned int tweak, void* stream) {
+template <bool kBlocks>
+int launch(const void* words, void* lane_out, long long n_lanes, unsigned int m,
+           unsigned int lane_offset, unsigned int tweak, BlockArgs blk, void* stream) {
+  constexpr int smem = kStages * kStageBytes;
   if (n_lanes <= 0 || n_lanes > 0x7FFFFFFFLL || m == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the block entry stages a block's lane digests in the ring
+  if (kBlocks && (n_lanes % m != 0 ||
+                  static_cast<long long>(m) * jth256::kDigestWords * 4 > smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(words) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
   }
-  auto kernel = row_chain_kernel<kDigests>;
-  constexpr int smem = kStages * kStageBytes;
+  auto kernel = row_chain_kernel<kBlocks>;
   if (smem > 48 * 1024) {
     // above 48 KiB a CTA's dynamic shared memory must be allowed per
     // function on the current device; setting it on each such launch
@@ -194,8 +276,8 @@ int launch(const void* words, void* out, long long n_lanes, unsigned int m,
   }
   kernel<<<static_cast<unsigned int>(n_lanes), jth256::kCols, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), m,
-      lane_offset, tweak);
+      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(lane_out), m,
+      lane_offset, tweak, blk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -205,18 +287,30 @@ int launch(const void* words, void* out, long long n_lanes, unsigned int m,
 // return the cudaError_t of the launch (0 on success); the wrapper raises
 // on any other value. They do not synchronise.
 
-// (L, 128) uint32 lane states.
-extern "C" int jth256_row_chain(const void* words, void* out,
-                                long long n_lanes, unsigned int m,
-                                unsigned int lane_offset, unsigned int tweak,
-                                void* stream) {
-  return launch<false>(words, out, n_lanes, m, lane_offset, tweak, stream);
-}
-
 // (L, 8) uint32 per-lane digests (the lane fold of the states).
 extern "C" int jth256_lane_digests(const void* words, void* out,
                                    long long n_lanes, unsigned int m,
                                    unsigned int lane_offset,
                                    unsigned int tweak, void* stream) {
-  return launch<true>(words, out, n_lanes, m, lane_offset, tweak, stream);
+  return launch<false>(words, out, n_lanes, m, lane_offset, tweak, BlockArgs{},
+                       stream);
+}
+
+// (B, 8) int64 block digests of n_blocks whole blocks of m lanes: the lane
+// fold into `lane_digests` (int32 (B*m, 8) scratch), then the combine by
+// the last lane of each block to arrive. `arrivals` holds >= n_blocks
+// uint32 counters that are zero at the launch and zero again after it.
+extern "C" int jth256_block_digests(const void* words, void* lane_digests,
+                                    const void* lane_counts, const void* lengths,
+                                    void* arrivals, void* out, long long n_blocks,
+                                    unsigned int m, unsigned int tweak,
+                                    void* stream) {
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL / (m ? m : 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BlockArgs blk{static_cast<const long long*>(lane_counts),
+                      static_cast<const long long*>(lengths),
+                      static_cast<unsigned int*>(arrivals),
+                      static_cast<long long*>(out)};
+  return launch<true>(words, lane_digests, n_blocks * m, m, 0u, tweak, blk, stream);
 }

@@ -116,6 +116,9 @@ __host__ __device__ inline uint32_t finish_word(const uint32_t* d,
                                                 uint32_t live, uint32_t len,
                                                 uint32_t k) {
   uint32_t h = iv(k);
+#ifdef __CUDA_ARCH__
+#pragma unroll 8  // loads of the next lanes issue ahead of the dependent chain
+#endif
   for (uint32_t li = 0; li < live; ++li) {
     h = combine_step(h, d[li * stride + k], li);
   }

@@ -1,7 +1,9 @@
-// CPU twin of jth256_row_chain.cu (both epilogues) and jth256_combine.cu:
+// CPU twin of jth256_row_chain.cu (both entries) and jth256_combine.cu:
 // the same per-lane chain, lane fold and combine, built with g++ from the
 // same jth256_step.cuh, so the CPU tests can hold the arithmetic the card
-// runs against the JAX package (no nvcc is needed to build it).
+// runs against the JAX package (no nvcc is needed to build it). row_chain
+// returns the chain's states, which neither entry writes out: it checks
+// the row steps alone.
 #include <torch/extension.h>
 
 #include "jth256_step.cuh"
@@ -106,6 +108,17 @@ torch::Tensor combine(torch::Tensor accs, torch::Tensor lane_counts,
   return out;
 }
 
+// jth256_block_digests: the lane digests of B whole blocks of m lanes, then
+// each block's combine over its live lanes (finish_word), in that order.
+torch::Tensor block_digests(torch::Tensor words, int64_t m, torch::Tensor lane_counts,
+                            torch::Tensor lengths, int64_t tweak) {
+  check_words(words, m);
+  TORCH_CHECK(words.size(0) % m == 0, "words must hold whole blocks of m lanes");
+  auto accs = lane_digests(words, m, tweak, 0);
+  return combine(accs.view({words.size(0) / m, m, jth256::kDigestWords}), lane_counts,
+                 lengths);
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("row_chain", &row_chain, "JTH-256 row chain on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("tweak"),
@@ -117,4 +130,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("combine", &combine, "JTH-256 per-block combine on the CPU (twin)",
           pybind11::arg("accs"), pybind11::arg("lane_counts"),
           pybind11::arg("lengths"));
+  mod.def("block_digests", &block_digests,
+          "JTH-256 row chain, lane fold and combine of whole blocks on the CPU (twin)",
+          pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("lane_counts"),
+          pybind11::arg("lengths"), pybind11::arg("tweak") = 0);
 }

@@ -11,7 +11,10 @@ devices:
         kernel and the lane fold on its own lanes with a global lane
         offset, then the per-lane digests (B x M x 8 words) of a data row
         are copied, in lane order, to the row's lead device (the
-        all_gather over "lane"), which runs the sequential combine.
+        all_gather over "lane"), which runs the sequential combine. A
+        mesh whose lane extent is 1 holds whole blocks on each device, so
+        each data row hashes as one card does: one launch, the combine in
+        the row chain's epilogue.
 
 Only digest- and histogram-sized tensors cross devices, ~1/2048 of the
 bytes hashed. Every consumer of the card enters through this seam: the
@@ -39,10 +42,11 @@ Degrade ladder (never an error):
                                         counted
 
 The one-device path is the plain `hash_torch.hash_device` on tensors
-uploaded once: the same upload and the same two launches (row chain with
-its lane fold, combine) as without a plane. On a mesh each device runs
-the row chain with its lane fold over its lane shard, and each data
-row's lead device the combine over the gathered per-lane digests.
+uploaded once: the same upload and the same one launch (the row chain
+with the lane fold and the combine in its epilogue) as without a plane.
+On a mesh with lane extent > 1 each device runs the row chain with its
+lane fold over its lane shard, and each data row's lead device the
+combine over the gathered per-lane digests.
 
 Ragged batches pad B up to the data-axis extent by repeating the last
 block (pad rows can only mark themselves as duplicates); outputs are
@@ -238,14 +242,17 @@ def _lane_gather(mesh: Mesh, words: ShardedTensor, tweak: int) -> list[torch.Ten
 def _hash_body(mesh: Mesh, words: ShardedTensor, lane_counts: ShardedTensor,
                lengths: ShardedTensor, tweak: int = 0) -> torch.Tensor:
     """Digests of a placed batch, gathered over data on the home device:
-    int64 (B, 8). The combine masks by the global lane counts, so it runs
-    only after the lane gather: one `jth256_combine` launch per data row,
-    on the row's lead device."""
-    rows = []
-    for d, acc in enumerate(_lane_gather(mesh, words, tweak)):
-        h = combine(acc, lane_counts.shards[d][0], lengths.shards[d][0])
-        rows.append(h.to(mesh.home, non_blocking=True))
-    return torch.cat(rows, 0)
+    int64 (B, 8). With one lane shard a data row holds whole blocks: one
+    `hash_device` launch per data row. Otherwise the combine masks by the
+    global lane counts, so it runs only after the lane gather: one
+    `jth256_combine` launch per data row, on the row's lead device."""
+    if mesh.shape["lane"] == 1:
+        rows = [hash_device(row[0], lane_counts.shards[d][0], lengths.shards[d][0], tweak)
+                for d, row in enumerate(words.shards)]
+    else:
+        rows = [combine(acc, lane_counts.shards[d][0], lengths.shards[d][0])
+                for d, acc in enumerate(_lane_gather(mesh, words, tweak))]
+    return torch.cat([h.to(mesh.home, non_blocking=True) for h in rows], 0)
 
 
 def _scan_body(mesh: Mesh, words, lane_counts, lengths, tweak: int = 0):

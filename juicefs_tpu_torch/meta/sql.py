@@ -2365,7 +2365,11 @@ class SQLMeta(BaseMeta):
     # backend loads into this relational engine and vice versa, which is
     # the reference's "engine migration via dump/load" capability
     # (pkg/meta/dump.go). These two methods are pure FORMAT converters;
-    # no engine logic is shared.
+    # no engine logic is shared. Unlike the reference's, they carry the
+    # content-ref plane too (H/G records and the hotfp blob, byte for byte
+    # as the kv engine keys them), so a dump -> load of an inline-dedup
+    # volume keeps its aliases; the reference's sql import skips those
+    # records and its kv import stores them as they are.
 
     def export_kv_records(self) -> Iterator[tuple[bytes, bytes]]:
         import struct as _s
@@ -2380,6 +2384,24 @@ class SQLMeta(BaseMeta):
             row = cur.execute("SELECT value FROM setting WHERE name='format'").fetchone()
             if row:
                 recs.append((b"setting", bytes(row[0])))
+            row = cur.execute("SELECT value FROM setting WHERE name='hotfp'").fetchone()
+            if row:
+                recs.append((b"hotfp", bytes(row[0])))
+            for digest, sid, indx, bsize, refs in cur.execute(
+                "SELECT digest, sliceid, indx, bsize, refs FROM contentref"
+            ):
+                recs.append((
+                    b"H" + bytes(digest),
+                    sid.to_bytes(8, "big") + indx.to_bytes(4, "big")
+                    + bsize.to_bytes(4, "big") + _s.pack(">q", refs),
+                ))
+            for sid, indx, digest, bsize, created in cur.execute(
+                "SELECT sliceid, indx, digest, bsize, created FROM contentalias"
+            ):
+                recs.append((
+                    b"G" + sid.to_bytes(8, "big") + indx.to_bytes(4, "big"),
+                    bytes(digest) + _s.pack(">I", bsize) + _s.pack(">d", created),
+                ))
             for name, value in cur.execute("SELECT name, value FROM counter"):
                 recs.append((b"C" + name.encode(),
                              int(value).to_bytes(8, "big", signed=True)))
@@ -2501,6 +2523,24 @@ class SQLMeta(BaseMeta):
                     cur.execute(
                         "INSERT OR REPLACE INTO setting (name, value) "
                         "VALUES ('format', ?)", (v,))
+                elif k == b"hotfp":
+                    cur.execute(
+                        "INSERT OR REPLACE INTO setting (name, value) "
+                        "VALUES ('hotfp', ?)", (v,))
+                elif k.startswith(b"H"):
+                    cur.execute(
+                        "INSERT OR REPLACE INTO contentref "
+                        "(digest,sliceid,indx,bsize,refs) VALUES (?,?,?,?,?)",
+                        (k[1:], int.from_bytes(v[:8], "big"),
+                         int.from_bytes(v[8:12], "big"),
+                         int.from_bytes(v[12:16], "big"), _s.unpack_from(">q", v, 16)[0]))
+                elif k.startswith(b"G"):
+                    cur.execute(
+                        "INSERT OR REPLACE INTO contentalias "
+                        "(sliceid,indx,digest,bsize,created) VALUES (?,?,?,?,?)",
+                        (int.from_bytes(k[1:9], "big"), int.from_bytes(k[9:13], "big"),
+                         v[:32], _s.unpack_from(">I", v, 32)[0],
+                         _s.unpack_from(">d", v, 36)[0] if len(v) >= 44 else 0.0))
                 elif k.startswith(b"QD"):
                     sl, il, us, ui = _s.unpack(">qqqq", v)
                     cur.execute(

@@ -50,6 +50,11 @@ import contextlib
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips with its reason on a host without one")
+
+
 @pytest.fixture(autouse=True)
 def lockwatch_guard():
     """Fail any test during which the lock watchdog recorded a new

@@ -1213,11 +1213,16 @@ def _warmup_volume(tmp_path):
 def test_warmup_through_both_clis_fetches_the_same_blocks(tmp_path, monkeypatch, capsys):
     """`warmup META / --cache-group wg --group-self A` through the port's
     CLI and the reference's, on one volume whose members are published in
-    its sessions: both fetch exactly the blocks the ring gives A, PUT-
-    elided ones through their canonical objects, and print the same line;
-    the port's fill lands in its --cache-dir, and nothing ran on a device."""
+    its sessions, print the same line. The reference fetches the blocks the
+    ring gives A, PUT-elided ones through their canonical objects; the port
+    goes by the key a block's bytes live under, so it fetches once each
+    stored object the ring gives A, a canonical shared by elided blocks
+    included, and caches it under that key alone. The fill lands in the
+    port's --cache-dir, and nothing ran on a device."""
     from juicefs_tpu import cmd as ref_cmd
     from juicefs_tpu.cache import HashRing as RefHashRing
+    from juicefs_tpu.chunk import ContentRefs as RefContentRefs
+    from juicefs_tpu.meta import new_client as ref_new_client
     from juicefs_tpu.object.file import FileStorage as RefFileStorage
     from juicefs_tpu_torch import cmd
     from juicefs_tpu_torch.gpu import kernels
@@ -1237,6 +1242,15 @@ def test_warmup_through_both_clis_fetches_the_same_blocks(tmp_path, monkeypatch,
     ring.rebuild(members)
     owned = {k for k in keys if ring.owner(k) == "10.9.0.1:7000"}
     assert 0 < len(owned) < len(keys)
+    m = ref_new_client(meta_url)
+    try:
+        refs = RefContentRefs(m)
+        stored_as = {k: refs.resolve(k) or k for k in keys}
+    finally:
+        m.client.close()
+    assert len(set(stored_as.values())) == len(keys) - _elided
+    objects = {c for c in stored_as.values() if ring.owner(c) == "10.9.0.1:7000"}
+    assert 0 < len(objects) < len(keys) - _elided
 
     fetched: dict = {"port": [], "ref": []}
 
@@ -1264,28 +1278,33 @@ def test_warmup_through_both_clis_fetches_the_same_blocks(tmp_path, monkeypatch,
             m.client.close()
     assert port_out == ref_out == \
         f"warmed 1 files / {len(keys)} slices (ring shard of group 'wg')\n"
-    assert sorted(fetched["port"]) == sorted(fetched["ref"])
-    # each owned block fetched once: its own object, or its canonical's
-    assert len(fetched["port"]) == len(owned)
+    # the reference: each owned block once, its own object or its canonical
+    assert sorted(fetched["ref"]) == sorted("warm/" + stored_as[k] for k in owned)
+    # the port: each stored object A owns once
+    assert sorted(fetched["port"]) == sorted("warm/" + c for c in objects)
     assert dict(kernels.LAUNCHES) == launches0
     # the fill landed in the port's --cache-dir: a store over it holds
-    # exactly the owned blocks, elided ones included
+    # exactly those objects, under their own keys
     store = CachedStore(create_storage("mem://"), ChunkConfig(
         block_size=1 << 20, cache_dirs=(str(tmp_path / "cache"),)))
     try:
         cached = {k for k in keys if store.cache.load(k, count_miss=False) is not None}
     finally:
         store.close()
-    assert cached == owned
+    assert cached == objects
 
 
 def test_warmup_needs_no_card_whatever_the_hash_backend(tmp_path, capsys):
     """Warmup moves blocks and hashes none: on a host with no card it warms
     a volume whose hash backend is a device one (set by the reference's
     `config`, which does not probe a card), PUT-elided blocks included,
-    into the cache dir it is given."""
+    into the cache dir it is given: each stored object is cached under its
+    own key, and a store over that dir with the volume's content-ref plane
+    and an empty backend serves every block, an elided one through its
+    canonical's entry."""
     from juicefs_tpu import cmd as ref_cmd
     from juicefs_tpu_torch import cmd
+    from juicefs_tpu_torch.chunk import ContentRefs
 
     meta_url, keys, _elided = _warmup_volume(tmp_path)
     assert ref_cmd.main(["config", meta_url, "--hash-backend", "pallas"]) == 0
@@ -1294,7 +1313,17 @@ def test_warmup_needs_no_card_whatever_the_hash_backend(tmp_path, capsys):
     assert capsys.readouterr().out == f"warmed 1 files / {len(keys)} slices\n"
     store = CachedStore(create_storage("mem://"), ChunkConfig(
         block_size=1 << 20, cache_dirs=(str(tmp_path / "wc"),)))
+    m = new_client(meta_url)
+    m.load()
+    store.content_refs = ContentRefs(m)
     try:
-        assert all(store.cache.load(k, count_miss=False) is not None for k in keys)
+        stored_as = {store.content_refs.resolve(k) or k for k in keys}
+        assert len(stored_as) == len(keys) - _elided
+        assert all(store.cache.load(k, count_miss=False) is not None
+                   for k in stored_as)
+        for k in keys:
+            bsize = int(k.rsplit("_", 1)[1])
+            assert len(store._load_block(k, bsize)) == bsize
     finally:
         store.close()
+        m.client.close()

@@ -473,18 +473,30 @@ def test_compressor_thread_safety(algo):
 
 def test_multi_block_read_parallel():
     """Cold-cache multi-block reads fan out over the download pool
-    with per-GET latency L and B blocks, wall time must be
-    far below the serial B*L (reference reader.go:160 async workers)."""
+    (reference reader.go:160 async workers): with max_download=8 and 8
+    cold blocks, at least 4 GETs are in flight at once, and the bytes
+    read back are the bytes written. Counted, not timed, so host load
+    cannot fail it."""
+    import threading as _threading
     import time as _time
 
     from juicefs_tpu_torch.object.mem import MemStorage
 
     DELAY, BS, NBLOCKS = 0.03, 1 << 18, 8
+    lock = _threading.Lock()
+    inflight = [0, 0]  # now, most
 
     class SlowMem(MemStorage):
         def get(self, key, off=0, size=-1):
-            _time.sleep(DELAY)
-            return super().get(key, off, size)
+            with lock:
+                inflight[0] += 1
+                inflight[1] = max(inflight[1], inflight[0])
+            try:
+                _time.sleep(DELAY)
+                return super().get(key, off, size)
+            finally:
+                with lock:
+                    inflight[0] -= 1
 
     store = CachedStore(SlowMem(), ChunkConfig(block_size=BS, max_download=8))
     data = os.urandom(BS * NBLOCKS)
@@ -493,12 +505,9 @@ def test_multi_block_read_parallel():
     w.finish(len(data))
     store.evict_cache(77, len(data))  # force cold cache
 
-    t0 = _time.perf_counter()
     got = store.new_reader(77, len(data)).read(0, len(data))
-    wall = _time.perf_counter() - t0
     assert got == data
-    serial = NBLOCKS * DELAY
-    assert wall < serial / 2, f"read took {wall:.3f}s, serial would be {serial:.3f}s"
+    assert inflight[1] >= 4, f"at most {inflight[1]} GETs in flight"
 
 
 def test_disk_cache_checksum_detects_bitrot(tmp_path):

@@ -154,7 +154,7 @@ def test_no_gpu_means_raise_never_cpu(monkeypatch, tmp_path):
     assert ht.last_kernel_mode() is None and ht.last_fold_mode() is None
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
-    for entry in ("jth256_lane_digests", "jth256_combine", "jth256_row_chain"):
+    for entry in ("jth256_block_digests", "jth256_lane_digests", "jth256_combine"):
         if entry not in kernels._fns:
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 kernels.function(entry)

@@ -1,5 +1,6 @@
-"""The hash batch's two kernels (the row chain's lane-digests epilogue and
-the combine) against hash_jax, bit for bit, on the CPU.
+"""The hash kernels (the row chain's block-digests and lane-digests
+entries, and the combine of a lane-split mesh) against hash_jax, bit for
+bit, on the CPU.
 
 The kernels' arithmetic is `jth256_step.cuh`, which the g++ twin
 (`kernels.load_twin()`) builds here from the same source nvcc builds on
@@ -193,12 +194,112 @@ def test_wrappers_validate_input():
 
 
 def test_kernel_entries_have_sources_and_signatures():
-    assert set(kernels.ENTRY_SOURCES) == {"jth256_row_chain", "jth256_lane_digests",
+    """The live C entries, each in its source with a ctypes signature; the
+    row chain's states entry is gone."""
+    assert set(kernels.ENTRY_SOURCES) == {"jth256_block_digests", "jth256_lane_digests",
                                           "jth256_combine"}
+    assert set(kernels._SIGNATURES) == set(kernels.ENTRY_SOURCES)
     for src in set(kernels.ENTRY_SOURCES.values()):
         with open(f"{kernels.KERNEL_DIR}/{src}.cu") as f:
             text = f.read()
         for entry, s in kernels.ENTRY_SOURCES.items():
             if s == src:
                 assert f'extern "C" int {entry}(' in text
-    assert {"jth256_row_chain", "jth256_lane_digests", "jth256_combine"} <= set(kernels.LAUNCHES)
+        assert 'extern "C" int jth256_row_chain(' not in text
+    assert set(kernels.LAUNCHES) == {"jth256_row_chain", "jth256_block_digests",
+                                     "jth256_lane_digests", "jth256_combine"}
+
+
+# (B, M): one and three blocks of 1, 2 and 64 lanes
+BLOCK_CASES = [(1, 1), (3, 1), (1, 2), (3, 2), (1, 64), (3, 64)]
+
+
+def _block_inputs(seed, b, m):
+    """Packed words (B, M, 128, 128) with dead lanes past the counts and
+    lengths 0, 1 and 4 MiB - 1."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(b, m, 128, 128), dtype=np.uint32)
+    counts = rng.integers(1, m + 1, size=b).astype(np.int32)
+    counts[0] = max(1, m - 1)
+    lengths = np.array([(0, 1, 64 * LANE - 1)[i % 3] for i in range(b)], dtype=np.uint32)
+    return words, counts, lengths
+
+
+@pytest.mark.parametrize("tweak", [0, 0x5BD1E995])
+@pytest.mark.parametrize("b,m", BLOCK_CASES)
+def test_twin_block_digests_match_pallas_and_xla(twin, b, m, tweak):
+    """The block entry's arithmetic (lane digests, then the combine of each
+    block over its live lanes) and `hash_device` on a CPU tensor equal
+    `hash_packed_pallas` in interpret mode and `hash_packed_jax` (over the
+    tweaked words), exactly."""
+    words, counts, lengths = _block_inputs(80 + 7 * b + m + tweak % 5, b, m)
+    want = np.asarray(hj.hash_packed_pallas(words, counts, lengths, interpret=True,
+                                            tweak=jnp.asarray([tweak], dtype=jnp.uint32)))
+    assert np.array_equal(want, np.asarray(hj.hash_packed_jax(
+        words ^ np.uint32(tweak), counts, lengths)))
+    t_counts = torch.from_numpy(counts.astype(np.int64))
+    t_lengths = torch.from_numpy(lengths.astype(np.int64))
+    got = twin.block_digests(_t(words.reshape(b * m, 128, 128)), m, t_counts, t_lengths, tweak)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (b, 8)
+    assert np.array_equal(_u32(got), want)
+    before = dict(kernels.LAUNCHES)
+    plain = ht.hash_device(_t(words), t_counts, t_lengths, tweak)
+    assert dict(kernels.LAUNCHES) == before  # the plain version: no launch
+    assert plain.dtype == torch.int64 and np.array_equal(_u32(plain), want)
+
+
+def test_arrival_counters_are_per_stream_and_grow_zeroed():
+    """The block entry's counter workspace: one buffer per (device,
+    stream), the same buffer while a batch fits, a new zeroed and larger
+    one when it does not."""
+    ht._ARRIVALS.clear()
+    try:
+        a = ht._arrivals(CPU, 11, 5)
+        assert a.dtype == torch.int32 and a.numel() >= 5 and not a.any()
+        assert ht._arrivals(CPU, 11, a.numel()) is a
+        other = ht._arrivals(CPU, 12, 5)
+        assert other is not a
+        big = ht._arrivals(CPU, 11, a.numel() + 1)
+        assert big is not a and big.numel() > a.numel() and not big.any()
+        assert ht._arrivals(CPU, 11, 3) is big and ht._arrivals(CPU, 12, 3) is other
+    finally:
+        ht._ARRIVALS.clear()
+
+
+def test_hash_device_validates_input():
+    ok = torch.zeros((2, 1, 128, 128), dtype=torch.int32)
+    ones = torch.ones(2, dtype=torch.int64)
+    with pytest.raises(ValueError):  # a flat (L, 128, 128) tensor is not a batch
+        ht.hash_device(ok.reshape(2, 128, 128), ones, ones)
+    with pytest.raises(ValueError):  # neither cuda nor cpu: never guessed
+        ht.hash_device(torch.empty((2, 1, 128, 128), dtype=torch.int32, device="meta"),
+                       ones, ones)
+    with pytest.raises(ValueError):  # the states entry is gone from the card
+        ht.row_chain(torch.empty((2, 128, 128), dtype=torch.int32, device="meta"), 1)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the block entry is CUDA C++ with no CPU mode "
+                    "(its arithmetic is held above through the g++ twin)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_hash_device_is_one_launch_on_the_card(card):
+    """On the card a hash batch is one launch of the block entry, equal to
+    the plain version on the same words, and the counters stay zeroed (a
+    second launch on the stream gives the same digests)."""
+    words, counts, lengths = _block_inputs(97, 3, 64)
+    t_counts = torch.from_numpy(counts.astype(np.int64))
+    t_lengths = torch.from_numpy(lengths.astype(np.int64))
+    want = ht.hash_device(_t(words), t_counts, t_lengths)
+    dev_words = _t(words).to(card)
+    kernels.reset_launches()
+    got = ht.hash_device(dev_words, t_counts.to(card), t_lengths.to(card))
+    again = ht.hash_device(dev_words, t_counts.to(card), t_lengths.to(card))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 2,
+                                "jth256_lane_digests": 0, "jth256_combine": 0}
+    assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)

@@ -47,13 +47,19 @@ BS = 1 << 18  # 256 KiB blocks = 4 lanes
 
 
 class CountingStore:
-    """Backend wrapper recording PUT/DELETE keys (counter-assertions)."""
+    """Backend wrapper recording PUT/DELETE/GET keys (counter-assertions)."""
 
     def __init__(self, inner):
         self._inner = inner
         self.put_keys: list[str] = []
         self.deleted: list[str] = []
+        self.get_keys: list[str] = []
         self.lock = threading.Lock()
+
+    def get(self, key, off=0, limit=-1):
+        with self.lock:
+            self.get_keys.append(key)
+        return self._inner.get(key, off, limit)
 
     def put(self, key, data):
         with self.lock:
@@ -139,6 +145,81 @@ def test_duplicate_puts_elided_and_readback_identical(vol):
         assert bytes(cold.new_reader(2, 2 * BS).read(7, 100)) == dup[7:107]
     finally:
         cold.close()
+
+
+def test_elided_block_reads_as_one_get_of_its_canonical(vol):
+    """An elided block resolves its alias before the backend rung and loads
+    its canonical through the cache under the canonical's key only: a cold
+    read of two slices whose blocks alias each other's content costs one
+    GET of each stored object, and a warm re-read costs no GET and no meta
+    read. A ranged read GETs the block's own key first, as the reference
+    does, so an elided block seen first there costs a NotFound and a GET
+    of its canonical, and once resolved one GET."""
+    meta, store, counting = vol
+    a, b = os.urandom(BS), os.urandom(BS)
+    _write(store, 1, a, b)
+    _write(store, 2, b, a)  # both blocks elided
+    store.ingest.flush()
+    assert store.ingest.stats()["put_elided"] == 2
+    stored = {block_key(1, 0, BS), block_key(1, 1, BS)}
+    assert set(counting.put_keys) == stored
+    counting.get_keys.clear()
+    cold = CachedStore(counting, ChunkConfig(block_size=BS, cache_size=64 << 20))
+    cold.content_refs = ContentRefs(meta)
+    try:
+        assert bytes(cold.new_reader(2, 2 * BS).read(0, 2 * BS)) == b + a
+        assert bytes(cold.new_reader(1, 2 * BS).read(0, 2 * BS)) == a + b
+        assert sorted(counting.get_keys) == sorted(stored)
+        # the cache holds each stored object once, under its own key
+        assert all(cold.cache.load(k, count_miss=False) is None
+                   for k in (block_key(2, 0, BS), block_key(2, 1, BS)))
+        resolves = []
+        real = meta.content_resolve
+        meta.content_resolve = lambda *a: resolves.append(a) or real(*a)
+        try:
+            assert bytes(cold.new_reader(2, 2 * BS).read(0, 2 * BS)) == b + a
+        finally:
+            del meta.content_resolve
+        assert sorted(counting.get_keys) == sorted(stored) and resolves == []
+    finally:
+        cold.close()
+    counting.get_keys.clear()
+    cold = _cold_reader(meta, counting)
+    try:
+        r = cold.new_reader(2, 2 * BS)
+        assert bytes(r.read(BS + 5, 100)) == a[5:105]
+        assert counting.get_keys == [block_key(2, 1, BS), block_key(1, 0, BS)]
+        counting.get_keys.clear()
+        assert bytes(r.read(BS + 7, 100)) == a[7:107]
+        assert counting.get_keys == [block_key(1, 0, BS)]
+    finally:
+        cold.close()
+
+
+def test_store_without_the_plane_keeps_one_get_a_block(meta, tmp_path):
+    """A store with no content-ref plane reads each cold block with one GET
+    of its own key, and one with the plane reads a block it does not alias
+    the same way."""
+    storage = FileStorage(str(tmp_path / "plain"))
+    storage.create()
+    counting = CountingStore(storage)
+    blocks = [os.urandom(BS) for _ in range(3)]
+    writer = CachedStore(counting, ChunkConfig(block_size=BS, cache_size=1))
+    try:
+        _write(writer, 5, *blocks)
+        writer.flush_all()
+    finally:
+        writer.close()
+    keys = [block_key(5, j, BS) for j in range(3)]
+    for refs in (None, ContentRefs(meta)):
+        counting.get_keys.clear()
+        cold = CachedStore(counting, ChunkConfig(block_size=BS, cache_size=64 << 20))
+        cold.content_refs = refs
+        try:
+            assert bytes(cold.new_reader(5, 3 * BS).read(0, 3 * BS)) == b"".join(blocks)
+        finally:
+            cold.close()
+        assert sorted(counting.get_keys) == keys
 
 
 def test_refcounts_exact_under_concurrent_identical_writers(vol):

@@ -10,9 +10,13 @@
     fingerprints.
   - The content-ref plane and the digest index give the same answers on
     the same call sequence.
-  - `export_kv_records` of one file is equal record for record in both
-    packages, so the port's `dump` of a sql:// volume is the reference's,
-    and a dump loads back into either engine family.
+  - `export_kv_records` of one file is the reference's record for record
+    plus the content-ref plane (H/G records and the hotfp blob, byte for
+    byte as the kv engine keys them), which the reference's export drops;
+    a port dump loads back into either engine family of either package
+    (the reference's sql import skips the plane, its kv import keeps it),
+    and an inline-dedup volume's elided blocks read back after a dump ->
+    load.
 
 The port's sql closures run under the port's own rerun harness
 (juicefs_tpu_torch/utils/txnwatch.py), installed for the whole module: each
@@ -22,9 +26,13 @@ any divergence fails the test.
 
 from __future__ import annotations
 
+import os
+
 import pytest
 
 from juicefs_tpu.meta import dump as ref_dump
+from juicefs_tpu_torch.chunk import CachedStore, ChunkConfig, ContentRefs, IngestPipeline
+from juicefs_tpu_torch.chunk.cached_store import block_key
 from juicefs_tpu_torch.meta import dump as port_dump
 from juicefs_tpu_torch.meta.sql import SQLMeta
 from juicefs_tpu_torch.utils import txnwatch
@@ -169,10 +177,17 @@ def test_content_plane_and_digest_index_match_reference(tmp_path):
             _close(m)
 
 
+def _plane_record(key: bytes) -> bool:
+    """The content-ref plane's records: H{digest}, G{sid,indx} and hotfp."""
+    return key == b"hotfp" or (key[:1] == b"H" and len(key) == 33) \
+        or (key[:1] == b"G" and len(key) == 13)
+
+
 @pytest.mark.parametrize("writer", ["ref", "port"])
 def test_export_kv_records_equal_record_for_record(tmp_path, writer):
-    """One sql:// file, exported by both packages: the same records in the
-    same order, and the same dump document."""
+    """One sql:// file, exported by both packages: the port's records are
+    the reference's, in the same order, plus the content-ref plane's (the
+    reference's export drops them), and so are the dump documents'."""
     uri = f"sql://{tmp_path}/meta.db"
     w = PACKAGES[writer][0].new_client(uri)
     _populate(writer, w)
@@ -186,17 +201,27 @@ def test_export_kv_records_equal_record_for_record(tmp_path, writer):
         finally:
             _close(m)
         got[pkg] = (records, doc)
-    assert got["port"][0] == got["ref"][0]
-    assert len(got["port"][0]) > 20
-    assert got["port"][1] == got["ref"][1]
-    assert got["port"][1]["engine"] == "sql"
+    port_records, port_doc = got["port"]
+    ref_records, ref_doc = got["ref"]
+    assert [r for r in port_records if not _plane_record(r[0])] == ref_records
+    assert not any(_plane_record(k) for k, _v in ref_records)
+    plane = [k for k, _v in port_records if _plane_record(k)]
+    # the populated volume: 2 refs, 4 aliases, one hot-fingerprint blob
+    assert sorted(k[:1] for k in plane) == [b"G"] * 4 + [b"H"] * 2 + [b"h"]
+    assert len(ref_records) > 20
+    decoded = [[bytes(port_dump.base64.b64decode(k)), v] for k, v in port_doc["records"]]
+    assert [[port_dump.base64.b64encode(k).decode(), v] for k, v in decoded
+            if not _plane_record(k)] == ref_doc["records"]
+    assert port_doc["engine"] == ref_doc["engine"] == "sql"
 
 
 @pytest.mark.parametrize("target", ["sql", "sqlite3"])
 def test_port_dump_of_sql_loads_into_either_family(tmp_path, target):
     """The port's dump of a sql:// volume loads into a fresh sql:// or
-    sqlite3:// volume of the port, and the reference reads the result as
-    the same volume (the engine migration dump/load is for)."""
+    sqlite3:// volume of the port with everything it holds, the content-ref
+    plane (refs, aliases with their timestamps, hot fingerprints)
+    included, and the reference reads the result as the same volume (the
+    engine migration dump/load is for)."""
     src = PACKAGES["port"][0].new_client(f"sql://{tmp_path}/src.db")
     _populate("port", src)
     want = _volume("port", src)
@@ -212,11 +237,115 @@ def test_port_dump_of_sql_loads_into_either_family(tmp_path, target):
         assert _volume("ref", ref) == got
     finally:
         _close(ref)
-    # the sql export carries the namespace, slices and digest rows; like
-    # the reference's it has no records for the content-ref plane (refs,
-    # aliases, hot fingerprints), so those are not compared here
-    for key in ("format", "tree", "slices", "digests"):
-        assert got[key] == want[key], key
+    assert got == want
+    assert len(got["refs"]) == 2 and len(got["aliases"]) == 4 and got["hot"]
+
+
+def test_sql_content_plane_records_equal_the_kv_engines(tmp_path):
+    """A kv volume's H/G/hotfp records, loaded into the port's sql engine
+    and exported again, come back byte for byte (alias timestamps
+    included)."""
+    kv = PACKAGES["port"][0].new_client(f"sqlite3://{tmp_path}/kv.db")
+    _populate("port", kv)
+    kv_doc = port_dump.dump_doc(kv)
+    kv.client.close()
+    sql = PACKAGES["port"][0].new_client(f"sql://{tmp_path}/rel.db")
+    try:
+        port_dump.load_doc(sql, kv_doc)
+        sql_doc = port_dump.dump_doc(sql)
+    finally:
+        _close(sql)
+
+    def plane(doc):
+        recs = [(port_dump.base64.b64decode(k), port_dump.base64.b64decode(v))
+                for k, v in doc["records"]]
+        return sorted((k, v) for k, v in recs if _plane_record(k))
+
+    assert len(plane(kv_doc)) == 7
+    assert plane(sql_doc) == plane(kv_doc)
+
+
+@pytest.mark.parametrize("target", ["sql", "sqlite3"])
+def test_reference_loads_the_port_dump(tmp_path, target):
+    """A reference client loads the port's sql:// dump: its sql import
+    skips the content-ref plane's records, its kv import keeps them as they
+    are; the rest of the volume is the port's either way."""
+    src = PACKAGES["port"][0].new_client(f"sql://{tmp_path}/src.db")
+    _populate("port", src)
+    want = _volume("port", src)
+    doc = port_dump.dump_doc(src)
+    _close(src)
+    ref = PACKAGES["ref"][0].new_client(f"{target}://{tmp_path}/ref.db")
+    try:
+        assert ref_dump.load_doc(ref, doc) == len(doc["records"])
+        got = _volume("ref", ref)
+    finally:
+        _close(ref)
+    plane = ("refs", "aliases", "hot")
+    assert {k: v for k, v in got.items() if k not in plane} == \
+        {k: v for k, v in want.items() if k not in plane}
+    if target == "sql":
+        assert (got["refs"], got["aliases"], got["hot"]) == ([], [], [])
+    else:
+        assert (got["refs"], got["aliases"], got["hot"]) == \
+            (want["refs"], want["aliases"], want["hot"])
+
+
+@pytest.mark.parametrize("target", ["sql", "sqlite3"])
+def test_dump_load_keeps_elided_blocks_readable(tmp_path, target):
+    """An inline-dedup volume on the port's sql:// engine: its elided
+    blocks read back exactly through a cold store on the loaded volume's
+    content refs, one GET of each stored object."""
+    from juicefs_tpu_torch.object.file import FileStorage
+
+    bs = 1 << 16
+    src = PACKAGES["port"][0].new_client(f"sql://{tmp_path}/src.db")
+    assert src.init(PACKAGES["port"][1].Format(name="dd", trash_days=0,
+                                               block_size=bs >> 10), force=True) == 0
+    src.load()
+    storage = FileStorage(str(tmp_path / "blob"))
+    storage.create()
+    gets: list[str] = []
+
+    class Counting(FileStorage):
+        def get(self, key, off=0, limit=-1):
+            gets.append(key)
+            return super().get(key, off, limit)
+
+    store = CachedStore(storage, ChunkConfig(block_size=bs, cache_size=1))
+    store.content_refs = ContentRefs(src)
+    store.ingest = IngestPipeline(store, store.content_refs, backend="cpu",
+                                  batch_blocks=4, flush_timeout=0.005)
+    pool = [os.urandom(bs) for _ in range(2)]
+    slices = {sid: [pool[(sid + j) % 2] if j % 2 else os.urandom(bs) for j in range(4)]
+              for sid in (1, 2, 3)}
+    try:
+        for sid, blocks in slices.items():
+            w = store.new_writer(sid)
+            w.write_at(b"".join(blocks), 0)
+            w.finish(len(blocks) * bs)
+        store.ingest.flush()
+        elided = store.ingest.stats()["put_elided"]
+    finally:
+        store.close()
+    assert elided == 4  # each pool block is stored once, then aliased
+    doc = port_dump.dump_doc(src)
+    _close(src)
+    dst = PACKAGES["port"][0].new_client(f"{target}://{tmp_path}/dst.db")
+    port_dump.load_doc(dst, doc)
+    cold = CachedStore(Counting(str(tmp_path / "blob")),
+                       ChunkConfig(block_size=bs, cache_size=64 << 20))
+    cold.content_refs = ContentRefs(dst)
+    try:
+        for sid, blocks in slices.items():
+            assert bytes(cold.new_reader(sid, 4 * bs).read(0, 4 * bs)) == b"".join(blocks)
+    finally:
+        cold.close()
+        _close(dst)
+    stored = {o.key for o in storage.list_all("chunks/")}
+    assert len(stored) == 12 - elided
+    assert sorted(gets) == sorted(stored)
+    assert {block_key(sid, j, bs) for sid in slices for j in range(4)} - stored
 
 
 def test_port_txnwatch_guards_the_sql_seam(tmp_path):
