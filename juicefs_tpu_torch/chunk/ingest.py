@@ -67,6 +67,13 @@ _H_LOOKUP = stage_hist("chunk", "ingest", "lookup")
 _H_REGISTER = stage_hist("chunk", "ingest", "register")
 # host packing plus the one shared upload of a hash batch
 _H_PACK = stage_hist("chunk", "ingest", "pack")
+# inside it, the host pack alone: the same stage as the gc scan's pack
+_H_HOST_PACK = stage_hist("gpu", "hash", "pack")
+# the worker's busy time per batch, the estimator's launch, and the wait
+# on an earlier batch's in-flight register of the same content
+_H_PROCESS = stage_hist("chunk", "ingest", "process")
+_H_ESTIMATE = stage_hist("chunk", "ingest", "estimate")
+_H_AWAIT = stage_hist("chunk", "ingest", "await")
 # the finalizer-side batched encode reports under the same stage as the
 # per-block compress in `_put_block`: either way it is write-path
 # compression wall (bench stage breakdowns compare across rounds)
@@ -527,7 +534,9 @@ class IngestPipeline:
             logger.warning("hot-content cache load skipped: %s", e)
         for batch in self._batcher.batches():
             try:
-                self._process(batch)
+                with _TR.span("chunk", "ingest", stage="process",
+                              hist=_H_PROCESS):
+                    self._process(batch)
             except Exception as e:
                 # dedup is advisory: a broken batch degrades, never fails
                 _ERRORS.inc(len(batch))
@@ -568,8 +577,9 @@ class IngestPipeline:
             with _TR.span("chunk", "ingest", stage="pack", hist=_H_PACK) as sp:
                 if sp.active:
                     sp.set(blocks=len(raws))
-                packed = pipe.shard_packed(
-                    pack_blocks(raws, pad_lanes=pipe.config.pad_lanes))
+                with _TR.span("gpu", "hash", stage="pack", hist=_H_HOST_PACK):
+                    host = pack_blocks(raws, pad_lanes=pipe.config.pad_lanes)
+                packed = pipe.shard_packed(host)
         if raws:
             with _TR.span("chunk", "ingest", stage="hash",
                           hist=_H_HASH) as sp:
@@ -585,8 +595,10 @@ class IngestPipeline:
                 if hot is not None:
                     hot.insert(fps[i], hashed[j], batch[i][1])
         if packed is not None and plane is not None:
-            plane.estimate_packed(packed)  # advisory; rides the upload
-        self._await_inflight(digests)
+            with _TR.span("chunk", "ingest", stage="estimate", hist=_H_ESTIMATE):
+                plane.estimate_packed(packed)  # advisory; rides the upload
+        with _TR.span("chunk", "ingest", stage="await", hist=_H_AWAIT):
+            self._await_inflight(digests)
         # advisory content-index rows for gc/fsck: elided blocks never
         # reach the _put_block fingerprint hook, and we hold every digest
         # right here. Written by the FINALIZER (one batched txn off the

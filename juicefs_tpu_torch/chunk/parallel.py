@@ -25,6 +25,7 @@ from concurrent.futures import Future
 from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
 from ..metric import global_registry
+from ..metric.trace import global_tracer, stage_hist
 from ..object.interface import NotFoundError
 from ..object.resilient import BreakerOpenError
 from ..utils import get_logger
@@ -40,6 +41,10 @@ _INFLIGHT = global_registry().gauge(
     "juicefs_torch_fetch_inflight",
     "Block fetches currently in flight in ordered parallel-fetch stages",
 )
+_TR = global_tracer()
+# the consumer blocked on the oldest fetch: the time the stage downstream
+# (the hash pipeline, for gc --dedup) waited for a block
+_H_WAIT = stage_hist("chunk", "fetch", "wait")
 
 
 class FetchStats:
@@ -142,7 +147,8 @@ def fetch_ordered(
     def drain_one() -> Iterator[tuple[T, R]]:
         item, fut = inflight.popleft()
         try:
-            yield item, fut.result()
+            with _TR.span("chunk", "fetch", stage="wait", hist=_H_WAIT):
+                out = fut.result()
         except Exception as e:
             if on_error == "raise" or isinstance(e, BreakerOpenError):
                 raise
@@ -150,6 +156,8 @@ def fetch_ordered(
                 logger.debug("fetch %s: %s", item, e)
             else:
                 logger.warning("fetch %s: %s", item, e)
+        else:
+            yield item, out
 
     try:
         for item in it:

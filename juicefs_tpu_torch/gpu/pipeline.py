@@ -69,6 +69,15 @@ _BATCH_BLOCKS = _reg.histogram(
 _TR = global_tracer()
 _H_DISPATCH = stage_hist("gpu", "hash", "dispatch")
 _H_DRAIN = stage_hist("gpu", "hash", "drain")
+# the parts of a device dispatch, each on the thread that feeds the card:
+# waiting for a staging slot's last upload, the host pack, the HtoD
+# enqueue, and the hash launch with its DtoH enqueue
+_H_SLOT_WAIT = stage_hist("gpu", "hash", "slot_wait")
+_H_PACK = stage_hist("gpu", "hash", "pack")
+_H_UPLOAD = stage_hist("gpu", "hash", "upload")
+_H_LAUNCH = stage_hist("gpu", "hash", "launch")
+# a block's time in HashBatcher's queue, from submit() to its batch
+_H_BATCHER_WAIT = stage_hist("gpu", "batcher", "wait")
 
 BACKENDS = ("cpu", "cuda")
 
@@ -128,8 +137,9 @@ class HashPipeline:
                            for _ in range(max(1, cfg.max_inflight_batches) + 1)]
         slot = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
-        for ev in slot.uploaded:
-            ev.synchronize()
+        with _TR.span("gpu", "hash", stage="slot_wait", hist=_H_SLOT_WAIT):
+            for ev in slot.uploaded:
+                ev.synchronize()
         slot.uploaded = []
         return slot
 
@@ -139,22 +149,25 @@ class HashPipeline:
         completion event or None)."""
         n = len(blocks)
         slot = self._slot()
-        counts, lengths = pack_into(slot.words.numpy(), blocks)
-        slot.counts.numpy()[:n] = counts
-        slot.lengths.numpy()[:n] = lengths
+        with _TR.span("gpu", "hash", stage="pack", hist=_H_PACK):
+            counts, lengths = pack_into(slot.words.numpy(), blocks)
+            slot.counts.numpy()[:n] = counts
+            slot.lengths.numpy()[:n] = lengths
         cuda = self.device.type == "cuda"
-        packed = self.plane.put_packed(slot.words[:n], slot.counts[:n],
-                                       slot.lengths[:n])
-        if cuda:
-            slot.uploaded = self.plane.record_events()
+        with _TR.span("gpu", "hash", stage="upload", hist=_H_UPLOAD):
+            packed = self.plane.put_packed(slot.words[:n], slot.counts[:n],
+                                           slot.lengths[:n])
+            if cuda:
+                slot.uploaded = self.plane.record_events()
         _H2D_BYTES.inc(slot.words[:n].numel() * 4)
-        h = self.plane.hash_async(*packed)
-        if not cuda:
-            return h, None
-        out = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
-        out.copy_(h, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(h.device))
+        with _TR.span("gpu", "hash", stage="launch", hist=_H_LAUNCH):
+            h = self.plane.hash_async(*packed)
+            if not cuda:
+                return h, None
+            out = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+            out.copy_(h, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(h.device))
         return out, done
 
     def hash_stream(
@@ -230,7 +243,8 @@ class HashPipeline:
         if self.plane is None:
             return packed
         _H2D_BYTES.inc(int(np.prod(packed[0].shape)) * 4)
-        return self.plane.put_packed(*packed)
+        with _TR.span("gpu", "hash", stage="upload", hist=_H_UPLOAD):
+            return self.plane.put_packed(*packed)
 
     def shard_snapshot(self) -> dict:
         """Sharding-plane stats (gc --dedup output)."""
@@ -287,6 +301,9 @@ class HashBatcher:
       - the batch filled (`batch_blocks`),
       - `flush_timeout` expired since the batch's first block, or
       - `kick()`: a commit barrier is waiting; hash what we have NOW.
+
+    Each item's time from `submit()` to its batch is observed under
+    `gpu.batcher.wait` as the batch is handed out.
     """
 
     def __init__(self, pipe: HashPipeline, queue_blocks: int = 64,
@@ -306,7 +323,7 @@ class HashBatcher:
         if self._closed:
             return False
         try:
-            self._q.put_nowait(item)
+            self._q.put_nowait((time.perf_counter(), item))
             return True
         except self._full:
             return False
@@ -358,9 +375,18 @@ class HashBatcher:
                 except self._empty:
                     break
                 if nxt is _CLOSE:
-                    yield batch
+                    yield _unstamp(batch)
                     return
                 if nxt is _FLUSH:
                     break
                 batch.append(nxt)
-            yield batch
+            yield _unstamp(batch)
+
+
+def _unstamp(batch: list) -> list:
+    """The items of a batch of (submit time, item), each item's wait
+    observed once."""
+    now = time.perf_counter()
+    for t, _item in batch:
+        _H_BATCHER_WAIT.observe(now - t)
+    return [item for _t, item in batch]

@@ -7,6 +7,19 @@ as one JSON line to every open reader) otherwise. The always-on rollup is
 `juicefs_torch_stage_seconds{layer,op,stage}` in the port's registry, the
 per-stage attribution that chip_smoke.py prints.
 
+Profiler ranges: while a `torch.profiler` runs in the process, every span
+also opens a profiler range named `layer.op.stage` (`layer.op` with no
+stage), so the profiler stamps the program's stages on the same clock as
+the card's kernels and copies, on whichever thread opened them (a
+`cpu_op` event in its trace). A profiler that records card activity
+alone installs no host callback, and the range then records nothing. The
+range is the profiler's `_RecordFunctionFast` (~1.4 us under a profiler
+recording host ops), not `torch.profiler.record_function` (~15 us): that
+one enters through the op dispatcher, which drops the interpreter lock at
+each edge, and with ten fetch threads opening ranges it nearly doubled a
+scan's time. With no profiler running, `span()` returns exactly what it
+returns without ranges, and torch is never imported here.
+
 Cross-thread propagation: span context rides a per-thread stack, so the
 synchronous read path links automatically; pool crossings (upload pool,
 download fan-out) capture `current_ref()` at submit time and pass it as
@@ -18,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import sys
 import threading
 import time
 from collections import deque
@@ -129,6 +143,46 @@ class _TimedSpan:
         return None
 
 
+def _profiling() -> bool:
+    """True while a torch profiler runs in this process; a process that has
+    not imported torch's profiler runs none."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class _RangedSpan:
+    """A span (any of the three above) inside a profiler range; only made
+    while a torch profiler runs (`_profiling()`)."""
+
+    __slots__ = ("inner", "_range")
+
+    def __init__(self, inner, name: str):
+        from torch._C._profiler import _RecordFunctionFast
+
+        self.inner = inner
+        self._range = _RecordFunctionFast(name)
+
+    @property
+    def active(self) -> bool:
+        return self.inner.active
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self.inner.__enter__()
+
+    def __exit__(self, et, ev, tb):
+        try:
+            return self.inner.__exit__(et, ev, tb)
+        finally:
+            self._range.__exit__(et, ev, tb)
+
+    def set(self, **kw) -> None:
+        self.inner.set(**kw)
+
+    def ref(self):
+        return self.inner.ref()
+
+
 class Span:
     """One traced region; emitted as a JSON event line on exit."""
 
@@ -204,8 +258,13 @@ class Tracer:
     def span(self, layer: str, op: str, stage: str = "", hist=None,
              parent: Optional[tuple[int, int]] = None, **attrs):
         if not self._active:
-            return _TimedSpan(hist) if hist is not None else NULL_SPAN
-        return Span(self, layer, op, stage, hist, parent, attrs)
+            sp = _TimedSpan(hist) if hist is not None else NULL_SPAN
+        else:
+            sp = Span(self, layer, op, stage, hist, parent, attrs)
+        if _profiling():
+            return _RangedSpan(sp, f"{layer}.{op}.{stage}" if stage
+                               else f"{layer}.{op}")
+        return sp
 
     def current_ref(self) -> Optional[tuple[int, int]]:
         """(trace_id, span_id) of the innermost open span on this thread,
