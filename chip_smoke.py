@@ -15,11 +15,13 @@ Phases, in order; any mismatch raises and the script exits non-zero:
 
   1. device   require CUDA; print the card's name and power limit; load
               liblz4 (the ingest phase compresses with it)
-  2. build    compile the two kernel sources from the repo's sources
+  2. build    compile the three kernel sources from the repo's sources
               (sm_90a), one nvcc each, in parallel: jth256_row_chain.cu
               (the row chain, with a block-digests entry that also
-              combines each block and a lane-digests entry) and
-              jth256_combine.cu; the process-wide sharding plane
+              combines each block and a lane-digests entry),
+              jth256_combine.cu and compress_estimate.cu (the compress
+              estimator: a fused entry, a histogram entry and an entropy
+              entry); the process-wide sharding plane
               (gpu/sharding.py get_plane) must be the one-card rung:
               devices 1, no mesh, no degrade counted. Phases 5-13 run
               through it (gc, ingest, the estimator, the indexer, fsck, the
@@ -46,7 +48,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
   5. scan     the main path: `gc --dedup` scan (cmd/gc.py dedup_scan, cuda
               backend) over a 1 GiB file:// volume of 4 MiB blocks with a
               ragged tail and ~25% planted duplicates; gates: every block
-              hashed, sampled rows == numpy spec, duplicates == planted
+              hashed, sampled rows == numpy spec, duplicates == planted,
+              no estimator launch
   6. timing   the block entry, the lane-digests entry, the combine and
               the lane-digests + combine pair at 1, 8, 27, 32 blocks and 1
               GiB (16384 lanes): device ms of calls queued behind a spin of
@@ -70,13 +73,19 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               byte, then a cold `gc --dedup` scan that reproduces the
               ingest-time digests.
               The ingest gates also hold the kernel to one launch per hash
-              batch.
+              batch, and the estimator to one launch of its fused entry
+              per estimate.
   9. ingest   a second drive of the same leg with 4 writers of 8-block
               slices, so hash batches hold many blocks. Phases 5, 8 and 9
               keep their meta in the port's sqlite3:// kv engine
-  10. estimator the compress estimator on one packed batch on the card ==
-              the same torch ops on the CPU (histograms exact, predictions
-              1e-5)
+  10. estimator the compress estimator's kernel on one packed batch on the
+              card == the plain torch version on the CPU (histograms exact,
+              predictions 1e-5): one launch and one kernel on the card per
+              estimate (no memset or fill), its histogram and entropy
+              entries bit for bit the fused one, its workspace zero again
+              after each launch; then its device ms at 1, 8, 13 and 32
+              blocks beside its bound and the plain torch version on the
+              card
   11. main    the admin path through the port's CLI on a sqlite3:// volume
               of the same plan: `format --hash-backend pallas` (probes the
               card), a write of every block as its own slice through
@@ -344,6 +353,10 @@ DIGEST_BYTES = 32  # a lane's 8 digest words
 # 1 GiB
 TIMING_BLOCKS = (1, 8, 27, 32, 256)
 COLD_BYTES = 128 << 20  # inputs a timed size cycles through: above the 50 MB L2
+# the estimator's timed sizes: one block, 8, the ingest cell's ~13-block
+# batch and a full batch
+ESTIMATE_BLOCKS = (1, 8, 13, 32)
+SECTOR_BYTES = 32  # the least a device-memory read moves
 SPIN_CYCLES = 10_000_000  # torch.cuda._sleep ahead of queued calls (ms on an H100)
 QUEUED = 10  # calls queued behind one spin
 
@@ -588,7 +601,8 @@ def kernel_phase(gen: torch.Generator) -> dict:
         for key in ((64, 64), (2048, 64), (150, 2)):
             words, counts, lengths, want = shapes[key]
             got = block_digests(words, key[1], counts, lengths)
-            sizes.append(hash_torch._ARRIVALS[(0, grow.cuda_stream)][1])
+            held = hash_torch._ARRIVALS[("jth256_block_digests", 0, grow.cuda_stream)]
+            sizes.append(held[1])
             check("jth256_block_digests", got, want, f"growing stream, B={counts.numel()}")
     torch.cuda.synchronize()
     if sizes != sorted(sizes) or sizes[-1] < 75:
@@ -689,6 +703,8 @@ def scan_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         print(f"scan launches {launches}")
         if launches["jth256_row_chain"] == 0:
             raise AssertionError("main path launched no jth256_row_chain kernel")
+        if launches["compress_estimate"] != 0:
+            raise AssertionError("gc --dedup's scan ran the compress estimator")
         if scan["hashed_now"] != len(live):
             raise AssertionError(f"hashed_now {scan['hashed_now']} != {len(live)} blocks")
         rows = {block_key(sid, indx, bsize): d
@@ -1020,8 +1036,9 @@ def batch_breakdown_phase(rng: np.random.Generator) -> dict:
     return out
 
 
-INGEST_STAGES = ("chunk.ingest.pack", "chunk.ingest.hash", "chunk.ingest.lookup",
-                 "chunk.ingest.register", "chunk.upload.compress", "chunk.upload.put")
+INGEST_STAGES = ("chunk.ingest.pack", "chunk.ingest.hash", "chunk.ingest.estimate",
+                 "chunk.ingest.lookup", "chunk.ingest.register", "chunk.upload.compress",
+                 "chunk.upload.put")
 
 
 def counter_value(name: str) -> float:
@@ -1130,10 +1147,16 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
         n_objects = sum(1 for _ in storage.list_all("chunks/"))
         if n_objects != n_blocks - expect_dups:
             raise AssertionError(f"{n_objects} objects stored, want {n_blocks - expect_dups}")
-        # gate 3: every hashed block estimated on the card, no degrade
+        # gate 3: every hashed block estimated on the card, no degrade, one
+        # launch of the estimator's fused entry per estimate
         if comp["degraded"] != 0 or comp["estimated"] != hashed:
             raise AssertionError(f"compress plane {comp}: want degraded 0, "
                                  f"estimated == {hashed} hashed blocks")
+        n_estimates = stages["chunk.ingest.estimate"]["count"]
+        if launches["compress_estimate"] != n_estimates or n_estimates != n_batches:
+            raise AssertionError(f"{launches['compress_estimate']} compress_estimate "
+                                 f"launches for {n_estimates} estimates of {n_batches} "
+                                 "hash batches")
         # gate 4: one upload per hash batch (each block padded to 64 lanes)
         pad = bs // LANE_BYTES * LANE_BYTES
         if h2d != hashed * pad:
@@ -1239,11 +1262,51 @@ def concurrent_ingest_phase(rng: np.random.Generator, volume_gib: float) -> dict
         shutil.rmtree(base, ignore_errors=True)
 
 
-def estimator_phase(rng: np.random.Generator) -> dict:
-    """Gate 7: the compress estimator on one packed main-path batch
-    (32 x 4 MiB) on the card == the same torch ops on the CPU; an all-zero
-    and a text block predict below 0.5, random blocks above 0.95. Times the
-    estimator and the shared pack's (pageable) upload per batch."""
+def card_ops(fn) -> tuple[list, object]:
+    """(category, name) of every kernel, memcpy and memset the card ran for
+    fn(), in order, as a profiler recording card activity alone sees them,
+    and fn's result. A spin of the card goes first and only what follows it
+    is returned: after the ingest phases such a profiler drops the first
+    operation it would see (measured on an H100)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES // 100)
+        out = fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    ops = sorted((float(e["ts"]), e.get("cat"), e.get("name")) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    spins = [i for i, (_ts, _cat, name) in enumerate(ops) if "spin_kernel" in name]
+    return [(cat, name) for _ts, cat, name in ops[spins[-1] + 1 if spins else 0:]], out
+
+
+def estimate_bound_ms(n_blocks: int, m: int, smi: str) -> float:
+    """Least time for the estimate of n_blocks blocks of m lanes: each
+    sampled word costs a 32-byte sector (the next lies 64 B on), plus the
+    lane counts (8 B a block) read and the advisories (4 B) written, at the
+    memory rate; its few operations a byte are far below the ALU rate."""
+    nbytes = n_blocks * (m * 64 * SECTOR_BYTES + 8 + 4)
+    return nbytes / hbm_bytes_per_s(smi) * 1e3
+
+
+def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) -> dict:
+    """Gate 7: the compress estimator's kernel on one packed main-path batch
+    (32 x 4 MiB) on the card == the plain torch version on the CPU
+    (histograms exact, predictions 1e-5): the fused entry, the histogram
+    entry and the entropy entry, one launch each and no other kernel, the
+    entropy entry bit for bit the fused one, the stream's workspace zero
+    again after each launch, a second call bit for bit the first; an
+    all-zero and a text block predict below 0.5, random blocks above 0.95.
+    Then the fused entry's device ms at ESTIMATE_BLOCKS beside its bound and
+    the plain torch version on the card, and the shared pack's (pageable)
+    upload per batch."""
     phase("compress estimator vs plain")
     n = 32
     text = b"hello world "
@@ -1258,15 +1321,34 @@ def estimator_phase(rng: np.random.Generator) -> dict:
         words, counts, _lengths = pipe.shard_packed(packed)
         torch.cuda.synchronize()
         upload_ms.append((time.perf_counter() - t0) * 1e3)
-    hist = compress_batch.byte_histogram(words, counts)
-    pred = compress_batch.estimate(words, counts)
+    compress_batch.estimate(words, counts)  # builds the library, sizes the workspace
     torch.cuda.synchronize()
+    work = hash_torch._ARRIVALS[("compress_estimate", words.device.index,
+                                 torch.cuda.current_stream().cuda_stream)][0]
+    kernels.reset_launches()
+    ops, pred = card_ops(lambda: compress_batch.estimate(words, counts))
+    if len(ops) != 1 or ops[0][0] != "kernel" or "compress_estimate_kernel" not in ops[0][1]:
+        raise AssertionError(f"one estimate ran {ops} on the card, want one "
+                             "compress_estimate_kernel")
+    if work.any():
+        raise AssertionError("the estimator's workspace is not zero after a launch")
+    hist = compress_batch.byte_histogram(words, counts)
+    ent = compress_batch.entropy_ratio(hist)
+    again = compress_batch.estimate(words, counts)
+    torch.cuda.synchronize()
+    want = {"compress_estimate": 2, "compress_histogram": 1, "compress_entropy": 1}
+    got = {k: kernels.LAUNCHES[k] for k in want}
+    if got != want or work.any():
+        raise AssertionError(f"estimator launches {got}, want {want}; workspace zero "
+                             f"{not work.any()}")
     cwords = torch.from_numpy(packed[0].view(np.int32))
     ccounts = torch.from_numpy(packed[1].astype(np.int64))
     chist = compress_batch.byte_histogram(cwords, ccounts)
     cpred = compress_batch.estimate(cwords, ccounts)
     if not torch.equal(hist.cpu(), chist):
         raise AssertionError("estimator histograms on the card != CPU")
+    if not (torch.equal(ent, pred) and torch.equal(again, pred)):
+        raise AssertionError("the entropy entry or a second call != the fused entry")
     err = float((pred.cpu() - cpred).abs().max())
     if err > 1e-5:
         raise AssertionError(f"estimator predictions differ by {err} > 1e-5")
@@ -1274,15 +1356,34 @@ def estimator_phase(rng: np.random.Generator) -> dict:
     if not (p[0] < 0.5 and p[1] < 0.5 and min(p[2:]) > 0.95):
         raise AssertionError(f"estimator predictions out of range: zero {p[0]}, "
                              f"text {p[1]}, random min {min(p[2:])}")
-    compress_batch.estimate(words, counts)  # warm-up
-    ms = time_cuda(lambda i: compress_batch.estimate(words, counts), 10)
     t0 = time.perf_counter()
     compress_batch.estimate(words, counts)
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    out = {"blocks": n, "estimate_ms": ms, "estimate_enqueue_ms": enqueue_ms,
+    # device ms at the main path's batch sizes, inputs cycling through
+    # COLD_BYTES (a batch the hash has streamed past is mostly out of L2)
+    m = BLOCK_BYTES // LANE_BYTES
+    sizes = {}
+    for nb in ESTIMATE_BLOCKS:
+        copies = max(1, -(-COLD_BYTES // (nb * BLOCK_BYTES)))
+        pool = random_words(gen, nb * m * copies).reshape(copies, nb, m, ROWS, COLS)
+        cnt = torch.full((nb,), m, dtype=torch.int64, device="cuda")
+        compress_batch.estimate_ref(pool[0], cnt)  # warm-up
+        row = {}
+        row["ms"], enq = time_queued(lambda i: compress_batch.estimate(pool[i % copies], cnt))
+        row["plain_ms"], _ = time_queued(
+            lambda i: compress_batch.estimate_ref(pool[i % copies], cnt))
+        row["bound_ms"] = estimate_bound_ms(nb, m, smi)
+        row["enqueue_ms"] = enq
+        sizes[nb] = row
+        print(f"compress_estimate {nb} blocks: {row['ms']:.4f} ms (bound "
+              f"{row['bound_ms']:.5f}, {row['bound_ms'] / row['ms']:.3f} of it); plain torch "
+              f"on the card {row['plain_ms']:.4f} ms; {QUEUED} calls queued in {enq:.3f} ms")
+        del pool
+    out = {"blocks": n, "estimate_enqueue_ms": enqueue_ms,
            "upload_ms": statistics.median(upload_ms), "max_abs_err": err,
-           "zero": p[0], "text": p[1], "random_min": min(p[2:])}
+           "zero": p[0], "text": p[1], "random_min": min(p[2:]), "sizes": sizes,
+           "card": smi}
     print("estimator " + json.dumps(out))
     return out
 
@@ -4287,7 +4388,7 @@ def main(argv=None) -> int:
     breakdown = batch_breakdown_phase(rng)
     ingest = ingest_phase(rng, args.volume_gib)
     conc = concurrent_ingest_phase(rng, args.volume_gib)
-    estimator_phase(rng)
+    estimator = estimator_phase(rng, gen, smi)
     main_path = main_path_phase(rng, args.volume_gib, kind)
     serve = serve_phase(rng, args.volume_gib, smi)
     mount = mount_phase(rng, min(args.volume_gib, MOUNT_GIB), smi)
@@ -4413,6 +4514,19 @@ def main(argv=None) -> int:
         "plain_ms": at_32["combine_plain_ms"],
         "bound_ms": at_32["combine_bound_ms"],
         "bound_by": at_32["combine_bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "compress_estimate",
+        "route": "cuda",
+        "source": "juicefs_tpu_torch/gpu/kernels/compress_estimate.cu",
+        "replaces": None,  # the reference's estimator is XLA (_make_estimator)
+        "shape": "13 blocks x 64 lanes (the ingest cell's batch)",
+        "launches_by_path": {"ingest": ingest["launches"]["compress_estimate"],
+                             "ingest_concurrent": conc["launches"]["compress_estimate"]},
+        "ms": estimator["sizes"][13]["ms"],
+        "plain_ms": estimator["sizes"][13]["plain_ms"],
+        "bound_ms": estimator["sizes"][13]["bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

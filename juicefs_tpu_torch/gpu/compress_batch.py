@@ -21,20 +21,26 @@ gpu/pipeline.py):
 `estimate(words, lane_counts)` is the counterpart of the reference's
 XLA `_make_estimator` (not a Pallas kernel): it takes every 16th row and
 every 16th column of each 64 KiB lane (64 words = 256 bytes), builds a
-float32 256-bin byte histogram per block with lanes at or past
-`lane_counts` masked out, and returns min(entropy / 8, 1). It is a short
-run of torch ops on the tensors' own device: a strided view, the
+256-bin byte histogram per block with lanes at or past `lane_counts`
+masked out, and returns min(entropy / 8, 1). On the card it is one
+launch of a hand-written kernel (`gpu/kernels/compress_estimate.cu`,
+entry `compress_estimate`, counted in `kernels.LAUNCHES`): the sampled
+words' bytes binned in shared memory, the blocks' counts gathered by the
+last CTA of each block to arrive, which also runs the entropy. On the CPU
+it is the plain torch version (`estimate_ref`: a strided view, the
 little-endian byte view of the sampled words, one `scatter_add_` into a
-(B, 256) float32 histogram, and the entropy. It reads 1/256 of the words
-and does no upload of its own: `estimate_packed` runs it where the
+(B, 256) float32 histogram, and the entropy). It reads 1/256 of the
+words and does no upload of its own: `estimate_packed` runs it where the
 shared pack already lies and refuses host arrays. Every bin holds an
-integer count below 2^24, so the float32 histogram is exact in any
-order; the entropy may differ from XLA's in the last ulp. The estimator
-comes from the sharding plane (`ShardPlane.make_estimator`) and follows
-the pack it is given: for a pack split over a mesh each device
-histograms its own lanes (`byte_histogram`'s lane offset), the
-histograms are summed over the lane axis and `entropy_ratio` runs on the
-sum, so the sharded advisory equals the one-device one bit for bit.
+integer count below 2^24, so the histogram is exact either way; the
+entropy may differ from XLA's in the last ulp. The estimator comes from
+the sharding plane (`ShardPlane.make_estimator`) and follows the pack it
+is given: for a pack split over a mesh each device histograms its own
+lanes (`byte_histogram`'s lane offset, the kernel's `compress_histogram`
+entry), the histograms are summed over the lane axis and `entropy_ratio`
+(`compress_entropy`, the same device function as the fused entry's) runs
+on the sum, so the sharded advisory equals the one-device one bit for
+bit.
 
 Degrades: a lane fan-out that cannot place work (scheduler closed, queue
 full under `nowait`) degrades that batch to the serial in-thread encode,
@@ -49,6 +55,7 @@ plane does no device work and checks nothing.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from dataclasses import dataclass
@@ -58,6 +65,9 @@ import torch
 
 from ..metric import global_registry
 from ..utils import get_logger
+from . import kernels
+from .hash_torch import _int64_on, zeroed_workspace
+from .jth256 import COLS, ROWS
 
 logger = get_logger("gpu.compress")
 
@@ -84,6 +94,7 @@ _DEGRADED = _reg.counter(
 )
 
 SAMPLE_STRIDE = 16  # every 16th row and column: 64 words of a 128x128 lane
+_WORK_WORDS = 1 + 256  # the kernel's workspace a block: arrivals, then counts
 
 
 @dataclass
@@ -97,13 +108,13 @@ class CompressBatchConfig:
     min_fanout_bytes: int = 64 << 10
 
 
-def byte_histogram(words: torch.Tensor, lane_counts: torch.Tensor,
-                   lane_offset: int = 0) -> torch.Tensor:
-    """Sampled byte histogram: int32 words (B, M, 128, 128) and lane counts
-    (B,) -> float32 (B, 256), on the words' device. The M lanes are lanes
-    [lane_offset, lane_offset + M) of each block: a lane is counted when
-    its global index is below the block's lane count, so per-shard
-    histograms of a lane-split batch sum to the whole batch's."""
+def byte_histogram_ref(words: torch.Tensor, lane_counts: torch.Tensor,
+                       lane_offset: int = 0) -> torch.Tensor:
+    """Plain torch sampled byte histogram: int32 words (B, M, 128, 128) and
+    lane counts (B,) -> float32 (B, 256), on the words' device. The M lanes
+    are lanes [lane_offset, lane_offset + M) of each block: a lane is
+    counted when its global index is below the block's lane count, so
+    per-shard histograms of a lane-split batch sum to the whole batch's."""
     b, m = words.shape[0], words.shape[1]
     sub = words[:, :, ::SAMPLE_STRIDE, ::SAMPLE_STRIDE].reshape(b, -1)
     # little-endian bytes of each sampled word, in word order: the same
@@ -118,20 +129,112 @@ def byte_histogram(words: torch.Tensor, lane_counts: torch.Tensor,
     return h.scatter_add_(1, by, w)
 
 
-def entropy_ratio(h: torch.Tensor) -> torch.Tensor:
-    """float32 byte histograms (B, 256) -> predicted compressed-size
-    fractions min(entropy / 8, 1), float32 (B,)."""
+def entropy_ratio_ref(h: torch.Tensor) -> torch.Tensor:
+    """Plain torch entropy: float32 byte histograms (B, 256) -> predicted
+    compressed-size fractions min(entropy / 8, 1), float32 (B,)."""
     p = h / torch.clamp(h.sum(-1, keepdim=True), min=1.0)
     # 0 * log2(0) is NaN in the branch not taken; the where discards it
     ent = -torch.where(p > 0, p * torch.log2(p), torch.zeros_like(p)).sum(-1)
     return torch.clamp(ent / 8.0, max=1.0)
 
 
+def estimate_ref(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
+    """Plain torch estimate, on the words' device."""
+    return entropy_ratio_ref(byte_histogram_ref(words, lane_counts))
+
+
+def _on_card(x: torch.Tensor, entry: str) -> bool:
+    """True for a CUDA tensor (the kernel's), False for a CPU one (the
+    plain version's); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def _card_words(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
+    """Checks packed words for the kernel; returns the lane counts as a
+    contiguous int64 (B,) tensor on the words' card."""
+    b = words.shape[0]
+    if words.dtype != torch.int32 or words.dim() != 4 or words.shape[1] < 1 \
+            or words.shape[2:] != (ROWS, COLS) or not words.is_contiguous():
+        raise ValueError(f"words must be contiguous int32 (B, M >= 1, {ROWS}, {COLS}), "
+                         f"got {words.dtype} {tuple(words.shape)}")
+    counts = _int64_on(lane_counts, words.device)
+    if counts.shape != (b,):
+        raise ValueError(f"lane_counts must be ({b},), got {tuple(counts.shape)}")
+    return counts
+
+
+def _launch(entry: str, dev: torch.device, *args, work_blocks: int = 0) -> None:
+    """Launch `entry` with `args` on the current stream of `dev`. With
+    `work_blocks`, the stream's zeroed workspace for that many blocks goes
+    after the first two arguments (the words and their lane counts)."""
+    fn = kernels.function(entry)
+    switch = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if work_blocks:
+            work = zeroed_workspace("compress_estimate", dev, stream, work_blocks,
+                                    _WORK_WORDS)
+            args = (*args[:2], work.data_ptr(), *args[2:])
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    kernels.LAUNCHES[entry] += 1
+
+
+def byte_histogram(words: torch.Tensor, lane_counts: torch.Tensor,
+                   lane_offset: int = 0) -> torch.Tensor:
+    """Sampled byte histogram: int32 words (B, M, 128, 128) and lane counts
+    (B,) -> float32 (B, 256) integer counts, on the words' device, lanes
+    [lane_offset, lane_offset + M) of each block. One launch of the
+    kernel's `compress_histogram` entry on the card; `byte_histogram_ref`
+    on the CPU."""
+    if not _on_card(words, "byte_histogram"):
+        return byte_histogram_ref(words, lane_counts, lane_offset)
+    counts = _card_words(words, lane_counts)
+    b, m = words.shape[0], words.shape[1]
+    out = torch.empty((b, 256), dtype=torch.float32, device=words.device)
+    if b:
+        _launch("compress_histogram", words.device, words.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), b, m, int(lane_offset) & 0xFFFFFFFF, work_blocks=b)
+    return out
+
+
+def entropy_ratio(h: torch.Tensor) -> torch.Tensor:
+    """float32 byte histograms (B, 256) of integer counts -> predicted
+    compressed-size fractions min(entropy / 8, 1), float32 (B,). One launch
+    of the kernel's `compress_entropy` entry on the card;
+    `entropy_ratio_ref` on the CPU."""
+    if not _on_card(h, "entropy_ratio"):
+        return entropy_ratio_ref(h)
+    if h.dtype != torch.float32 or h.dim() != 2 or h.shape[1] != 256:
+        raise ValueError(f"histograms must be float32 (B, 256), got {h.dtype} "
+                         f"{tuple(h.shape)}")
+    h = h.contiguous()
+    out = torch.empty((h.shape[0],), dtype=torch.float32, device=h.device)
+    if h.shape[0]:
+        _launch("compress_entropy", h.device, h.data_ptr(), out.data_ptr(), h.shape[0])
+    return out
+
+
 def estimate(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
     """Per-block compressibility estimate of a packed batch already on its
     device: int32 words (B, M, 128, 128), lane counts (B,) -> float32 (B,)
-    predicted compressed-size fractions min(entropy / 8, 1)."""
-    return entropy_ratio(byte_histogram(words, lane_counts))
+    predicted compressed-size fractions min(entropy / 8, 1). One launch of
+    the kernel's fused `compress_estimate` entry on the card; the plain
+    torch version (`estimate_ref`) on the CPU; any other device raises."""
+    if not _on_card(words, "estimate"):
+        return estimate_ref(words, lane_counts)
+    counts = _card_words(words, lane_counts)
+    b, m = words.shape[0], words.shape[1]
+    out = torch.empty((b,), dtype=torch.float32, device=words.device)
+    if b:
+        _launch("compress_estimate", words.device, words.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), b, m, work_blocks=b)
+    return out
 
 
 def compress_backend(name: str) -> str:

@@ -346,20 +346,24 @@ def lane_digests(words: torch.Tensor, tweak: int = 0,
     return d.reshape(b, m, 8)
 
 
-# Arrival counters of the block entry, one zeroed int32 buffer per (card,
-# stream) with its length: every launch leaves its counters at zero, and
-# launches on one stream run in order, so the pipeline's host threads can
-# share a stream's buffer; two streams never share one.
-_ARRIVALS: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+# Arrival counters of the kernels whose last CTA to arrive finishes a block
+# (the block entry; the compress estimator, whose counts sit beside them),
+# one zeroed int32 buffer per (entry, card, stream) with the blocks it
+# holds: every launch leaves its workspace at zero, and launches on one
+# stream run in order, so the pipeline's host threads can share a stream's
+# buffer; two streams never share one.
+_ARRIVALS: dict[tuple[str, int, int], tuple[torch.Tensor, int]] = {}
 _ARRIVALS_LOCK = threading.Lock()
 
 
-def _arrivals(dev: torch.device, stream: int, n_blocks: int) -> torch.Tensor:
-    """The stream's counters, at least n_blocks of them. A larger batch gets
-    a new zeroed buffer, allocated and zeroed on the same stream, so it is
-    ready only after the launches queued on the old one. Only growth takes
-    the lock: a buffer once published is never changed by the host."""
-    key = (dev.index, stream)
+def zeroed_workspace(entry: str, dev: torch.device, stream: int, n_blocks: int,
+                     per_block: int = 1) -> torch.Tensor:
+    """The stream's workspace of `entry`: a flat zeroed int32 buffer of
+    `per_block` words for each of at least n_blocks blocks. A larger batch
+    gets a new zeroed buffer, allocated and zeroed on the same stream, so
+    it is ready only after the launches queued on the old one. Only growth
+    takes the lock: a buffer once published is never changed by the host."""
+    key = (entry, dev.index, stream)
     held = _ARRIVALS.get(key)
     if held is not None and held[1] >= n_blocks:
         return held[0]
@@ -367,9 +371,14 @@ def _arrivals(dev: torch.device, stream: int, n_blocks: int) -> torch.Tensor:
         held = _ARRIVALS.get(key)
         if held is None or held[1] < n_blocks:
             size = max(n_blocks, 2 * (0 if held is None else held[1]), 32)
-            held = (torch.zeros(size, dtype=torch.int32, device=dev), size)
+            held = (torch.zeros(size * per_block, dtype=torch.int32, device=dev), size)
             _ARRIVALS[key] = held
         return held[0]
+
+
+def _arrivals(dev: torch.device, stream: int, n_blocks: int) -> torch.Tensor:
+    """The block entry's counters on the stream, at least n_blocks of them."""
+    return zeroed_workspace("jth256_block_digests", dev, stream, n_blocks)
 
 
 def _int64_on(a: torch.Tensor, dev: torch.device) -> torch.Tensor:

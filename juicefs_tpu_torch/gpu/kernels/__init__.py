@@ -15,7 +15,10 @@ launch of the row-chain kernel under either entry, `jth256_block_digests`
 those of the entry that also combines each block (a one-card hash batch),
 `jth256_lane_digests` those of the lane-fold entry alone (a lane shard of
 a mesh), and `jth256_combine` the per-block combine kernel that a
-lane-split mesh runs after its gather. The gauge
+lane-split mesh runs after its gather. `compress_estimate` counts the
+compress estimator's fused entry (one launch a one-card estimate),
+`compress_histogram` and `compress_entropy` the two entries a mesh's
+estimate runs (a histogram per shard, an entropy per data row). The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
 process (a mount's `.stats` or `/metrics`) shows them too.
 """
@@ -41,11 +44,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_block_digests": 0,
-                            "jth256_lane_digests": 0, "jth256_combine": 0}
+                            "jth256_lane_digests": 0, "jth256_combine": 0,
+                            "compress_estimate": 0, "compress_histogram": 0,
+                            "compress_entropy": 0}
 # the source file each C entry is built from
 ENTRY_SOURCES = {"jth256_block_digests": "jth256_row_chain",
                  "jth256_lane_digests": "jth256_row_chain",
-                 "jth256_combine": "jth256_combine"}
+                 "jth256_combine": "jth256_combine",
+                 "compress_estimate": "compress_estimate",
+                 "compress_histogram": "compress_estimate",
+                 "compress_entropy": "compress_estimate"}
 _LAUNCH_GAUGE = global_registry().gauge(
     "juicefs_torch_kernel_launches",
     "Launches of each hand-written CUDA kernel since the last reset",
@@ -148,6 +156,15 @@ _SIGNATURES = {
     # (accs, lane_counts, lengths, out, n_blocks, m, stream)
     "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
+    # (words, lane_counts, work, out, n_blocks, m, stream)
+    "compress_estimate": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_uint,
+                                                  ctypes.c_void_p],
+    # (words, lane_counts, work, out, n_blocks, m, lane_offset, stream)
+    "compress_histogram": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_uint,
+                                                   ctypes.c_uint, ctypes.c_void_p],
+    # (hist, out, n_blocks, stream)
+    "compress_entropy": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_void_p],
 }
 
 
@@ -198,7 +215,12 @@ def load_twin():
     lane_counts, lengths)` takes int32 (B, M, 8) digests and int64 counts
     and lengths and returns int64 (B, 8); `block_digests(words, m,
     lane_counts, lengths, tweak)` takes int32 (B*M, 128, 128) words and
-    returns int64 (B, 8), as the block entry computes them."""
+    returns int64 (B, 8), as the block entry computes them;
+    `estimate_histogram(words, lane_counts, lane_offset=0)` takes int32
+    (B, M, 128, 128) words and int64 counts and returns int32 (B, 256)
+    sampled byte counts, `estimate_entropy(hist)` int32 (B, 256) counts
+    and returns float32 (B,) advisories, and `estimate(words,
+    lane_counts)` both in turn, as compress_estimate.cu computes them."""
     from torch.utils.cpp_extension import load
 
     build = os.path.join(REPO_ROOT, "build", "torch_ext", "twin")

@@ -1,11 +1,15 @@
-// CPU twin of jth256_row_chain.cu (both entries) and jth256_combine.cu:
-// the same per-lane chain, lane fold and combine, built with g++ from the
-// same jth256_step.cuh, so the CPU tests can hold the arithmetic the card
-// runs against the JAX package (no nvcc is needed to build it). row_chain
-// returns the chain's states, which neither entry writes out: it checks
-// the row steps alone.
+// CPU twin of jth256_row_chain.cu (both entries), jth256_combine.cu and
+// compress_estimate.cu: the same per-lane chain, lane fold and combine,
+// and the same estimator sample, mask, binning and entropy, built with g++
+// from the same jth256_step.cuh and compress_estimate.cuh, so the CPU
+// tests can hold the arithmetic the card runs against the JAX package (no
+// nvcc is needed to build it). row_chain returns the chain's states, which
+// neither entry writes out: it checks the row steps alone.
 #include <torch/extension.h>
 
+#include <vector>
+
+#include "compress_estimate.cuh"
 #include "jth256_step.cuh"
 
 namespace {
@@ -119,6 +123,65 @@ torch::Tensor block_digests(torch::Tensor words, int64_t m, torch::Tensor lane_c
                  lengths);
 }
 
+// compress_histogram: the sampled byte histograms of packed words (B, M,
+// 128, 128), lanes [lane_offset, lane_offset + M) of each block, as int32
+// (B, 256) counts.
+torch::Tensor estimate_histogram(torch::Tensor words, torch::Tensor lane_counts,
+                                 int64_t lane_offset) {
+  TORCH_CHECK(words.device().is_cpu(), "words must lie on the CPU");
+  TORCH_CHECK(words.scalar_type() == torch::kInt32, "words must be int32");
+  TORCH_CHECK(words.dim() == 4 && words.size(1) >= 1 && words.size(2) == cest::kRows &&
+                  words.size(3) == cest::kCols,
+              "words must be (B, M, 128, 128)");
+  TORCH_CHECK(words.is_contiguous(), "words must be contiguous");
+  const int64_t b = words.size(0), m = words.size(1);
+  TORCH_CHECK(lane_counts.scalar_type() == torch::kInt64 && lane_counts.numel() == b &&
+                  lane_counts.is_contiguous(),
+              "lane_counts must be int64 (B,)");
+  auto out = torch::zeros({b, cest::kBins}, words.options());
+  const uint32_t* w = words_u32(words);
+  const int64_t* counts = lane_counts.data_ptr<int64_t>();
+  int32_t* h = out.data_ptr<int32_t>();
+  for (int64_t i = 0; i < b; ++i) {
+    const uint32_t live = cest::counted_lanes(counts[i], lane_offset, static_cast<uint32_t>(m));
+    for (int64_t l = 0; l < live; ++l) {
+      const uint32_t* lane = w + (i * m + l) * cest::kLaneWords;
+      for (int j = 0; j < cest::kLaneSample; ++j) {
+        const uint32_t word = lane[cest::sample_offset(j)];
+        for (int k = 0; k < 4; ++k) ++h[i * cest::kBins + cest::byte_of(word, k)];
+      }
+    }
+  }
+  return out;
+}
+
+// compress_entropy: int32 (B, 256) counts -> float32 (B,) advisories, the
+// terms summed in the kernel's order.
+torch::Tensor estimate_entropy(torch::Tensor hist) {
+  TORCH_CHECK(hist.device().is_cpu(), "hist must lie on the CPU");
+  TORCH_CHECK(hist.scalar_type() == torch::kInt32 && hist.dim() == 2 &&
+                  hist.size(1) == cest::kBins && hist.is_contiguous(),
+              "hist must be contiguous int32 (B, 256)");
+  const int64_t b = hist.size(0);
+  auto out = torch::empty({b}, hist.options().dtype(torch::kFloat32));
+  const uint32_t* h = reinterpret_cast<const uint32_t*>(hist.data_ptr<int32_t>());
+  float* o = out.data_ptr<float>();
+  std::vector<float> terms(cest::kBins);
+  for (int64_t i = 0; i < b; ++i) {
+    const uint32_t* c = h + i * cest::kBins;
+    uint32_t total = 0;
+    for (int k = 0; k < cest::kBins; ++k) total += c[k];
+    for (int k = 0; k < cest::kBins; ++k) terms[k] = cest::entropy_term(c[k], total);
+    o[i] = cest::advisory(cest::reduce256(terms.data()));
+  }
+  return out;
+}
+
+// compress_estimate: the histogram and the entropy of whole blocks.
+torch::Tensor estimate(torch::Tensor words, torch::Tensor lane_counts) {
+  return estimate_entropy(estimate_histogram(words, lane_counts, 0));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("row_chain", &row_chain, "JTH-256 row chain on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("tweak"),
@@ -134,4 +197,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "JTH-256 row chain, lane fold and combine of whole blocks on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("lane_counts"),
           pybind11::arg("lengths"), pybind11::arg("tweak") = 0);
+  mod.def("estimate_histogram", &estimate_histogram,
+          "Sampled byte histograms of packed words on the CPU (twin)",
+          pybind11::arg("words"), pybind11::arg("lane_counts"),
+          pybind11::arg("lane_offset") = 0);
+  mod.def("estimate_entropy", &estimate_entropy,
+          "Entropy advisories of byte histograms on the CPU (twin)", pybind11::arg("hist"));
+  mod.def("estimate", &estimate, "Compressibility advisories of packed words on the CPU (twin)",
+          pybind11::arg("words"), pybind11::arg("lane_counts"));
 }

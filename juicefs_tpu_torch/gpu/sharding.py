@@ -308,12 +308,14 @@ def sharded_hash_step(mesh: Mesh):
 def sharded_estimate_step(mesh: Mesh):
     """Sharded compressibility estimator, identical to
     `compress_batch.estimate`: each device histograms its own lanes'
-    sampled bytes (the lane offset keeps the padded-lane mask global), the
-    lead device of each data row sums the histograms over lane and runs
-    the entropy, and the advisories are gathered over data on the home
-    device. The bins are integer-valued float32 counts (<= 16384 per bin,
-    exact), so the sum is exact in any order and the entropy sees the
-    one-device histogram bit for bit."""
+    sampled bytes (the lane offset keeps the padded-lane mask global; on a
+    card the kernel's `compress_histogram` entry), the lead device of each
+    data row sums the histograms over lane and runs the entropy (on a card
+    `compress_entropy`, the device function the fused one-card entry runs),
+    and the advisories are gathered over data on the home device. The bins
+    are integer-valued float32 counts (<= 16384 per bin, exact), so the sum
+    is exact in any order and the entropy sees the one-device histogram
+    bit for bit."""
     from .compress_batch import byte_histogram, entropy_ratio
 
     def est(words: ShardedTensor, lane_counts: ShardedTensor) -> torch.Tensor:
