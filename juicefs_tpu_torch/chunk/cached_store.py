@@ -4,7 +4,12 @@ pkg/chunk/cached_store.go).
 Write path (reference cached_store.go:282-516): slice data accumulates in
 per-block buffers; full blocks upload asynchronously on a worker pool
 (optionally staged to disk first for writeback mode); `finish` is the
-commit barrier that waits for every block.
+commit barrier that waits for every block. `ChunkConfig.buffer_size`
+(mount `--buffer-size`) bounds the bytes handed to the upload and not yet
+durable, store-wide: a writer waits in `WSlice._upload_block` while a
+block would take them past it (upstream waits in pkg/vfs/writer.go
+`fileWriter.Write` on `usedBufferSize`); staged writeback blocks, acked
+from disk, are not counted.
 
 Read path (reference cached_store.go:96-204,673-749): cache lookup →
 singleflight load (ranged GET, or full-block GET when compressed) →
@@ -65,6 +70,7 @@ _H_UPLOAD = stage_hist("chunk", "upload", "put")
 _H_STAGE = stage_hist("chunk", "upload", "stage")
 _H_PACK = stage_hist("chunk", "upload", "pack")
 _H_COMPRESS = stage_hist("chunk", "upload", "compress")
+_H_BUFFER_WAIT = stage_hist("chunk", "write", "buffer_wait")
 # elided-block memo bound: ~150 B an entry, so ~10 MiB at the cap
 _CANONICALS_MAX = 1 << 16
 
@@ -196,6 +202,11 @@ class ChunkConfig:
     # adaptive elision bypass (chunk/bypass.py) on --inline-dedup mounts:
     # sample the live dup density and skip hash+lookup when it is low
     dedup_bypass: bool = True
+    # write buffer bound in bytes (mount --buffer-size, reference
+    # pkg/vfs/writer.go usedBufferSize): a writer waits before handing a
+    # block to the upload while the store's handed-off, not yet durable
+    # bytes would pass it; 0 = unbounded
+    buffer_size: int = 0
 
 
 class TornDataError(IOError):
@@ -288,6 +299,11 @@ class CachedStore:
         # staged_mem_bytes RAM cap (re-read from the staging file)
         self._pending_staged: dict[str, object] = {}
         self._staged_mem = 0  # raw bytes currently pinned in RAM
+        # write buffer account (conf.buffer_size): bytes of blocks handed
+        # to the ingest stage or the upload pool whose futures are not
+        # done; writers wait on the condition, done-callbacks signal it
+        self._handed_off = 0
+        self._handoff_cond = threading.Condition(threading.Lock())
         # content indexer (chunk/indexer.py), attached by cmd.build_store
         # when the volume has a hash_backend
         self.indexer = None
@@ -640,6 +656,40 @@ class CachedStore:
         if canonical != key:
             yield canonical
 
+    @property
+    def handed_off_bytes(self) -> int:
+        """Bytes of blocks handed to the ingest stage or the upload pool
+        whose uploads are not yet done (the write buffer account)."""
+        return self._handed_off
+
+    def _hand_off(self, nbytes: int) -> Callable[..., None]:
+        """Enter `nbytes` into the write buffer account, first waiting
+        while that would take it past `conf.buffer_size` (upstream's
+        writer slow-down, woken by releases instead of fixed sleeps). A
+        block larger than the bound goes once nothing else is in flight.
+        Returns the release, a done-callback that acts once."""
+        bound = self.conf.buffer_size
+        cond = self._handoff_cond
+        with cond:
+            if bound > 0 and self._handed_off and self._handed_off + nbytes > bound:
+                with _TR.span("chunk", "write", stage="buffer_wait",
+                              hist=_H_BUFFER_WAIT) as sp:
+                    if sp.active:
+                        sp.set(bytes=nbytes, level=self._handed_off)
+                    while self._handed_off and self._handed_off + nbytes > bound:
+                        cond.wait()
+            self._handed_off += nbytes
+        held = [nbytes]
+
+        def release(_fut=None) -> None:
+            with cond:
+                if held[0]:
+                    self._handed_off -= held[0]
+                    held[0] = 0
+                    cond.notify_all()
+
+        return release
+
     def flush_all(self, timeout: float = 60.0) -> None:
         """Drain pending writeback uploads (used by fsync paths and tests)."""
         deadline = time.time() + timeout
@@ -846,6 +896,7 @@ class WSlice:
         self._blocks: dict[int, bytearray] = {}
         self._length = 0
         self._futures: list[Future] = []
+        self._releases: list[Callable[..., None]] = []  # write buffer account
         self._uploaded: set[int] = set()
         self._closed = False
 
@@ -941,14 +992,23 @@ class WSlice:
                     self.store._pool.submit(self.store._upload_staged, key, parked, ref)
                 )
         else:
+            # the write buffer bound: wait here, holding no lock of the
+            # store's, until the store's handed-off bytes leave room
+            release = self.store._hand_off(len(raw))
             # inline-dedup seam: with an ingest stage attached,
             # the block flows hash -> content-ref lookup -> elide-or-PUT;
             # without one it goes straight to the upload pool as before
-            ingest = self.store.ingest
-            if ingest is not None:
-                fut = ingest.submit(key, raw, ref)
-            else:
-                fut = self.store._pool.submit(self.store._put_or_stage, key, raw, ref)
+            try:
+                ingest = self.store.ingest
+                if ingest is not None:
+                    fut = ingest.submit(key, raw, ref)
+                else:
+                    fut = self.store._pool.submit(self.store._put_or_stage, key, raw, ref)
+            except BaseException:
+                release()
+                raise
+            self._releases.append(release)
+            fut.add_done_callback(release)
             fut.add_done_callback(
                 lambda f, k=key, r=raw: self.store.cache.cache(k, r) if not f.exception() else None
             )
@@ -975,6 +1035,11 @@ class WSlice:
             e = fut.exception()
             if e is not None:
                 errs.append(e)
+        # a done future's callbacks may still be running on its setter's
+        # thread: release here too, so the account holds none of this
+        # slice's blocks once finish returns
+        for release in self._releases:
+            release()
         self._closed = True
         if errs:
             raise errs[0]

@@ -370,6 +370,12 @@ class IngestPipeline:
         # hot-content digest cache: memcmp beats re-hashing
         # for the duplicate-heavy streams dedup exists for (0 disables)
         self._hot = HotContentCache(hot_bytes) if hot_bytes > 0 else None
+        # the queue holds every block the store's write buffer bound
+        # admits, and a flush marker: a writer under the bound never
+        # finds it full
+        bound = store.conf.buffer_size
+        if bound > 0:
+            queue_blocks = max(queue_blocks, -(-bound // store.conf.block_size) + 1)
         self._batcher = HashBatcher(
             HashPipeline(
                 PipelineConfig(

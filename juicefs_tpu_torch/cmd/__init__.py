@@ -61,8 +61,9 @@ def storage_for(fmt: Format):
 def chunk_conf(fmt: Format, args=None) -> ChunkConfig:
     """The chunk store's config from the volume Format and the command's
     options: the cache (`--cache-dir`, `--cache-size` MiB, `--writeback`),
-    the bandwidth limits, the object-plane resilience knobs and the
-    compress plane's backend, lanes and elision bypass."""
+    the write buffer bound (`--buffer-size` MiB), the bandwidth limits,
+    the object-plane resilience knobs and the compress plane's backend,
+    lanes and elision bypass."""
     cache_dirs = ("memory",)
     writeback = False
     if args is not None:
@@ -77,6 +78,9 @@ def chunk_conf(fmt: Format, args=None) -> ChunkConfig:
     )
     if getattr(args, "cache_size", None):
         conf.cache_size = int(args.cache_size) << 20
+    # the write buffer bound (mount --buffer-size, MiB; 0 = none)
+    if getattr(args, "buffer_size", None):
+        conf.buffer_size = int(args.buffer_size) << 20
     # bandwidth shaping (qos/limiter.py): CLI limits are Mbps, the
     # config carries bytes/s
     if getattr(args, "upload_limit", None):

@@ -13,6 +13,12 @@ where the compress plane runs (default cuda), as for `gc`, `fsck` and
 `gateway`. Nothing on the way to `os.fork()` touches the card: it is
 first used in the serving worker, inside `build_store`.
 
+`--buffer-size` (MiB, upstream's default 300) bounds the bytes of blocks
+handed to the upload and not yet durable: a writer waits in
+`WSlice._upload_block` while they would pass it, so one streaming writer
+can neither outrun the inline-dedup stage's queue nor its memory. 0 turns
+the bound off.
+
 In-process drives (tests, `chip_smoke.py`) call `start_mount(args)`, run
 `Mounted.srv.serve()` on a thread of their own and call `Mounted.close()`
 after it returns: `serve` installs signal handlers, which works only in
@@ -48,6 +54,10 @@ def add_parser(sub):
     p.add_argument("--cache-dir", default="", help="colon-separated dirs or 'memory'")
     p.add_argument("--cache-size", default=0, type=int, help="cache size MiB")
     p.add_argument("--writeback", action="store_true")
+    p.add_argument("--buffer-size", type=int, default=300,
+                   help="total write buffer in MiB: writers wait while the "
+                        "blocks handed to the upload and not yet durable "
+                        "would pass it (0 = no bound)")
     p.add_argument("--op-deadline", type=float, default=0,
                    help="object op wall budget in seconds (0 = default 60; "
                         "hung backend calls are abandoned, never pin a "

@@ -259,8 +259,11 @@ class DataWriter:
     def buffered_bytes(self) -> int:
         """Bytes currently held in un-uploaded write buffers — the memory
         accounting the reference keeps in pkg/utils/alloc.go + the
-        used_buffer_size_bytes gauge (vfs.go:1290)."""
-        total = 0
+        used_buffer_size_bytes gauge (vfs.go:1290): the blocks writers
+        still fill, and those handed to the upload that are not yet
+        durable (the store's write buffer account), as upstream's
+        usedBufferSize counts every page not yet uploaded."""
+        total = self.store.handed_off_bytes
         with self._lock:
             writers = list(self._files.values())
         for fw in writers:
