@@ -18,7 +18,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
   2. build    compile the three kernel sources from the repo's sources
               (sm_90a), one nvcc each, in parallel: jth256_row_chain.cu
               (the row chain, with a block-digests entry that also
-              combines each block and a lane-digests entry),
+              combines each block, one that also estimates each block for
+              the compress plane, and a lane-digests entry),
               jth256_combine.cu and compress_estimate.cu (the compress
               estimator: a fused entry, a histogram entry and an entropy
               entry); the process-wide sharding plane
@@ -29,7 +30,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               one-launch-per-batch gates hold on that rung. Every such gate
               also holds the fold to the kernels: on one card (or a mesh of
               one lane shard) each row-chain launch is the block-digests
-              entry and no combine runs; on a phase-14 mesh of lane shards
+              entry (or, for an ingest batch, the estimating block entry)
+              and no combine runs; on a phase-14 mesh of lane shards
               each is the lane-digests entry with one combine per data row;
               and the fold last ran in the kernels
               (hash_torch.last_fold_mode)
@@ -73,8 +75,8 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               byte, then a cold `gc --dedup` scan that reproduces the
               ingest-time digests.
               The ingest gates also hold the kernel to one launch per hash
-              batch, and the estimator to one launch of its fused entry
-              per estimate.
+              batch, each of the estimating block entry, and no estimator
+              launch of its own: every batch estimated inside its hash.
   9. ingest   a second drive of the same leg with 4 writers of 8-block
               slices, so hash batches hold many blocks. Phases 5, 8 and 9
               keep their meta in the port's sqlite3:// kv engine
@@ -85,7 +87,12 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               entries bit for bit the fused one, its workspace zero again
               after each launch; then its device ms at 1, 8, 13 and 32
               blocks beside its bound and the plain torch version on the
-              card
+              card. The row chain's estimating entry on the same batch:
+              one kernel, the block entry's digests and the estimator's
+              advisories bit for bit, its workspaces zero again; then its
+              device ms at 1, 8, 13, 25 and 32 blocks beside the block
+              entry alone and the pair it replaces (block entry, then
+              estimator), in turns
   11. main    the admin path through the port's CLI on a sqlite3:// volume
               of the same plan: `format --hash-backend pallas` (probes the
               card), a write of every block as its own slice through
@@ -356,6 +363,9 @@ COLD_BYTES = 128 << 20  # inputs a timed size cycles through: above the 50 MB L2
 # the estimator's timed sizes: one block, 8, the ingest cell's ~13-block
 # batch and a full batch
 ESTIMATE_BLOCKS = (1, 8, 13, 32)
+# the row chain's estimating entry's timed sizes: as ESTIMATE_BLOCKS, and
+# the one-writer ingest cell's ~25-block batch
+FUSED_BLOCKS = (1, 8, 13, 25, 32)
 SECTOR_BYTES = 32  # the least a device-memory read moves
 SPIN_CYCLES = 10_000_000  # torch.cuda._sleep ahead of queued calls (ms on an H100)
 QUEUED = 10  # calls queued behind one spin
@@ -703,7 +713,7 @@ def scan_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         print(f"scan launches {launches}")
         if launches["jth256_row_chain"] == 0:
             raise AssertionError("main path launched no jth256_row_chain kernel")
-        if launches["compress_estimate"] != 0:
+        if launches["compress_estimate"] != 0 or launches["jth256_block_digests_estimate"] != 0:
             raise AssertionError("gc --dedup's scan ran the compress estimator")
         if scan["hashed_now"] != len(live):
             raise AssertionError(f"hashed_now {scan['hashed_now']} != {len(live)} blocks")
@@ -1147,16 +1157,20 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
         n_objects = sum(1 for _ in storage.list_all("chunks/"))
         if n_objects != n_blocks - expect_dups:
             raise AssertionError(f"{n_objects} objects stored, want {n_blocks - expect_dups}")
-        # gate 3: every hashed block estimated on the card, no degrade, one
-        # launch of the estimator's fused entry per estimate
-        if comp["degraded"] != 0 or comp["estimated"] != hashed:
+        # gate 3: every hashed block estimated on the card inside its hash
+        # launch, no degrade: each estimate is one launch of the row chain's
+        # estimating entry, and no batch is estimated apart
+        if comp["degraded"] != 0 or comp["estimated"] != hashed \
+                or comp["estimated_in_hash"] != hashed:
             raise AssertionError(f"compress plane {comp}: want degraded 0, "
-                                 f"estimated == {hashed} hashed blocks")
+                                 f"estimated == estimated_in_hash == {hashed} hashed blocks")
         n_estimates = stages["chunk.ingest.estimate"]["count"]
-        if launches["compress_estimate"] != n_estimates or n_estimates != n_batches:
-            raise AssertionError(f"{launches['compress_estimate']} compress_estimate "
-                                 f"launches for {n_estimates} estimates of {n_batches} "
-                                 "hash batches")
+        fused = launches["jth256_block_digests_estimate"]
+        if fused != n_estimates or n_estimates != n_batches \
+                or launches["compress_estimate"] != 0:
+            raise AssertionError(f"{fused} jth256_block_digests_estimate and "
+                                 f"{launches['compress_estimate']} compress_estimate launches "
+                                 f"for {n_estimates} estimates of {n_batches} hash batches")
         # gate 4: one upload per hash batch (each block padded to 64 lanes)
         pad = bs // LANE_BYTES * LANE_BYTES
         if h2d != hashed * pad:
@@ -1318,7 +1332,7 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        words, counts, _lengths = pipe.shard_packed(packed)
+        words, counts, lengths = pipe.shard_packed(packed)
         torch.cuda.synchronize()
         upload_ms.append((time.perf_counter() - t0) * 1e3)
     compress_batch.estimate(words, counts)  # builds the library, sizes the workspace
@@ -1356,6 +1370,26 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
     if not (p[0] < 0.5 and p[1] < 0.5 and min(p[2:]) > 0.95):
         raise AssertionError(f"estimator predictions out of range: zero {p[0]}, "
                              f"text {p[1]}, random min {min(p[2:])}")
+    # the row chain's estimating entry on the same batch: one kernel, the
+    # block entry's digests and the fused entry's advisories bit for bit,
+    # both of its workspaces zero again
+    hash_torch.hash_estimate_device(words, counts, lengths)  # sizes the workspaces
+    kernels.reset_launches()
+    ops, (fused_d, fused_a) = card_ops(
+        lambda: hash_torch.hash_estimate_device(words, counts, lengths))
+    if len(ops) != 1 or ops[0][0] != "kernel" or "row_chain_kernel" not in ops[0][1]:
+        raise AssertionError(f"one hash and estimate ran {ops} on the card, want one "
+                             "row_chain_kernel")
+    key = (words.device.index, torch.cuda.current_stream().cuda_stream)
+    fused_work = [hash_torch._ARRIVALS[(e,) + key][0]
+                  for e in ("jth256_block_digests", "jth256_block_digests_estimate")]
+    if any(w.any() for w in fused_work):
+        raise AssertionError("the estimating entry's workspaces are not zero after a launch")
+    if not (torch.equal(fused_d, hash_torch.hash_device(words, counts, lengths))
+            and torch.equal(fused_a, pred)):
+        raise AssertionError("the estimating entry != the block entry and the estimator")
+    if kernels.LAUNCHES["jth256_block_digests_estimate"] != 1:
+        raise AssertionError(f"estimating entry launches {kernels.LAUNCHES}")
     t0 = time.perf_counter()
     compress_batch.estimate(words, counts)
     enqueue_ms = (time.perf_counter() - t0) * 1e3
@@ -1385,6 +1419,50 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
            "zero": p[0], "text": p[1], "random_min": min(p[2:]), "sizes": sizes,
            "card": smi}
     print("estimator " + json.dumps(out))
+    return out
+
+
+def hash_estimate_phase(gen: torch.Generator, smi: str) -> dict:
+    """The row chain's estimating entry (`hash_estimate_device`, an ingest
+    hash batch with its compress estimate in one launch) beside the block
+    entry alone and the pair it replaces (the block entry, then the
+    estimator's fused entry) at FUSED_BLOCKS, in turns over 3 rounds, each
+    time `time_queued`'s device ms on random words cycling through
+    COLD_BYTES; the medians of the rounds. At the ingest cells' 13 and 25
+    blocks the estimating entry should cost within 1.05x the block entry."""
+    phase("hash with its estimate in one launch")
+    m = BLOCK_BYTES // LANE_BYTES
+    sizes = {}
+    for nb in FUSED_BLOCKS:
+        copies = max(1, -(-COLD_BYTES // (nb * BLOCK_BYTES)))
+        pool = random_words(gen, nb * m * copies).reshape(copies, nb, m, ROWS, COLS)
+        cnt = torch.full((nb,), m, dtype=torch.int64, device="cuda")
+        lens = torch.full((nb,), BLOCK_BYTES, dtype=torch.int64, device="cuda")
+        hash_torch.hash_estimate_device(pool[0], cnt, lens)  # warm-up
+        kinds = {
+            "fused": lambda i: hash_torch.hash_estimate_device(pool[i % copies], cnt, lens,
+                                                               0x1000 + i),
+            "block": lambda i: hash_torch.hash_device(pool[i % copies], cnt, lens, 0x1000 + i),
+            "pair": lambda i: (hash_torch.hash_device(pool[i % copies], cnt, lens, 0x1000 + i),
+                               compress_batch.estimate(pool[i % copies], cnt)),
+        }
+        times = {k: [] for k in kinds}
+        for _round in range(3):
+            for k, fn in kinds.items():
+                times[k].append(time_queued(fn)[0])
+        row = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
+        row["fused_over_block"] = row["fused_ms"] / row["block_ms"]
+        row["fused_over_pair"] = row["fused_ms"] / row["pair_ms"]
+        sizes[nb] = row
+        flag = "" if nb not in (13, 25) or row["fused_over_block"] <= 1.05 else \
+            " (above the 1.05x expected)"
+        print(f"{nb} blocks: hash and estimate {row['fused_ms']:.4f} ms in one launch, "
+              f"hash alone {row['block_ms']:.4f} ms ({row['fused_over_block']:.3f}x){flag}, "
+              f"hash then estimator {row['pair_ms']:.4f} ms "
+              f"({row['fused_over_pair']:.3f}x); card {smi}")
+        del pool
+    out = {"sizes": sizes, "card": smi}
+    print("hash_estimate " + json.dumps(out))
     return out
 
 
@@ -1433,16 +1511,19 @@ def format_device_volume(meta_url: str, base: str, name: str) -> None:
         raise AssertionError(f"format rc {rc}")
 
 
-def expected_entries(n: int, lanes: int = 1) -> dict:
+def expected_entries(n: int, lanes: int = 1, estimating: int = 0) -> dict:
     """What `n` row-chain launches must be by entry: with whole blocks on
     each device (one card, or a mesh of one lane shard) every one is a
-    block-digests launch and no combine runs; on a mesh of `lanes` > 1
-    lane shards every one is a lane-digests launch, with one combine per
-    data row, i.e. per `lanes` row chains."""
+    block-digests launch, `estimating` of them of the entry that also
+    estimates the batch (an ingest hash batch), and no combine runs; on a
+    mesh of `lanes` > 1 lane shards every one is a lane-digests launch,
+    with one combine per data row, i.e. per `lanes` row chains."""
     if lanes == 1:
-        return {"jth256_block_digests": n, "jth256_lane_digests": 0, "jth256_combine": 0}
-    return {"jth256_block_digests": 0, "jth256_lane_digests": n,
-            "jth256_combine": n / lanes}
+        return {"jth256_block_digests": n - estimating,
+                "jth256_block_digests_estimate": estimating,
+                "jth256_lane_digests": 0, "jth256_combine": 0}
+    return {"jth256_block_digests": 0, "jth256_block_digests_estimate": 0,
+            "jth256_lane_digests": n, "jth256_combine": n / lanes}
 
 
 def launches(lanes: int = 1) -> int:
@@ -1451,7 +1532,7 @@ def launches(lanes: int = 1) -> int:
     plain torch fold."""
     torch.cuda.synchronize()
     n = kernels.LAUNCHES["jth256_row_chain"]
-    want = expected_entries(n, lanes)
+    want = expected_entries(n, lanes, kernels.LAUNCHES["jth256_block_digests_estimate"])
     got = {k: kernels.LAUNCHES[k] for k in want}
     if got != want:
         raise AssertionError(f"{n} row-chain launches on a plane of {lanes} lane shards: "
@@ -2349,7 +2430,8 @@ def mount_cli_run(meta_url: str, mp: str, block: bytes) -> dict:
                   - stats_value(before, "juicefs_ingest_put_elided"))
         gauge = gauge_launches(after)
         process_launches = gauge["jth256_row_chain"]
-        if {k: gauge[k] for k in expected_entries(0)} != expected_entries(process_launches):
+        if {k: gauge[k] for k in expected_entries(0)} != expected_entries(
+                process_launches, estimating=gauge["jth256_block_digests_estimate"]):
             raise AssertionError(f"mount process: kernel launches {gauge}; want every row "
                                  "chain a block-digests launch and no combine")
         umount_run = subprocess.run([sys.executable, "-m", "juicefs_tpu_torch.cmd", "umount", mp],
@@ -4389,6 +4471,7 @@ def main(argv=None) -> int:
     ingest = ingest_phase(rng, args.volume_gib)
     conc = concurrent_ingest_phase(rng, args.volume_gib)
     estimator = estimator_phase(rng, gen, smi)
+    fused = hash_estimate_phase(gen, smi)
     main_path = main_path_phase(rng, args.volume_gib, kind)
     serve = serve_phase(rng, args.volume_gib, smi)
     mount = mount_phase(rng, min(args.volume_gib, MOUNT_GIB), smi)
@@ -4415,9 +4498,11 @@ def main(argv=None) -> int:
                **sync["launches"], **config["launches"], **meta["launches"],
                **group["launches"], **stores["launches"], **shim["launches"]}
     # a read of the counts (launches()) fails unless every row chain of a
-    # one-card path was a block-digests launch with no combine, and every
-    # row chain of a lane-split mesh a lane-digests launch with one combine
-    # per data row; the shard phase gives the lane-split meshes' launches
+    # one-card path was a block-digests launch (of either block entry: an
+    # ingest batch takes the one that also estimates) with no combine, and
+    # every row chain of a lane-split mesh a lane-digests launch with one
+    # combine per data row; the shard phase gives the lane-split meshes'
+    # launches
     lane_by_path = shard["lane_launches"]
     block_by_path = {p: n - lane_by_path.get(p, 0) for p, n in by_path.items()}
     combine_by_path = {**{p: 0 for p in by_path},
@@ -4466,7 +4551,8 @@ def main(argv=None) -> int:
           f"{json.dumps(stores['legs'])} (encrypted leg {stores['encrypted']}); C shim "
           f"write {shim['write_gibs']:.4f} GiB/s, read {shim['read_gibs']:.4f} GiB/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
-    print(f"launches of jth256_block_digests: {block_by_path}; of jth256_lane_digests: "
+    print(f"launches of the block entries (jth256_block_digests and, on the ingest paths, "
+          f"jth256_block_digests_estimate): {block_by_path}; of jth256_lane_digests: "
           f"{lane_by_path}; of jth256_combine: {combine_by_path}; card {smi}")
     print(f"hash batch of 32 blocks: {breakdown['hash_ms']:.4f} ms in one launch, against "
           f"{breakdown['pair_ms']:.4f} ms for the pair (lane digests "
@@ -4480,9 +4566,10 @@ def main(argv=None) -> int:
                  "replaces": "juicefs_tpu/tpu/hash_jax.py:174",
                  "shape": f"{TIMING_LANES} lanes (1 GiB)", "library_ms": None}
     print(json.dumps({"kernels": [{
-        # one kernel, two C entries: a batch whose blocks lie whole on one
-        # device launches the block entry, a lane shard of a mesh the
-        # lane-digests entry
+        # one kernel, three C entries: a batch whose blocks lie whole on one
+        # device launches a block entry (its launches here include the
+        # estimating entry's, listed again below), a lane shard of a mesh
+        # the lane-digests entry
         "name": "jth256_block_digests", **row_chain,
         "launches": sum(block_by_path.values()),
         "launches_by_path": block_by_path,
@@ -4528,6 +4615,16 @@ def main(argv=None) -> int:
         "bound_ms": estimator["sizes"][13]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        # the block entry with the estimate: each one-card ingest hash batch
+        "name": "jth256_block_digests_estimate", **row_chain,
+        "shape": "13 blocks x 64 lanes (the ingest cell's batch)",
+        "launches_by_path": {
+            "ingest": ingest["launches"]["jth256_block_digests_estimate"],
+            "ingest_concurrent": conc["launches"]["jth256_block_digests_estimate"]},
+        "ms": fused["sizes"][13]["fused_ms"],
+        "block_ms": fused["sizes"][13]["block_ms"],
+        "pair_ms": fused["sizes"][13]["pair_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -32,11 +32,14 @@ construction raises instead of falling back to the CPU; `plane=` gives a
 plane of its own). Backend names go through `pipeline_backend`, so a
 reference mount's `xla` hashes on `cuda`. One packed placement per hash
 batch (`shard_packed`, through the sharding plane) feeds both the
-row-chain kernel (`hash_packed`) and the compress plane's estimator
-(`estimate_packed`), on the worker thread's stream. A failed upload, hash or estimate still degrades instead of
-failing a write, but it is logged at WARNING and counted: the batch's
-blocks in `errors` and `passthrough`, the estimator in the compress
-plane's `degraded`.
+row-chain kernel (`hash_packed`) and the compress plane's estimate, on
+the worker thread's stream: a batch on one device is hashed and
+estimated in one launch (`hash_packed(..., advise=True)`, the plane's
+`record_advisories`), a batch split over a mesh estimated apart
+(`estimate_packed`). A failed upload, hash or estimate still degrades
+instead of failing a write, but it is logged at WARNING and counted: the
+batch's blocks in `errors` and `passthrough`, the estimate in the
+compress plane's `degraded`.
 
 Crash windows (repaired offline by `gc --dedup`, cmd/gc.py):
   - elide committed (incref txn) but the slice never commits to meta:
@@ -331,6 +334,21 @@ class ContentRefs:
         return out
 
 
+def _hash_packed(pipe, plane, packed, n: int):
+    """A placed batch's digests, and its advisories where the compress
+    plane takes them from the hash launch (a batch on one device), else
+    None. A failure of that launch costs only the estimate in it: logged
+    and counted by the plane, which estimates apart from then on, and the
+    batch is hashed again alone."""
+    if plane is None or not plane.estimates_in_hash:
+        return pipe.hash_packed(*packed, n=n), None
+    try:
+        return pipe.hash_packed(*packed, n=n, advise=True)
+    except Exception as e:
+        plane.hash_estimate_failed(e)
+        return pipe.hash_packed(*packed, n=n), None
+
+
 class IngestPipeline:
     """Batched hash -> content-ref lookup -> elide-or-upload stage.
 
@@ -586,6 +604,7 @@ class IngestPipeline:
                 with _TR.span("gpu", "hash", stage="pack", hist=_H_HOST_PACK):
                     host = pack_blocks(raws, pad_lanes=pipe.config.pad_lanes)
                 packed = pipe.shard_packed(host)
+        advisories = None
         if raws:
             with _TR.span("chunk", "ingest", stage="hash",
                           hist=_H_HASH) as sp:
@@ -593,7 +612,7 @@ class IngestPipeline:
                     sp.set(blocks=len(raws), backend=self.backend,
                            hot_hits=len(batch) - len(raws))
                 if packed is not None:
-                    hashed = pipe.hash_packed(*packed, n=len(raws))
+                    hashed, advisories = _hash_packed(pipe, plane, packed, len(raws))
                 else:
                     hashed = pipe.hash_blocks(raws)
             for j, i in enumerate(unknown):
@@ -602,7 +621,10 @@ class IngestPipeline:
                     hot.insert(fps[i], hashed[j], batch[i][1])
         if packed is not None and plane is not None:
             with _TR.span("chunk", "ingest", stage="estimate", hist=_H_ESTIMATE):
-                plane.estimate_packed(packed)  # advisory; rides the upload
+                if advisories is not None:  # computed in the hash launch
+                    plane.record_advisories(advisories)
+                else:
+                    plane.estimate_packed(packed)  # advisory; rides the upload
         with _TR.span("chunk", "ingest", stage="await", hist=_H_AWAIT):
             self._await_inflight(digests)
         # advisory content-index rows for gc/fsck: elided blocks never

@@ -18,6 +18,13 @@ gpu/pipeline.py):
 `cuda` is the default. A volume's or mount's `xla` names it too, as
 `chunk/indexer.py pipeline_backend` maps it for hashing.
 
+A one-device ingest batch is estimated inside its hash launch (the row
+chain's `jth256_block_digests_estimate` entry, the same advisories bit for
+bit): the plane takes those (`record_advisories`, counted in
+`estimated_in_hash`) instead of launching its estimator, and runs
+`estimate_packed` for a batch split over a mesh, or after that launch
+failed (`hash_estimate_failed`: logged, counted in `degraded`).
+
 `estimate(words, lane_counts)` is the counterpart of the reference's
 XLA `_make_estimator` (not a Pallas kernel): it takes every 16th row and
 every 16th column of each 64 KiB lane (64 words = 256 bytes), builds a
@@ -289,6 +296,9 @@ class CompressPlane:
         self.bytes_out = 0
         self.degraded = 0
         self.estimated = 0
+        # blocks whose advisories came out of their hash launch
+        self.estimated_in_hash = 0
+        self._in_hash = True
         self.last_estimate: Optional[list] = None
 
     @property
@@ -382,15 +392,41 @@ class CompressPlane:
             n = getattr(packed, "batch", None)
             if n is not None:
                 pred = pred[:n]
-            pred = pred.cpu()
-            with self._lock:
-                self.estimated += len(pred)
-                self.last_estimate = [round(float(p), 4) for p in pred]
+            self._record(pred.cpu(), in_hash=False)
         except Exception as e:
             logger.warning("compress estimate degraded: %s", e)
             self.degraded += 1
             _DEGRADED.inc()
             self._est_fn = None  # broken device: stop paying for retries
+
+    @property
+    def estimates_in_hash(self) -> bool:
+        """True while the plane takes its advisories from the hash launch
+        (`HashPipeline.hash_packed(..., advise=True)`, a batch on one
+        device): it estimates on the device, and that launch has not
+        failed."""
+        return self._est_fn is not None and self._in_hash
+
+    def record_advisories(self, pred: torch.Tensor) -> None:
+        """Take a batch's advisories computed inside its hash launch: a
+        float32 host tensor, one a hashed block, as `estimate_packed`'s."""
+        self._record(pred, in_hash=True)
+
+    def _record(self, pred: torch.Tensor, in_hash: bool) -> None:
+        with self._lock:
+            self.estimated += len(pred)
+            if in_hash:
+                self.estimated_in_hash += len(pred)
+            self.last_estimate = [round(float(p), 4) for p in pred]
+
+    def hash_estimate_failed(self, e: Exception) -> None:
+        """The hash launch that also estimates failed: logged and counted, and
+        from now on the plane estimates apart from the hash
+        (`estimate_packed`), as before that launch existed."""
+        logger.warning("compress estimate in the hash launch degraded: %s", e)
+        self.degraded += 1
+        _DEGRADED.inc()
+        self._in_hash = False
 
     def _account(self, sizes_in: list, sizes_out: list, batch=True) -> None:
         n_in, n_out = sum(sizes_in), sum(sizes_out)
@@ -429,4 +465,5 @@ class CompressPlane:
                 if self.bytes_in else 0.0,
                 "degraded": self.degraded,
                 "estimated": self.estimated,
+                "estimated_in_hash": self.estimated_in_hash,
             }

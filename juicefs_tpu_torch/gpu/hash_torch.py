@@ -4,10 +4,13 @@ A hash batch on the card is one launch of a hand-written CUDA kernel:
 the row chain with the lane fold and the per-block combine in its
 epilogue (`gpu/kernels/jth256_row_chain.cu`, entry `jth256_block_digests`,
 counterpart of the Pallas `_pallas_row_chain` with `_lane_accs`,
-`_combine_accs` and `_fmix`). A lane shard of a mesh holds only part of
-each block, so it runs the entry that stops after the lane fold
-(`jth256_lane_digests`, `chain_digests`), and the mesh combines the
-gathered lane digests with `gpu/kernels/jth256_combine.cu` (`combine`).
+`_combine_accs` and `_fmix`). An ingest hash batch, whose words the
+compress plane estimates too, takes the entry that also estimates them
+(`jth256_block_digests_estimate`, `hash_estimate_device`). A lane shard
+of a mesh holds only part of each block, so it runs the entry that stops
+after the lane fold (`jth256_lane_digests`, `chain_digests`), and the
+mesh combines the gathered lane digests with
+`gpu/kernels/jth256_combine.cu` (`combine`).
 
 Every wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version only for a tensor on the CPU: `row_chain_ref`,
@@ -347,7 +350,8 @@ def lane_digests(words: torch.Tensor, tweak: int = 0,
 
 
 # Arrival counters of the kernels whose last CTA to arrive finishes a block
-# (the block entry; the compress estimator, whose counts sit beside them),
+# (the block entries; the compress estimator, whose counts sit beside them;
+# the estimating block entry's counts),
 # one zeroed int32 buffer per (entry, card, stream) with the blocks it
 # holds: every launch leaves its workspace at zero, and launches on one
 # stream run in order, so the pipeline's host threads can share a stream's
@@ -397,11 +401,48 @@ def hash_device(words: torch.Tensor, lane_counts: torch.Tensor,
     combine in its epilogue (counted under jth256_row_chain and
     jth256_block_digests); on the CPU the plain versions
     (`combine_accs(chain_digests_ref(...))`). Any other device raises."""
-    global _LAST_KERNEL_MODE, _LAST_FOLD_MODE
     if words.dim() != 4:
         raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
     if words.device.type == "cpu":
         return combine(lane_digests(words, tweak), lane_counts, lengths)
+    out = torch.empty((words.shape[0], 8), dtype=torch.int64, device=words.device)
+    _launch_blocks("jth256_block_digests", words, lane_counts, lengths, tweak, out)
+    return out
+
+
+def hash_estimate_device(words: torch.Tensor, lane_counts: torch.Tensor,
+                         lengths: torch.Tensor,
+                         tweak: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Digests and compress advisories of a packed batch already on its
+    device: int32 words (B, M, 128, 128) -> `hash_device`'s int64 (B, 8)
+    digests and `compress_batch.estimate`'s float32 (B,) advisories of the
+    same words.
+
+    On the card, one launch of the row chain with the lane fold, the
+    combine and the estimate in its epilogue (counted under
+    jth256_row_chain and jth256_block_digests_estimate); on the CPU the
+    plain versions. Any other device raises."""
+    if words.dim() != 4:
+        raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        from .compress_batch import estimate_ref
+
+        return (combine(lane_digests(words, tweak), lane_counts, lengths),
+                estimate_ref(words, lane_counts))
+    b = words.shape[0]
+    out = torch.empty((b, 8), dtype=torch.int64, device=words.device)
+    advisories = torch.empty((b,), dtype=torch.float32, device=words.device)
+    _launch_blocks("jth256_block_digests_estimate", words, lane_counts, lengths, tweak, out,
+                   advisories)
+    return out, advisories
+
+
+def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
+                   lengths: torch.Tensor, tweak: int, out: torch.Tensor,
+                   advisories: torch.Tensor | None = None) -> None:
+    """One launch of a block entry on the words' card into `out` (and, for
+    the estimating entry, `advisories`), on the current stream."""
+    global _LAST_KERNEL_MODE, _LAST_FOLD_MODE
     # one pass of checks: this call runs once per hash batch, 214 one-block
     # batches in a one-writer ingest, so its host time is on the path
     b, m = words.shape[0], words.shape[1]
@@ -409,28 +450,27 @@ def hash_device(words: torch.Tensor, lane_counts: torch.Tensor,
             or not words.is_contiguous():
         raise ValueError(f"words must be contiguous int32 (B, M >= 1, {ROWS}, {COLS}), "
                          f"got {words.dtype} {tuple(words.shape)}")
-    entry = "jth256_block_digests"
     _cuda_words(words, entry)
     dev = words.device
     counts, lens = _int64_on(lane_counts, dev), _int64_on(lengths, dev)
     if counts.shape != (b,) or lens.shape != (b,):
         raise ValueError(f"lane_counts and lengths must be ({b},), got "
                          f"{tuple(counts.shape)} and {tuple(lens.shape)}")
-    out = torch.empty((b, 8), dtype=torch.int64, device=dev)
     if b:
         lane_out = torch.empty((b * m, 8), dtype=torch.int32, device=dev)  # scratch
         fn = kernels.function(entry)
         switch = dev.index != torch.cuda.current_device()
         with torch.cuda.device(dev) if switch else contextlib.nullcontext():
             stream = _stream(dev)
-            arrivals = _arrivals(dev, stream, b)
-            _check_rc(entry, fn(words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(),
-                                lens.data_ptr(), arrivals.data_ptr(), out.data_ptr(), b, m,
-                                int(tweak) & MASK, stream))
+            args = [words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(), lens.data_ptr(),
+                    _arrivals(dev, stream, b).data_ptr(), out.data_ptr()]
+            if advisories is not None:
+                args += [zeroed_workspace(entry, dev, stream, b, 256).data_ptr(),
+                         advisories.data_ptr()]
+            _check_rc(entry, fn(*args, b, m, int(tweak) & MASK, stream))
         kernels.LAUNCHES["jth256_row_chain"] += 1
         kernels.LAUNCHES[entry] += 1
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
-    return out
 
 
 def digests_to_numpy(h: torch.Tensor) -> np.ndarray:

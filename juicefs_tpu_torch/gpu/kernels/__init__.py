@@ -11,12 +11,15 @@ source is rebuilt and an unchanged one is loaded as it is.
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a run sets
 the counts to 0 with `reset_launches()` and reads them afterwards to show
 that a path went through the kernel. `jth256_row_chain` counts every
-launch of the row-chain kernel under either entry, `jth256_block_digests`
+launch of the row-chain kernel under any entry, `jth256_block_digests`
 those of the entry that also combines each block (a one-card hash batch),
+`jth256_block_digests_estimate` those of the entry that also estimates
+each block for the compress plane (a one-card ingest hash batch),
 `jth256_lane_digests` those of the lane-fold entry alone (a lane shard of
 a mesh), and `jth256_combine` the per-block combine kernel that a
 lane-split mesh runs after its gather. `compress_estimate` counts the
-compress estimator's fused entry (one launch a one-card estimate),
+compress estimator's fused entry (one launch a one-card estimate apart
+from the hash),
 `compress_histogram` and `compress_entropy` the two entries a mesh's
 estimate runs (a histogram per shard, an entropy per data row). The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
@@ -44,11 +47,13 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_block_digests": 0,
+                            "jth256_block_digests_estimate": 0,
                             "jth256_lane_digests": 0, "jth256_combine": 0,
                             "compress_estimate": 0, "compress_histogram": 0,
                             "compress_entropy": 0}
 # the source file each C entry is built from
 ENTRY_SOURCES = {"jth256_block_digests": "jth256_row_chain",
+                 "jth256_block_digests_estimate": "jth256_row_chain",
                  "jth256_lane_digests": "jth256_row_chain",
                  "jth256_combine": "jth256_combine",
                  "compress_estimate": "compress_estimate",
@@ -153,6 +158,10 @@ _SIGNATURES = {
     #  tweak, stream)
     "jth256_block_digests": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_uint,
                                                      ctypes.c_uint, ctypes.c_void_p],
+    # (words, lane_digests, lane_counts, lengths, arrivals, out, counts,
+    #  advisories, n_blocks, m, tweak, stream)
+    "jth256_block_digests_estimate": [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
     # (accs, lane_counts, lengths, out, n_blocks, m, stream)
     "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
@@ -216,6 +225,9 @@ def load_twin():
     and lengths and returns int64 (B, 8); `block_digests(words, m,
     lane_counts, lengths, tweak)` takes int32 (B*M, 128, 128) words and
     returns int64 (B, 8), as the block entry computes them;
+    `block_digests_estimate(words, m, lane_counts, lengths, tweak)` those
+    digests and float32 (B,) advisories, as the estimating entry computes
+    them;
     `estimate_histogram(words, lane_counts, lane_offset=0)` takes int32
     (B, M, 128, 128) words and int64 counts and returns int32 (B, 256)
     sampled byte counts, `estimate_entropy(hist)` int32 (B, 256) counts

@@ -1,6 +1,7 @@
-// JTH-256 row chain on Hopper (sm_90a), hand-written CUDA C++, with two
-// epilogues: the lane fold alone, or the lane fold and the per-block
-// combine in one launch.
+// JTH-256 row chain on Hopper (sm_90a), hand-written CUDA C++, with three
+// epilogues: the lane fold alone; the lane fold and the per-block combine
+// in one launch; or those and the compress plane's estimate of each block
+// (compress_estimate.cu's, bit for bit) in one launch.
 //
 // Replaces the Pallas kernel juicefs_tpu/tpu/hash_jax.py _pallas_row_chain
 // (pl.pallas_call at hash_jax.py:228) and the fold the TPU program runs
@@ -8,6 +9,9 @@
 // both entries, and _combine_accs (:103) with _fmix (:57) under the second:
 //   jth256_lane_digests:  words (L, 128, 128) uint32 -> (L, 8) lane digests
 //   jth256_block_digests: words (B*M, 128, 128) uint32 -> (B, 8) digests
+//   jth256_block_digests_estimate: the same digests, and (B,) float32
+//                         advisories min(entropy / 8, 1) of the blocks'
+//                         sampled bytes (the ingest path's hash batch)
 // L = B*M lanes of 64 KiB, M lanes a block. Lane l runs with the lane index
 // lane_offset + l mod m (uint32 arithmetic), as _lane_states(words,
 // lane_offset) and _lane_accs(s, lane_offset) do: a device that holds lanes
@@ -79,9 +83,45 @@
 // of it serial on the last CTA; unrolling the chain, acquire-release
 // instead of sequentially consistent fences and loading each block's count
 // and length while the chain runs each took a few percent off it.
+//
+// The estimate, in the third entry (row_chain_kernel<true, true>; the
+// other two instances compile without it). The estimator samples every
+// 16th row and every 16th column of each lane (compress_estimate.cuh), and
+// the chain streams a lane through the ring in chunks of 16 rows, one
+// thread a column: each sampled word is row 0 of a chunk, read from the
+// ring by a thread whose column is a multiple of 16 (2 threads a warp).
+// That thread bins the word's 4 bytes, as read and before the tweak, into
+// a 256-bin shared histogram as the chunk arrives (cest::bin_word). After
+// the chain the lane's non-zero bins go to the block's 256 counts in
+// device memory as L2 reductions, unless the lane is at or past its
+// block's lane count (it is still hashed and still takes its ticket): the
+// combine's release fence and ticket publish them with the lane digests.
+// The block's last CTA takes the counts with atomicExch(0), which leaves
+// them zero for the next launch (one zeroed workspace per stream, as the
+// arrival counters), and computes the advisory on warps 1-3 while threads
+// 0-7 of warp 0 run the combine's chain, so the two serial tails overlap:
+// the same integer counts and cest::reduce256's order of the sum as
+// compress_estimate.cu, so the same bits. A second launch would read again
+// words the hash held in a register moments before, and cost a launch's
+// worth of card time (~5-6 us at 1-32 blocks, PERF.md section 6). The
+// histogram and the entropy's scratch (~1.1 KiB) lie after the ring in
+// this instance's dynamic shared memory, which keeps 6 CTAs resident per
+// SM as the block entry does (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// entry jth256_row_chain_occupancy). Measured on an H100 80GB HBM3 at 1 / 8
+// / 13 / 25 / 32 blocks of random words, this entry takes 1.07-1.08 / 1.04
+// / 1.04-1.05 / 1.02-1.03 / 1.02-1.03x the block entry's time, against
+// 1.50 / 1.30 / 1.22 / 1.18 / 1.15x for the block entry followed by the
+// standalone estimator. Taken out one at a time, the binning in the chain
+// costs 1.6-6.8 points of that, the flush of the bins 0.9-3.7 and the
+// entropy none. Flushing in an order rotated by lane did not help, and
+// keeping the sample in shared memory and binning it on warps 2-3 while
+// warp 0 folds came out at 1.031-1.097x.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "compress_estimate.cuh"
 #include "jth256_step.cuh"
 
 namespace {
@@ -95,6 +135,17 @@ constexpr long long kLaneBytes = jth256::kRows * jth256::kCols * 4;
 #endif
 constexpr int kStages = JTH256_STAGES;
 static_assert(kStages >= 1 && kStages <= kChunks, "ring of 1-8 chunks");
+constexpr int kRingBytes = kStages * kStageBytes;
+// the estimate's sample is row 0 of each chunk
+static_assert(kStageRows == cest::kStride && jth256::kCols == cest::kCols &&
+                  jth256::kRows == cest::kRows,
+              "the chain's chunks are the estimate's sampled rows");
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// the last CTA's entropy runs on warps 1-3 while warp 0 combines
+constexpr int kEntropyWarps = jth256::kCols / kWarp - 1;                       // 3
+constexpr int kEntropyThreads = kEntropyWarps * kWarp;                         // 96
+constexpr int kBinsPerThread = (cest::kBins + kEntropyThreads - 1) / kEntropyThreads;  // 3
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -155,11 +206,83 @@ struct BlockArgs {
   long long* out;                // (B, 8) digest words
 };
 
-template <bool kBlocks>
+// The estimating entry's extra arguments; the other instances take an
+// empty struct in their place.
+struct EstimateArgs {
+  uint32_t* counts;  // (>= B, 256) sampled byte counts, zero at launch and exit
+  float* out;        // (B,) advisories
+};
+struct NoEstimate {};
+template <bool kEstimate>
+using EstimateArg = typename std::conditional<kEstimate, EstimateArgs, NoEstimate>::type;
+
+// The estimating instance's shared memory, after the ring in its dynamic
+// shared memory (the other instances have none of it).
+struct EstimateSmem {
+  uint32_t hist[cest::kBins];            // the lane's sampled bytes
+  uint32_t total_parts[kEntropyWarps];   // the last CTA's count sums, a warp each
+  float group_sums[cest::kGroups];       // the last CTA's 8 group sums of terms
+  uint32_t counted;                      // the lane is below its block's count
+};
+
+template <bool kEstimate>
+constexpr int smem_bytes() {
+  return kRingBytes + (kEstimate ? static_cast<int>(sizeof(EstimateSmem)) : 0);
+}
+
+// Named barrier 1 over warps 1-3, the last CTA's entropy, which warp 0
+// (the combine) never waits on.
+__device__ __forceinline__ void entropy_barrier() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kEntropyThreads) : "memory");
+}
+
+// The advisory of a block, run by warps 1-3 of its last CTA, thread
+// kWarp + i holding the counts of bins i + 96k (k < 3, bins < 256); valid
+// in thread kWarp. Bin i + 96k lies in group w + 3k (w = i / 32) at lane
+// i % 32, so each warp sums its groups with the butterflies of
+// cest::reduce256, and warp 1 sums the 8 group sums as compress_estimate.cu's
+// cta_term_sum does: the same bits as the standalone entry's.
+__device__ __forceinline__ float entropy_advisory(const uint32_t (&bins)[kBinsPerThread],
+                                                  EstimateSmem* es) {
+  const uint32_t lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp - 1;
+  uint32_t t = 0;
+#pragma unroll
+  for (int k = 0; k < kBinsPerThread; ++k) t += bins[k];
+  for (int off = kWarp / 2; off > 0; off /= 2) t += __shfl_xor_sync(kFull, t, off);
+  if (lane == 0) es->total_parts[w] = t;
+  entropy_barrier();
+  uint32_t total = 0;
+#pragma unroll
+  for (int i = 0; i < kEntropyWarps; ++i) total += es->total_parts[i];
+#pragma unroll
+  for (int k = 0; k < kBinsPerThread; ++k) {
+    const uint32_t g = w + k * kEntropyWarps;
+    if (g < cest::kGroups) {  // the same in the warp
+      float v = cest::entropy_term(bins[k], total);
+      for (int off = cest::kGroup / 2; off > 0; off /= 2) {
+        v = cest::add_rn(v, __shfl_xor_sync(kFull, v, off));
+      }
+      if (lane == 0) es->group_sums[g] = v;
+    }
+  }
+  entropy_barrier();
+  float v = 0.0f;
+  if (w == 0) {
+    v = lane < cest::kGroups ? es->group_sums[lane] : 0.0f;
+    for (int off = cest::kGroups / 2; off > 0; off /= 2) {
+      v = cest::add_rn(v, __shfl_xor_sync(kFull, v, off));
+    }
+  }
+  return cest::advisory(v);
+}
+
+template <bool kBlocks, bool kEstimate>
 __global__ void __launch_bounds__(jth256::kCols)
 row_chain_kernel(const uint32_t* __restrict__ words,
                  uint32_t* __restrict__ lane_out, uint32_t m,
-                 uint32_t lane_offset, uint32_t tweak, BlockArgs blk) {
+                 uint32_t lane_offset, uint32_t tweak, BlockArgs blk,
+                 EstimateArg<kEstimate> est) {
+  static_assert(kBlocks || !kEstimate, "the estimate is a block entry's");
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ uint32_t states[jth256::kCols];
@@ -171,6 +294,11 @@ row_chain_kernel(const uint32_t* __restrict__ words,
   if (col == 0) {
     for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  EstimateSmem* es = nullptr;
+  if constexpr (kEstimate) {
+    es = reinterpret_cast<EstimateSmem*>(ring + kRingBytes);
+    for (uint32_t i = col; i < cest::kBins; i += jth256::kCols) es->hist[i] = 0;
   }
   __syncthreads();
   if (col == 0) {
@@ -196,6 +324,10 @@ row_chain_kernel(const uint32_t* __restrict__ words,
     mbar_wait(&full[slot], static_cast<uint32_t>(c / kStages) & 1u);
     const uint32_t* tile =
         reinterpret_cast<const uint32_t*>(ring + slot * kStageBytes) + col;
+    if constexpr (kEstimate) {
+      // row 0 of the chunk, as read: a sampled word in every 16th column
+      if (cest::sampled(c * kStageRows, col)) cest::bin_word(es->hist, tile[0]);
+    }
 #pragma unroll
     for (int r = 0; r < kStageRows; ++r) {
       s = jth256::row_step(s, tile[r * jth256::kCols] ^ tweak);
@@ -211,7 +343,13 @@ row_chain_kernel(const uint32_t* __restrict__ words,
   }
 
   // the lane fold; the barrier also retires the ring (every chunk consumed)
+  // and completes the lane's histogram
   states[col] = s;
+  if constexpr (kEstimate) {
+    if (col == 0) {
+      es->counted = static_cast<uint32_t>(lane % m) < cest::counted_lanes(count, 0, m);
+    }
+  }
   __syncthreads();
   if (col < jth256::kDigestWords) {
     uint32_t acc = jth256::fold_seed(lane_idx, col);
@@ -223,7 +361,17 @@ row_chain_kernel(const uint32_t* __restrict__ words,
   }
   if constexpr (kBlocks) {
     const long long b = lane / m;
-    __syncthreads();  // the lane's words are written (CTA scope)
+    if constexpr (kEstimate) {
+      // a counted lane's bins into its block's counts: L2 reductions, which
+      // the barrier and the release fence below order before the ticket
+      if (es->counted) {
+        for (uint32_t i = col; i < cest::kBins; i += jth256::kCols) {
+          const uint32_t v = es->hist[i];
+          if (v != 0) atomicAdd(&est.counts[b * cest::kBins + i], v);
+        }
+      }
+    }
+    __syncthreads();  // the lane's words (and counts) are written (CTA scope)
     if (col == 0) {
       // release: the fence is cumulative over the writes the barrier
       // ordered before it, so the ticket publishes the lane's words
@@ -235,6 +383,19 @@ row_chain_kernel(const uint32_t* __restrict__ words,
     }
     __syncthreads();
     if (!is_last) return;
+    uint32_t bins[kBinsPerThread] = {};
+    if constexpr (kEstimate) {
+      // warps 1-3 take the block's counts, which also zeroes them for the
+      // next launch; the exchanges are in flight while the ring is staged
+      if (col >= kWarp) {
+        uint32_t* block_counts = est.counts + b * cest::kBins;
+#pragma unroll
+        for (int k = 0; k < kBinsPerThread; ++k) {
+          const uint32_t bin = col - kWarp + k * kEntropyThreads;
+          if (bin < cest::kBins) bins[k] = atomicExch(&block_counts[bin], 0u);
+        }
+      }
+    }
     const uint32_t live = block_live;
     const uint32_t* block_src = lane_out + b * m * jth256::kDigestWords;
     uint32_t* stage = reinterpret_cast<uint32_t*>(ring);
@@ -246,26 +407,34 @@ row_chain_kernel(const uint32_t* __restrict__ words,
       blk.out[b * jth256::kDigestWords + col] = static_cast<long long>(
           jth256::finish_word(stage, jth256::kDigestWords, live, block_len, col));
     }
+    if constexpr (kEstimate) {
+      // beside the combine's chain on warp 0, not after it
+      if (col >= kWarp) {
+        const float adv = entropy_advisory(bins, es);
+        if (col == kWarp) est.out[b] = adv;
+      }
+    }
     if (col == 0) blk.arrivals[b] = 0;  // zero again for the next launch
   }
 }
 
-template <bool kBlocks>
+template <bool kBlocks, bool kEstimate>
 int launch(const void* words, void* lane_out, long long n_lanes, unsigned int m,
-           unsigned int lane_offset, unsigned int tweak, BlockArgs blk, void* stream) {
-  constexpr int smem = kStages * kStageBytes;
+           unsigned int lane_offset, unsigned int tweak, BlockArgs blk,
+           EstimateArg<kEstimate> est, void* stream) {
+  constexpr int smem = smem_bytes<kEstimate>();
   if (n_lanes <= 0 || n_lanes > 0x7FFFFFFFLL || m == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the block entry stages a block's lane digests in the ring
   if (kBlocks && (n_lanes % m != 0 ||
-                  static_cast<long long>(m) * jth256::kDigestWords * 4 > smem)) {
+                  static_cast<long long>(m) * jth256::kDigestWords * 4 > kRingBytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(words) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
   }
-  auto kernel = row_chain_kernel<kBlocks>;
+  auto kernel = row_chain_kernel<kBlocks, kEstimate>;
   if (smem > 48 * 1024) {
     // above 48 KiB a CTA's dynamic shared memory must be allowed per
     // function on the current device; setting it on each such launch
@@ -277,13 +446,24 @@ int launch(const void* words, void* lane_out, long long n_lanes, unsigned int m,
   kernel<<<static_cast<unsigned int>(n_lanes), jth256::kCols, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<uint32_t*>(lane_out), m,
-      lane_offset, tweak, blk);
+      lane_offset, tweak, blk, est);
   return static_cast<int>(cudaGetLastError());
+}
+
+BlockArgs block_args(const void* lane_counts, const void* lengths, void* arrivals,
+                     void* out) {
+  return BlockArgs{static_cast<const long long*>(lane_counts),
+                   static_cast<const long long*>(lengths),
+                   static_cast<unsigned int*>(arrivals), static_cast<long long*>(out)};
+}
+
+bool bad_blocks(long long n_blocks, unsigned int m) {
+  return n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL / (m ? m : 1);
 }
 
 }  // namespace
 
-// Both entries launch on `stream` (a cudaStream_t passed as a pointer) and
+// Every entry launches on `stream` (a cudaStream_t passed as a pointer) and
 // return the cudaError_t of the launch (0 on success); the wrapper raises
 // on any other value. They do not synchronise.
 
@@ -292,8 +472,8 @@ extern "C" int jth256_lane_digests(const void* words, void* out,
                                    long long n_lanes, unsigned int m,
                                    unsigned int lane_offset,
                                    unsigned int tweak, void* stream) {
-  return launch<false>(words, out, n_lanes, m, lane_offset, tweak, BlockArgs{},
-                       stream);
+  return launch<false, false>(words, out, n_lanes, m, lane_offset, tweak, BlockArgs{},
+                              NoEstimate{}, stream);
 }
 
 // (B, 8) int64 block digests of n_blocks whole blocks of m lanes: the lane
@@ -305,12 +485,38 @@ extern "C" int jth256_block_digests(const void* words, void* lane_digests,
                                     void* arrivals, void* out, long long n_blocks,
                                     unsigned int m, unsigned int tweak,
                                     void* stream) {
-  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL / (m ? m : 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const BlockArgs blk{static_cast<const long long*>(lane_counts),
-                      static_cast<const long long*>(lengths),
-                      static_cast<unsigned int*>(arrivals),
-                      static_cast<long long*>(out)};
-  return launch<true>(words, lane_digests, n_blocks * m, m, 0u, tweak, blk, stream);
+  if (bad_blocks(n_blocks, m)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true, false>(words, lane_digests, n_blocks * m, m, 0u, tweak,
+                             block_args(lane_counts, lengths, arrivals, out),
+                             NoEstimate{}, stream);
+}
+
+// jth256_block_digests and compress_estimate in one launch: the (B, 8)
+// digests into `out` as that entry writes them, and the (B,) float32
+// advisories of the same words (compress_estimate's, bit for bit) into
+// `advisories`. `counts` holds >= n_blocks x 256 uint32 that are zero at
+// the launch and zero again after it.
+extern "C" int jth256_block_digests_estimate(const void* words, void* lane_digests,
+                                             const void* lane_counts, const void* lengths,
+                                             void* arrivals, void* out, void* counts,
+                                             void* advisories, long long n_blocks,
+                                             unsigned int m, unsigned int tweak,
+                                             void* stream) {
+  if (bad_blocks(n_blocks, m)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true, true>(words, lane_digests, n_blocks * m, m, 0u, tweak,
+                            block_args(lane_counts, lengths, arrivals, out),
+                            EstimateArgs{static_cast<uint32_t*>(counts),
+                                         static_cast<float*>(advisories)},
+                            stream);
+}
+
+// The resident CTAs per SM of the block entry (estimate 0) or the
+// estimating entry (1) on the current device, into *ctas; returns the
+// cudaError_t of the query.
+extern "C" int jth256_row_chain_occupancy(int estimate, int* ctas) {
+  return static_cast<int>(
+      estimate ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     ctas, row_chain_kernel<true, true>, jth256::kCols, smem_bytes<true>())
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     ctas, row_chain_kernel<true, false>, jth256::kCols, smem_bytes<false>()));
 }

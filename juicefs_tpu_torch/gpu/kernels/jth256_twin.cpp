@@ -1,12 +1,14 @@
-// CPU twin of jth256_row_chain.cu (both entries), jth256_combine.cu and
-// compress_estimate.cu: the same per-lane chain, lane fold and combine,
-// and the same estimator sample, mask, binning and entropy, built with g++
-// from the same jth256_step.cuh and compress_estimate.cuh, so the CPU
-// tests can hold the arithmetic the card runs against the JAX package (no
-// nvcc is needed to build it). row_chain returns the chain's states, which
-// neither entry writes out: it checks the row steps alone.
+// CPU twin of jth256_row_chain.cu (all three entries), jth256_combine.cu
+// and compress_estimate.cu: the same per-lane chain, lane fold and
+// combine, and the same estimator sample, mask, binning and entropy, built
+// with g++ from the same jth256_step.cuh and compress_estimate.cuh, so the
+// CPU tests can hold the arithmetic the card runs against the JAX package
+// (no nvcc is needed to build it). row_chain returns the chain's states,
+// which no entry writes out: it checks the row steps alone.
 #include <torch/extension.h>
 
+#include <algorithm>
+#include <tuple>
 #include <vector>
 
 #include "compress_estimate.cuh"
@@ -24,17 +26,32 @@ void check_words(const torch::Tensor& words, int64_t m) {
   TORCH_CHECK(m >= 1, "m must be >= 1");
 }
 
-// Final states of lane `lane` (its index in the batch) into s[128].
+// Final states of lane `lane` (its index in the batch) into s[128]. With
+// `hist`, the words the estimate samples are binned into it as the chain
+// reads them, before the tweak, as the estimating entry's threads do.
 void chain_lane(const uint32_t* w, int64_t lane, int64_t m, uint32_t tw,
-                uint32_t loff, uint32_t* s) {
+                uint32_t loff, uint32_t* s, uint32_t* hist = nullptr) {
   const uint32_t* lw = w + lane * jth256::kRows * jth256::kCols;
   const uint32_t idx = loff + static_cast<uint32_t>(lane % m);
   for (uint32_t col = 0; col < static_cast<uint32_t>(jth256::kCols); ++col) {
     uint32_t st = jth256::init_state(col, idx);
     for (int r = 0; r < jth256::kRows; ++r) {
-      st = jth256::row_step(st, lw[r * jth256::kCols + col] ^ tw);
+      const uint32_t word = lw[r * jth256::kCols + col];
+      if (hist != nullptr && cest::sampled(r, col)) cest::bin_word(hist, word);
+      st = jth256::row_step(st, word ^ tw);
     }
     s[col] = st;
+  }
+}
+
+// The lane fold of lane index `idx`'s states s[128] into o[8].
+void fold_lane(const uint32_t* s, uint32_t idx, uint32_t* o) {
+  for (uint32_t k = 0; k < static_cast<uint32_t>(jth256::kDigestWords); ++k) {
+    uint32_t acc = jth256::fold_seed(idx, k);
+    for (uint32_t gi = 0; gi < static_cast<uint32_t>(jth256::kGroups); ++gi) {
+      acc = jth256::fold_step(acc, s[gi * jth256::kDigestWords + k], gi);
+    }
+    o[k] = acc;
   }
 }
 
@@ -67,14 +84,7 @@ torch::Tensor lane_digests(torch::Tensor words, int64_t m, int64_t tweak,
   const uint32_t loff = static_cast<uint32_t>(lane_offset);
   for (int64_t lane = 0; lane < n_lanes; ++lane) {
     chain_lane(words_u32(words), lane, m, static_cast<uint32_t>(tweak), loff, s);
-    const uint32_t idx = loff + static_cast<uint32_t>(lane % m);
-    for (uint32_t k = 0; k < static_cast<uint32_t>(jth256::kDigestWords); ++k) {
-      uint32_t acc = jth256::fold_seed(idx, k);
-      for (uint32_t gi = 0; gi < static_cast<uint32_t>(jth256::kGroups); ++gi) {
-        acc = jth256::fold_step(acc, s[gi * jth256::kDigestWords + k], gi);
-      }
-      o[lane * jth256::kDigestWords + k] = acc;
-    }
+    fold_lane(s, loff + static_cast<uint32_t>(lane % m), o + lane * jth256::kDigestWords);
   }
   return out;
 }
@@ -182,6 +192,38 @@ torch::Tensor estimate(torch::Tensor words, torch::Tensor lane_counts) {
   return estimate_entropy(estimate_histogram(words, lane_counts, 0));
 }
 
+// jth256_block_digests_estimate: block_digests' digests, and the advisories
+// of the same words from the sample the chain bins as it reads it (a lane
+// at or past its block's lane count adds nothing), in the kernel's order.
+std::tuple<torch::Tensor, torch::Tensor> block_digests_estimate(
+    torch::Tensor words, int64_t m, torch::Tensor lane_counts, torch::Tensor lengths,
+    int64_t tweak) {
+  check_words(words, m);
+  TORCH_CHECK(words.size(0) % m == 0, "words must hold whole blocks of m lanes");
+  const int64_t n_lanes = words.size(0), b = n_lanes / m;
+  TORCH_CHECK(lane_counts.scalar_type() == torch::kInt64 && lane_counts.numel() == b &&
+                  lane_counts.is_contiguous(),
+              "lane_counts must be int64 (B,)");
+  auto accs = torch::empty({n_lanes, jth256::kDigestWords}, words.options());
+  auto hist = torch::zeros({b, cest::kBins}, words.options());
+  uint32_t* o = reinterpret_cast<uint32_t*>(accs.data_ptr<int32_t>());
+  uint32_t* h = reinterpret_cast<uint32_t*>(hist.data_ptr<int32_t>());
+  const int64_t* counts = lane_counts.data_ptr<int64_t>();
+  uint32_t s[jth256::kCols], lane_hist[cest::kBins];
+  for (int64_t lane = 0; lane < n_lanes; ++lane) {
+    std::fill(lane_hist, lane_hist + cest::kBins, 0u);
+    chain_lane(words_u32(words), lane, m, static_cast<uint32_t>(tweak), 0u, s, lane_hist);
+    fold_lane(s, static_cast<uint32_t>(lane % m), o + lane * jth256::kDigestWords);
+    const int64_t i = lane / m;
+    if (static_cast<uint32_t>(lane % m) <
+        cest::counted_lanes(counts[i], 0, static_cast<uint32_t>(m))) {
+      for (int k = 0; k < cest::kBins; ++k) h[i * cest::kBins + k] += lane_hist[k];
+    }
+  }
+  auto digests = combine(accs.view({b, m, jth256::kDigestWords}), lane_counts, lengths);
+  return {digests, estimate_entropy(hist)};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("row_chain", &row_chain, "JTH-256 row chain on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("tweak"),
@@ -205,4 +247,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "Entropy advisories of byte histograms on the CPU (twin)", pybind11::arg("hist"));
   mod.def("estimate", &estimate, "Compressibility advisories of packed words on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("lane_counts"));
+  mod.def("block_digests_estimate", &block_digests_estimate,
+          "Block digests and compressibility advisories in one pass on the CPU (twin)",
+          pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("lane_counts"),
+          pybind11::arg("lengths"), pybind11::arg("tweak") = 0);
 }

@@ -31,6 +31,7 @@ explicit request for the plain torch path that the CPU tests make.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Iterable, Iterator, Optional
@@ -257,11 +258,18 @@ class HashPipeline:
             "reason": f"{self.config.backend} backend",
         }
 
-    def hash_packed(self, words, counts, lengths,
-                    n: int | None = None) -> list[bytes]:
+    def hash_packed(self, words, counts, lengths, n: int | None = None,
+                    advise: bool = False):
         """Digest a pre-packed batch (host arrays, or the placed tensors of
         `shard_packed`); `n` slices the outputs back to the original batch
-        size when the input was padded."""
+        size when the input was padded.
+
+        With `advise` it returns (digests, advisories): a batch that lies
+        whole on one device of the plane (one tensor, not split over a
+        mesh) is hashed and estimated for the compress plane in one launch
+        (`ShardPlane.advised`), its advisories a float32 host tensor of n;
+        any other batch is hashed alone, with advisories None, for the
+        caller to estimate apart."""
         if n is None:
             n = int(words.shape[0])
         if isinstance(lengths, (torch.Tensor, ShardedTensor)):
@@ -269,6 +277,7 @@ class HashPipeline:
         else:
             lens = np.asarray(lengths)
         nbytes = int(lens[:n].astype(np.int64).sum())
+        advisories = None
         with _TR.span("gpu", "hash", stage="dispatch",
                       hist=_H_DISPATCH) as sp:
             if sp.active:
@@ -279,11 +288,15 @@ class HashPipeline:
             else:
                 if isinstance(words, np.ndarray):
                     _H2D_BYTES.inc(words.nbytes)
-                out = self.plane.hash_packed(words, counts, lengths, n=n)
+                with self.plane.advised() if advise else contextlib.nullcontext() as advice:
+                    out = self.plane.hash_packed(words, counts, lengths, n=n)
+                if advice:
+                    advisories = advice[0][:n].cpu()
         _BATCH_BLOCKS.observe(n)
         _BLOCKS_HASHED.inc(n)
         _HASH_BYTES.inc(nbytes)
-        return digests_to_bytes(out)[:n]
+        digests = digests_to_bytes(out)[:n]
+        return (digests, advisories) if advise else digests
 
 
 _FLUSH = object()  # kick(): hash whatever is buffered NOW (commit barrier)

@@ -60,6 +60,7 @@ CPU (the CPU tests pass `[torch.device("cpu")] * n`).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -76,6 +77,7 @@ from .hash_torch import (
     cuda_device_count,
     digests_to_numpy,
     hash_device,
+    hash_estimate_device,
     lane_digests,
 )
 
@@ -396,6 +398,8 @@ class ShardPlane:
             self.degrade_reason = "single device"
         self.home = self.mesh.home if self.mesh is not None else devs[0]
         self._on_plane = set(devs)
+        # the list `advised()` collects a thread's advisories in
+        self._advice = threading.local()
         if self.mesh is not None:
             self._hash_sharded = sharded_hash_step(self.mesh)
             self._scan_sharded = sharded_scan_step(self.mesh)
@@ -482,13 +486,34 @@ class ShardPlane:
         """Queue the hash program and return the (not yet synchronised)
         int64 (B, 8) digests on the home device, padding included. Host
         arrays are placed here (one counted placement); a batch placed by
-        `put_packed` is not placed again."""
+        `put_packed` is not placed again. Inside `advised()` on this
+        thread, a batch that lies whole on one device is also estimated for
+        the compress plane in the same launch (`hash_estimate_device`)."""
         if not self._placed(words):
             words, lane_counts, lengths = self.put_packed(words, lane_counts, lengths)
         if isinstance(words, ShardedTensor):
             return self._hash_sharded(words, lane_counts, lengths)
         dev = words.device
-        return hash_device(words, _as_int64(lane_counts, dev), _as_int64(lengths, dev))
+        counts, lens = _as_int64(lane_counts, dev), _as_int64(lengths, dev)
+        advice = getattr(self._advice, "sink", None)
+        if advice is None:
+            return hash_device(words, counts, lens)
+        digests, advisories = hash_estimate_device(words, counts, lens)
+        advice.append(advisories)
+        return digests
+
+    @contextlib.contextmanager
+    def advised(self):
+        """Within the block, each hash on this thread (`hash_async`) of a
+        batch that lies whole on one device appends its float32 (B,)
+        compress advisories, computed in the hash's launch, to the list
+        this yields; a batch split over a mesh appends none."""
+        advice: list = []
+        self._advice.sink = advice
+        try:
+            yield advice
+        finally:
+            self._advice.sink = None
 
     def hash_packed(self, words, lane_counts, lengths, n: int | None = None) -> np.ndarray:
         """(B, M, 128, 128) -> (n, 8) uint32 digests, identical to the

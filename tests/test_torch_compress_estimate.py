@@ -2,7 +2,11 @@
 juicefs_tpu_torch/gpu/kernels/compress_estimate.cu (its sample, lane mask,
 binning and entropy, from the same compress_estimate.cuh) against the
 port's plain torch estimator, an independent numpy histogram and the JAX
-package's `_make_estimator` (XLA on the CPU).
+package's `_make_estimator` (XLA on the CPU); and the twin of the row
+chain's estimating entry (jth256_row_chain.cu,
+`jth256_block_digests_estimate`: the sample binned as the chain reads it)
+against the twin's block entry and estimator and the JAX package's hash
+and estimator.
 
 Histograms must be exact. The JAX estimator returns advisories only, so
 its histogram is held through the plain torch version, which
@@ -17,9 +21,11 @@ import pytest
 import torch
 
 from juicefs_tpu.tpu import compress_batch as ref_cb
+from juicefs_tpu.tpu import hash_jax as hj
 from juicefs_tpu_torch.gpu import compress_batch as cb
+from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels
-from torch_estimate_packs import SHAPES, np_histogram, pack
+from torch_estimate_packs import SHAPES, np_histogram, pack, pack_with_lengths
 from torch_estimate_packs import as_int32 as _t
 
 
@@ -119,3 +125,66 @@ def test_estimator_wrappers_refuse_other_devices():
         cb.byte_histogram(words, counts)
     with pytest.raises(ValueError, match="cuda or cpu"):
         cb.entropy_ratio(torch.empty((1, 256), device="meta"))
+
+
+# (B, M): one 4 MiB block, the ingest cells' ~13- and ~25-block batches (at
+# fewer lanes a block), and a batch whose M is not a power of two
+FUSED_SHAPES = [(1, 64), (13, 4), (25, 2), (3, 3)]
+
+
+@pytest.mark.parametrize("tweak", [0, 0x5BD1E995])
+@pytest.mark.parametrize("b,m", FUSED_SHAPES)
+def test_twin_hash_estimate_matches_block_entry_estimator_and_jax(twin, b, m, tweak):
+    """The estimating entry's arithmetic (twin) on whole, short and
+    dead-laned blocks: its digests equal the twin's block entry and the JAX
+    package's hash of the tweaked words; its advisories equal the twin's
+    estimator bit for bit (the tweak does not reach the sample) and the JAX
+    package's `_make_estimator` within 1e-5."""
+    words, counts, lengths = pack_with_lengths(61 + 3 * b + m, b, m)
+    tc, tl = torch.from_numpy(counts), torch.from_numpy(lengths)
+    flat = _t(words).reshape(b * m, 128, 128)
+    digests, adv = twin.block_digests_estimate(flat, m, tc, tl, tweak)
+    assert digests.dtype == torch.int64 and tuple(digests.shape) == (b, 8)
+    assert adv.dtype == torch.float32 and tuple(adv.shape) == (b,)
+    assert torch.equal(digests, twin.block_digests(flat, m, tc, tl, tweak))
+    want = np.asarray(hj.hash_packed_jax(words ^ np.uint32(tweak), counts.astype(np.int32),
+                                         lengths.astype(np.uint32)))
+    np.testing.assert_array_equal(digests.numpy().astype(np.uint32), want)
+    assert torch.equal(adv, twin.estimate(_t(words), tc))
+    ref = np.asarray(ref_cb._make_estimator()(words, counts.astype(np.int32)))
+    np.testing.assert_allclose(adv.numpy(), ref, rtol=0, atol=1e-5)
+    if tweak:
+        assert torch.equal(adv, twin.block_digests_estimate(flat, m, tc, tl, 0)[1])
+
+
+def test_twin_hash_estimate_counts_no_dead_lane(twin):
+    """A block with no counted lane has the advisory 0 and a lane count past
+    M counts M lanes, as the estimator's entries give; the dead lanes are
+    still hashed (the digests are the block entry's)."""
+    words, _counts, lengths = pack_with_lengths(9, 3, 4)
+    counts = np.array([0, 9, 2], dtype=np.int64)
+    tc, tl = torch.from_numpy(counts), torch.from_numpy(lengths)
+    flat = _t(words).reshape(12, 128, 128)
+    digests, adv = twin.block_digests_estimate(flat, 4, tc, tl)
+    assert float(adv[0]) == 0.0
+    assert torch.equal(adv, twin.estimate(_t(words), tc))
+    assert torch.equal(digests, twin.block_digests(flat, 4, tc, tl))
+
+
+@pytest.mark.parametrize("b,m", FUSED_SHAPES[:2])
+def test_hash_estimate_device_plain_on_the_cpu(twin, b, m):
+    """`hash_estimate_device` on a CPU tensor runs the plain versions and
+    launches nothing: the twin's digests exactly, the plain estimator's
+    advisories."""
+    words, counts, lengths = pack_with_lengths(71 + b, b, m)
+    tw, tc, tl = _t(words), torch.from_numpy(counts), torch.from_numpy(lengths)
+    before = dict(kernels.LAUNCHES)
+    digests, adv = ht.hash_estimate_device(tw, tc, tl)
+    assert dict(kernels.LAUNCHES) == before
+    assert digests.dtype == torch.int64 and tuple(digests.shape) == (b, 8)
+    assert adv.dtype == torch.float32 and tuple(adv.shape) == (b,)
+    flat = tw.reshape(b * m, 128, 128)
+    assert torch.equal(digests, twin.block_digests(flat, m, tc, tl))
+    assert torch.equal(digests, ht.hash_device(tw, tc, tl))
+    assert torch.equal(adv, cb.estimate(tw, tc))
+    np.testing.assert_allclose(adv.numpy(), twin.estimate(tw, tc).numpy(), rtol=0, atol=1e-5)

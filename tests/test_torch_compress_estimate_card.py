@@ -1,10 +1,14 @@
 """The compress estimator's kernel (juicefs_tpu_torch/gpu/kernels/
 compress_estimate.cu) on the card against the plain torch version on the
 CPU: histograms exact, advisories within 1e-5 (float32 log2 and the order
-of the sum differ). Every test needs a CUDA card and skips without one;
-the kernel's arithmetic is held on the CPU through its g++ twin
-(test_torch_compress_estimate.py). This file imports no JAX.
+of the sum differ); and the row chain's estimating entry
+(jth256_row_chain.cu, `jth256_block_digests_estimate`) against the block
+entry and the estimator's fused entry on the card, bit for bit. Every test
+needs a CUDA card and skips without one; the kernels' arithmetic is held
+on the CPU through their g++ twin (test_torch_compress_estimate.py). This
+file imports no JAX.
 """
+import ctypes
 
 import json
 import os
@@ -17,10 +21,12 @@ from juicefs_tpu_torch.gpu import compress_batch as cb
 from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels, sharding
 from juicefs_tpu_torch.gpu.jth256 import pack_blocks
-from torch_estimate_packs import SHAPES, blocks, np_histogram, pack
+from torch_estimate_packs import SHAPES, blocks, np_histogram, pack, pack_with_lengths
 from torch_estimate_packs import as_int32 as _t
 
 ESTIMATE_ENTRIES = ("compress_estimate", "compress_histogram", "compress_entropy")
+HASH_ENTRIES = ("jth256_row_chain", "jth256_block_digests", "jth256_block_digests_estimate",
+                "jth256_lane_digests", "jth256_combine")
 
 
 @pytest.fixture
@@ -144,3 +150,95 @@ def test_shard_plane_advisories_equal_one_card(card):
         assert torch.equal(got.cpu(), want.cpu()), k
         assert _launches() == {"compress_estimate": 0, "compress_histogram": rows * lanes,
                                "compress_entropy": rows}
+
+
+def _hash_launches() -> dict:
+    return {k: kernels.LAUNCHES[k] for k in HASH_ENTRIES + ESTIMATE_ENTRIES}
+
+
+def _fused(words, counts, lengths, tweak=0):
+    return ht.hash_estimate_device(words, counts, lengths, tweak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 13, 25, 32])
+def test_estimating_hash_entry_matches_both_entries(card, b):
+    """The estimating entry's digests equal the block entry's and its
+    advisories the estimator's fused entry's, bit for bit, on seeded packs
+    of whole, short and dead-laned blocks; with a tweak the digests follow
+    it and the advisories do not (the estimate samples the words as
+    read)."""
+    words, counts, lengths = pack_with_lengths(300 + b, b, 64)
+    dw = _t(words).to(card)
+    dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
+    want_d = ht.hash_device(dw, dc, dl)
+    want_a = cb.estimate(dw, dc)
+    got_d, got_a = _fused(dw, dc, dl)
+    tw_d, tw_a = _fused(dw, dc, dl, 0x5BD1E995)
+    torch.cuda.synchronize()
+    assert torch.equal(got_d, want_d) and torch.equal(got_a, want_a)
+    assert torch.equal(tw_d, ht.hash_device(dw, dc, dl, 0x5BD1E995))
+    assert torch.equal(tw_a, want_a) and not torch.equal(tw_d, got_d)
+    np.testing.assert_allclose(got_a.cpu().numpy(),
+                               cb.estimate(_t(words), torch.from_numpy(counts)).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_estimating_hash_entry_is_one_launch_and_one_kernel(card, tmp_path):
+    """A hash batch with its estimate is one launch of the estimating entry
+    and one kernel, a `row_chain_kernel` (the name the benchmark's roofline
+    reads), with no memset or fill before it."""
+    words, counts, lengths = pack_with_lengths(17, 13, 64)
+    dw = _t(words).to(card)
+    dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
+    _fused(dw, dc, dl)  # builds the library and makes the stream's workspaces
+    kernels.reset_launches()
+    ops = _card_ops(lambda: _fused(dw, dc, dl), tmp_path)
+    want = dict.fromkeys(HASH_ENTRIES + ESTIMATE_ENTRIES, 0)
+    want.update(jth256_row_chain=1, jth256_block_digests_estimate=1)
+    assert _hash_launches() == want
+    assert len(ops) == 1 and ops[0][0] == "kernel", ops
+    assert "row_chain_kernel" in ops[0][1]
+
+
+@pytest.mark.cuda
+def test_estimating_hash_entry_workspaces_are_zero_after_each_launch(card):
+    """The arrival counters and the count workspace of a stream are zero
+    again after every launch, so a second call agrees bit for bit; a larger
+    batch gets larger workspaces, and another stream its own."""
+    words, counts, lengths = pack_with_lengths(19, 32, 4)
+    dw = _t(words).to(card)
+    dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        first = _fused(dw[:1], dc[:1], dl[:1])
+        whole = _fused(dw, dc, dl)
+        again = _fused(dw, dc, dl)
+        torch.cuda.synchronize()
+        key = (dw.device.index, stream.cuda_stream)
+        arrivals, _ = ht._ARRIVALS[("jth256_block_digests",) + key]
+        work, size = ht._ARRIVALS[("jth256_block_digests_estimate",) + key]
+    assert size >= 32 and work.numel() == size * 256
+    assert not work.any() and not arrivals.any()
+    for got, want in zip(again + first, whole + tuple(x[:1] for x in whole)):
+        assert torch.equal(got, want)
+    default = _fused(dw, dc, dl)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(default, whole))
+
+
+@pytest.mark.cuda
+def test_estimating_hash_entry_keeps_six_ctas_per_sm(card):
+    """The estimate's shared memory leaves the row chain at 6 resident CTAs
+    per SM, as the block entry."""
+    lib = kernels.load_library("jth256_row_chain")
+    fn = lib.jth256_row_chain_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    for estimate in (0, 1):
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(card):
+            assert fn(estimate, ctypes.byref(ctas)) == 0
+        assert ctas.value == 6, (estimate, ctas.value)

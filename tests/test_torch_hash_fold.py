@@ -196,9 +196,11 @@ def test_wrappers_validate_input():
 def test_kernel_entries_have_sources_and_signatures():
     """The live C entries, each in its source with a ctypes signature; the
     row chain's states entry is gone."""
-    assert set(kernels.ENTRY_SOURCES) == {"jth256_block_digests", "jth256_lane_digests",
-                                          "jth256_combine", "compress_estimate",
-                                          "compress_histogram", "compress_entropy"}
+    assert set(kernels.ENTRY_SOURCES) == {"jth256_block_digests",
+                                          "jth256_block_digests_estimate",
+                                          "jth256_lane_digests", "jth256_combine",
+                                          "compress_estimate", "compress_histogram",
+                                          "compress_entropy"}
     assert set(kernels._SIGNATURES) == set(kernels.ENTRY_SOURCES)
     for src in set(kernels.ENTRY_SOURCES.values()):
         with open(f"{kernels.KERNEL_DIR}/{src}.cu") as f:
@@ -208,6 +210,7 @@ def test_kernel_entries_have_sources_and_signatures():
                 assert f'extern "C" int {entry}(' in text
         assert 'extern "C" int jth256_row_chain(' not in text
     assert set(kernels.LAUNCHES) == {"jth256_row_chain", "jth256_block_digests",
+                                     "jth256_block_digests_estimate",
                                      "jth256_lane_digests", "jth256_combine",
                                      "compress_estimate", "compress_histogram",
                                      "compress_entropy"}
@@ -304,7 +307,33 @@ def test_hash_device_is_one_launch_on_the_card(card):
     again = ht.hash_device(dev_words, t_counts.to(card), t_lengths.to(card))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 2,
+                                "jth256_block_digests_estimate": 0,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
                                 "compress_estimate": 0, "compress_histogram": 0,
                                 "compress_entropy": 0}
     assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_hash_estimate_device_is_one_launch_on_the_card(card):
+    """On the card a hash batch with its estimate is one launch of the
+    estimating entry, its digests the block entry's and its advisories the
+    estimator's, bit for bit, twice in a row on the stream."""
+    from juicefs_tpu_torch.gpu import compress_batch as cb
+
+    words, counts, lengths = _block_inputs(98, 3, 64)
+    dev_words = _t(words).to(card)
+    t_counts = torch.from_numpy(counts.astype(np.int64)).to(card)
+    t_lengths = torch.from_numpy(lengths.astype(np.int64)).to(card)
+    want = ht.hash_device(dev_words, t_counts, t_lengths)
+    want_adv = cb.estimate(dev_words, t_counts)
+    kernels.reset_launches()
+    for _ in range(2):
+        got, adv = ht.hash_estimate_device(dev_words, t_counts, t_lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(adv, want_adv)
+    assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 0,
+                                "jth256_block_digests_estimate": 2,
+                                "jth256_lane_digests": 0, "jth256_combine": 0,
+                                "compress_estimate": 0, "compress_histogram": 0,
+                                "compress_entropy": 0}

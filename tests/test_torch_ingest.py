@@ -555,6 +555,119 @@ def test_concurrent_writers_fill_device_batches_and_elide_exactly(meta, tmp_path
         store.close()
 
 
+def _count_calls(monkeypatch, obj, name) -> list:
+    """Record each call of obj.name (still made) in the returned list."""
+    calls: list = []
+    orig = getattr(obj, name)
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(obj, name, counted)
+    return calls
+
+
+def _estimates_seen(store, datas, sid):
+    """Write `datas` as one slice and flush; returns (ingest stats, blocks
+    hashed, hash batches) of the write."""
+    batches = global_registry()._metrics["juicefs_torch_batch_blocks"]
+    hashed0, n0 = _counter("juicefs_torch_blocks_hashed"), batches.total
+    _write(store, sid, *datas)
+    store.ingest.flush()
+    return (store.ingest.stats(), _counter("juicefs_torch_blocks_hashed") - hashed0,
+            batches.total - n0)
+
+
+def test_one_device_batches_are_estimated_in_their_hash_launch(meta, tmp_path, monkeypatch):
+    """A batch on one device is hashed and estimated in one call of the
+    estimating hash (one launch of the row chain's estimating entry on the
+    card), and the compress plane's own estimator never runs: every hashed
+    block is estimated, each batch once, elision exact."""
+    from juicefs_tpu_torch.gpu import sharding
+
+    store, counting = _device_store(meta, tmp_path, "blob-in-hash", batch_blocks=4,
+                                    hot_bytes=0)
+    try:
+        fused = _count_calls(monkeypatch, sharding, "hash_estimate_device")
+        apart = _count_calls(monkeypatch, store.compress_plane, "estimate_packed")
+        dup = os.urandom(BS)
+        datas = [dup, os.urandom(BS), dup, os.urandom(BS), os.urandom(BS), os.urandom(BS)]
+        st, hashed, n_batches = _estimates_seen(store, datas, 990)
+        comp = st["compress"]
+        assert hashed == 6 and len(fused) == n_batches > 0 and apart == []
+        assert comp["estimated"] == comp["estimated_in_hash"] == hashed
+        assert comp["degraded"] == 0 and len(store.compress_plane.last_estimate) >= 1
+        assert st["put_elided"] == 1 and st["passthrough"] == st["errors"] == 0
+        r = store.new_reader(990, 6 * BS)
+        assert [bytes(r.read(j * BS, BS)) for j in range(6)] == datas
+    finally:
+        store.close()
+
+
+def test_mesh_split_batches_are_estimated_apart(meta, tmp_path, monkeypatch):
+    """A batch split over a mesh (ShardedTensors) keeps the estimate apart
+    from the hash: the mesh's hash program, then the compress plane's
+    estimator, which follows the pack; nothing is estimated in a hash
+    launch and nothing degrades."""
+    from juicefs_tpu_torch.gpu import sharding
+
+    mesh = sharding.ShardPlane([torch.device("cpu")] * 2)
+    assert mesh.mesh is not None
+    store, counting = _device_store(meta, tmp_path, "blob-mesh", batch_blocks=4,
+                                    hot_bytes=0, plane=mesh)
+    try:
+        apart = _count_calls(monkeypatch, store.compress_plane, "estimate_packed")
+        dup = os.urandom(BS)
+        datas = [dup, os.urandom(BS), dup, os.urandom(BS), os.urandom(BS)]
+        st, hashed, n_batches = _estimates_seen(store, datas, 995)
+        comp = st["compress"]
+        assert hashed == 5 and len(apart) == n_batches > 0
+        assert all(isinstance(packed[0], sharding.ShardedTensor) for (packed,) in apart)
+        assert comp["estimated"] == hashed and comp["estimated_in_hash"] == 0
+        assert comp["degraded"] == 0
+        assert st["put_elided"] == 1 and st["passthrough"] == st["errors"] == 0
+        r = store.new_reader(995, 5 * BS)
+        assert [bytes(r.read(j * BS, BS)) for j in range(5)] == datas
+    finally:
+        store.close()
+
+
+def test_failed_hash_estimate_launch_degrades_only_the_estimate(meta, tmp_path, monkeypatch,
+                                                                caplog):
+    """A failed launch of the estimating hash costs only the estimate in it:
+    logged and counted once in the compress plane's `degraded`, the batch
+    hashed again alone and estimated apart from then on; no block passes
+    through, every block is hashed, elided or uploaded as without it."""
+    from juicefs_tpu_torch.gpu import sharding
+
+    store, counting = _device_store(meta, tmp_path, "blob-in-hash-lost", batch_blocks=4,
+                                    hot_bytes=0)
+    try:
+        def lost(*args, **kwargs):
+            raise RuntimeError("estimating launch lost")
+
+        monkeypatch.setattr(sharding, "hash_estimate_device", lost)
+        passthrough0 = _counter("juicefs_ingest_passthrough")
+        dup = os.urandom(BS)
+        datas = [dup, os.urandom(BS), dup, os.urandom(BS), os.urandom(BS), os.urandom(BS)]
+        with caplog.at_level(logging.WARNING):
+            st, hashed, n_batches = _estimates_seen(store, datas, 998)
+        comp = st["compress"]
+        assert hashed == 6 and n_batches >= 2
+        assert comp["degraded"] == 1 and not store.compress_plane.estimates_in_hash
+        assert comp["estimated"] == hashed and comp["estimated_in_hash"] == 0
+        assert st["passthrough"] == st["errors"] == 0
+        assert _counter("juicefs_ingest_passthrough") == passthrough0
+        assert st["put_elided"] == 1 and st["uploaded"] == 5
+        assert "compress estimate in the hash launch degraded: estimating launch lost" \
+            in caplog.text
+        r = store.new_reader(998, 6 * BS)
+        assert [bytes(r.read(j * BS, BS)) for j in range(6)] == datas
+    finally:
+        store.close()
+
+
 def test_hot_content_cache_persists_across_mounts(meta, tmp_path):
     storage = FileStorage(str(tmp_path / "blob-hot"))
     storage.create()
@@ -689,6 +802,9 @@ def test_slice_matches_reference(tmp_path):
     assert pst["compress"].pop("backend") == "cuda"
     rst["compress"].pop("lanes")
     pst["compress"].pop("lanes")
+    # the port estimates each batch inside its hash call (the reference has
+    # no such count)
+    assert pst["compress"].pop("estimated_in_hash") == pst["compress"]["estimated"] > 0
     assert pst == rst
     assert pst["put_elided"] == expect_dups and pst["uploaded"] == n - expect_dups
     assert pst["passthrough"] == pst["errors"] == pst["race_collapsed"] == 0

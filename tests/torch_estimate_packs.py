@@ -31,13 +31,19 @@ def pack(seed: int, b: int, m: int):
     """Packed words (B, M, 128, 128) uint32 with random words in every lane
     past each block's lane count (the mask must drop them), and the counts
     as int64."""
+    words, counts, _lengths = pack_with_lengths(seed, b, m)
+    return words, counts
+
+
+def pack_with_lengths(seed: int, b: int, m: int):
+    """`pack`'s words and counts, and the blocks' byte lengths as int64."""
     rng = np.random.default_rng(seed)
-    words, counts, _lengths = pack_blocks(blocks(rng, b, m), pad_lanes=m)
+    words, counts, lengths = pack_blocks(blocks(rng, b, m), pad_lanes=m)
     words = words.copy()
     for i in range(b):
         dead = words[i, int(counts[i]):]
         dead[...] = rng.integers(0, 1 << 32, size=dead.shape, dtype=np.uint32)
-    return words, counts.astype(np.int64)
+    return words, counts.astype(np.int64), lengths.astype(np.int64)
 
 
 def np_histogram(words: np.ndarray, counts: np.ndarray, lane_offset: int = 0) -> np.ndarray:
