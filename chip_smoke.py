@@ -20,9 +20,9 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               (the row chain, with a block-digests entry that also
               combines each block, one that also estimates each block for
               the compress plane, and a lane-digests entry),
-              jth256_combine.cu and compress_estimate.cu (the compress
-              estimator: a fused entry, a histogram entry and an entropy
-              entry); the process-wide sharding plane
+              jth256_combine.cu and compress_estimate.cu (a mesh's
+              compress estimate: a histogram entry and an entropy entry);
+              the process-wide sharding plane
               (gpu/sharding.py get_plane) must be the one-card rung:
               devices 1, no mesh, no degrade counted. Phases 5-13 run
               through it (gc, ingest, the estimator, the indexer, fsck, the
@@ -82,17 +82,16 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               keep their meta in the port's sqlite3:// kv engine
   10. estimator the compress estimator's kernel on one packed batch on the
               card == the plain torch version on the CPU (histograms exact,
-              predictions 1e-5): one launch and one kernel on the card per
-              estimate (no memset or fill), its histogram and entropy
-              entries bit for bit the fused one, its workspace zero again
-              after each launch; then its device ms at 1, 8, 13 and 32
-              blocks beside its bound and the plain torch version on the
-              card. The row chain's estimating entry on the same batch:
+              predictions 1e-5): the histogram entry then the entropy
+              entry, two kernels on the card per estimate (no memset or
+              fill), a second call bit for bit the first, the workspace
+              zero again after each launch; then its device ms at 1, 8, 13
+              and 32 blocks beside its bound and the plain torch version on
+              the card. The row chain's estimating entry on the same batch:
               one kernel, the block entry's digests and the estimator's
               advisories bit for bit, its workspaces zero again; then its
               device ms at 1, 8, 13, 25 and 32 blocks beside the block
-              entry alone and the pair it replaces (block entry, then
-              estimator), in turns
+              entry alone, in turns
   11. main    the admin path through the port's CLI on a sqlite3:// volume
               of the same plan: `format --hash-backend pallas` (probes the
               card), a write of every block as its own slice through
@@ -145,9 +144,10 @@ Phases, in order; any mismatch raises and the script exits non-zero:
   14. shard   the sharding plane's programs on meshes that list the one
               card several times, on phase 5's plan (257 x 4 MiB, ragged
               tail, ~25% duplicates) packed once: hash, scan (digests, dup,
-              first) and estimator on ShardPlane([cuda:0] * k), k = 2, 4, 8
-              (2x1, 2x2, 4x2 meshes), each equal bit for bit to the
-              one-card plane, one placement per batch, one launch per
+              first) and the advised hash's advisories (the mesh's
+              histogram and entropy entries; the estimating block entry on
+              one card) on ShardPlane([cuda:0] * k), k = 2, 4, 8 (2x1,
+              2x2, 4x2 meshes), each equal bit for bit to the one-card plane, one placement per batch, one launch per
               mesh device per batch and, on the lane-split 2x2 and 4x2,
               one combine per data row; k = 3 degrades (counted) and still
               agrees; sharded_scan_many (10 iterations, tweak in the
@@ -713,7 +713,7 @@ def scan_phase(rng: np.random.Generator, volume_gib: float) -> dict:
         print(f"scan launches {launches}")
         if launches["jth256_row_chain"] == 0:
             raise AssertionError("main path launched no jth256_row_chain kernel")
-        if launches["compress_estimate"] != 0 or launches["jth256_block_digests_estimate"] != 0:
+        if launches["compress_histogram"] != 0 or launches["jth256_block_digests_estimate"] != 0:
             raise AssertionError("gc --dedup's scan ran the compress estimator")
         if scan["hashed_now"] != len(live):
             raise AssertionError(f"hashed_now {scan['hashed_now']} != {len(live)} blocks")
@@ -1160,16 +1160,15 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
         # gate 3: every hashed block estimated on the card inside its hash
         # launch, no degrade: each estimate is one launch of the row chain's
         # estimating entry, and no batch is estimated apart
-        if comp["degraded"] != 0 or comp["estimated"] != hashed \
-                or comp["estimated_in_hash"] != hashed:
+        if comp["degraded"] != 0 or comp["estimated"] != hashed:
             raise AssertionError(f"compress plane {comp}: want degraded 0, "
-                                 f"estimated == estimated_in_hash == {hashed} hashed blocks")
+                                 f"estimated == {hashed} hashed blocks")
         n_estimates = stages["chunk.ingest.estimate"]["count"]
         fused = launches["jth256_block_digests_estimate"]
         if fused != n_estimates or n_estimates != n_batches \
-                or launches["compress_estimate"] != 0:
+                or launches["compress_histogram"] != 0:
             raise AssertionError(f"{fused} jth256_block_digests_estimate and "
-                                 f"{launches['compress_estimate']} compress_estimate launches "
+                                 f"{launches['compress_histogram']} compress_histogram launches "
                                  f"for {n_estimates} estimates of {n_batches} hash batches")
         # gate 4: one upload per hash batch (each block padded to 64 lanes)
         pad = bs // LANE_BYTES * LANE_BYTES
@@ -1304,23 +1303,23 @@ def card_ops(fn) -> tuple[list, object]:
 def estimate_bound_ms(n_blocks: int, m: int, smi: str) -> float:
     """Least time for the estimate of n_blocks blocks of m lanes: each
     sampled word costs a 32-byte sector (the next lies 64 B on), plus the
-    lane counts (8 B a block) read and the advisories (4 B) written, at the
-    memory rate; its few operations a byte are far below the ALU rate."""
-    nbytes = n_blocks * (m * 64 * SECTOR_BYTES + 8 + 4)
+    lane counts (8 B a block) read, the float32 histogram (1 KiB a block)
+    written and read again, and the advisories (4 B) written, at the memory
+    rate; its few operations a byte are far below the ALU rate."""
+    nbytes = n_blocks * (m * 64 * SECTOR_BYTES + 8 + 2 * 256 * 4 + 4)
     return nbytes / hbm_bytes_per_s(smi) * 1e3
 
 
 def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) -> dict:
     """Gate 7: the compress estimator's kernel on one packed main-path batch
     (32 x 4 MiB) on the card == the plain torch version on the CPU
-    (histograms exact, predictions 1e-5): the fused entry, the histogram
-    entry and the entropy entry, one launch each and no other kernel, the
-    entropy entry bit for bit the fused one, the stream's workspace zero
-    again after each launch, a second call bit for bit the first; an
-    all-zero and a text block predict below 0.5, random blocks above 0.95.
-    Then the fused entry's device ms at ESTIMATE_BLOCKS beside its bound and
-    the plain torch version on the card, and the shared pack's (pageable)
-    upload per batch."""
+    (histograms exact, predictions 1e-5): an estimate is the histogram
+    entry, then the entropy entry, one launch each and no other kernel, the
+    stream's workspace zero again after each launch, a second call bit for
+    bit the first; an all-zero and a text block predict below 0.5, random
+    blocks above 0.95. Then the estimate's device ms at ESTIMATE_BLOCKS
+    beside its bound and the plain torch version on the card, and the
+    shared pack's (pageable) upload per batch."""
     phase("compress estimator vs plain")
     n = 32
     text = b"hello world "
@@ -1337,20 +1336,21 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
         upload_ms.append((time.perf_counter() - t0) * 1e3)
     compress_batch.estimate(words, counts)  # builds the library, sizes the workspace
     torch.cuda.synchronize()
-    work = hash_torch._ARRIVALS[("compress_estimate", words.device.index,
+    work = hash_torch._ARRIVALS[("compress_histogram", words.device.index,
                                  torch.cuda.current_stream().cuda_stream)][0]
     kernels.reset_launches()
     ops, pred = card_ops(lambda: compress_batch.estimate(words, counts))
-    if len(ops) != 1 or ops[0][0] != "kernel" or "compress_estimate_kernel" not in ops[0][1]:
-        raise AssertionError(f"one estimate ran {ops} on the card, want one "
-                             "compress_estimate_kernel")
+    if [cat for cat, _name in ops] != ["kernel", "kernel"] \
+            or "compress_histogram_kernel" not in ops[0][1] \
+            or "compress_entropy_kernel" not in ops[1][1]:
+        raise AssertionError(f"one estimate ran {ops} on the card, want "
+                             "compress_histogram_kernel, then compress_entropy_kernel")
     if work.any():
         raise AssertionError("the estimator's workspace is not zero after a launch")
     hist = compress_batch.byte_histogram(words, counts)
-    ent = compress_batch.entropy_ratio(hist)
     again = compress_batch.estimate(words, counts)
     torch.cuda.synchronize()
-    want = {"compress_estimate": 2, "compress_histogram": 1, "compress_entropy": 1}
+    want = {"compress_histogram": 3, "compress_entropy": 2}
     got = {k: kernels.LAUNCHES[k] for k in want}
     if got != want or work.any():
         raise AssertionError(f"estimator launches {got}, want {want}; workspace zero "
@@ -1361,8 +1361,8 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
     cpred = compress_batch.estimate(cwords, ccounts)
     if not torch.equal(hist.cpu(), chist):
         raise AssertionError("estimator histograms on the card != CPU")
-    if not (torch.equal(ent, pred) and torch.equal(again, pred)):
-        raise AssertionError("the entropy entry or a second call != the fused entry")
+    if not torch.equal(again, pred):
+        raise AssertionError("a second estimate != the first")
     err = float((pred.cpu() - cpred).abs().max())
     if err > 1e-5:
         raise AssertionError(f"estimator predictions differ by {err} > 1e-5")
@@ -1371,8 +1371,8 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
         raise AssertionError(f"estimator predictions out of range: zero {p[0]}, "
                              f"text {p[1]}, random min {min(p[2:])}")
     # the row chain's estimating entry on the same batch: one kernel, the
-    # block entry's digests and the fused entry's advisories bit for bit,
-    # both of its workspaces zero again
+    # block entry's digests and the estimate's advisories bit for bit, both
+    # of its workspaces zero again
     hash_torch.hash_estimate_device(words, counts, lengths)  # sizes the workspaces
     kernels.reset_launches()
     ops, (fused_d, fused_a) = card_ops(
@@ -1402,15 +1402,19 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
         copies = max(1, -(-COLD_BYTES // (nb * BLOCK_BYTES)))
         pool = random_words(gen, nb * m * copies).reshape(copies, nb, m, ROWS, COLS)
         cnt = torch.full((nb,), m, dtype=torch.int64, device="cuda")
-        compress_batch.estimate_ref(pool[0], cnt)  # warm-up
+
+        def plain(i):
+            return compress_batch.entropy_ratio_ref(
+                compress_batch.byte_histogram_ref(pool[i % copies], cnt))
+
+        plain(0)  # warm-up
         row = {}
         row["ms"], enq = time_queued(lambda i: compress_batch.estimate(pool[i % copies], cnt))
-        row["plain_ms"], _ = time_queued(
-            lambda i: compress_batch.estimate_ref(pool[i % copies], cnt))
+        row["plain_ms"], _ = time_queued(plain)
         row["bound_ms"] = estimate_bound_ms(nb, m, smi)
         row["enqueue_ms"] = enq
         sizes[nb] = row
-        print(f"compress_estimate {nb} blocks: {row['ms']:.4f} ms (bound "
+        print(f"compress_histogram + compress_entropy {nb} blocks: {row['ms']:.4f} ms (bound "
               f"{row['bound_ms']:.5f}, {row['bound_ms'] / row['ms']:.3f} of it); plain torch "
               f"on the card {row['plain_ms']:.4f} ms; {QUEUED} calls queued in {enq:.3f} ms")
         del pool
@@ -1425,11 +1429,10 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
 def hash_estimate_phase(gen: torch.Generator, smi: str) -> dict:
     """The row chain's estimating entry (`hash_estimate_device`, an ingest
     hash batch with its compress estimate in one launch) beside the block
-    entry alone and the pair it replaces (the block entry, then the
-    estimator's fused entry) at FUSED_BLOCKS, in turns over 3 rounds, each
-    time `time_queued`'s device ms on random words cycling through
-    COLD_BYTES; the medians of the rounds. At the ingest cells' 13 and 25
-    blocks the estimating entry should cost within 1.05x the block entry."""
+    entry alone at FUSED_BLOCKS, in turns over 3 rounds, each time
+    `time_queued`'s device ms on random words cycling through COLD_BYTES;
+    the medians of the rounds. At the ingest cells' 13 and 25 blocks the
+    estimating entry should cost within 1.05x the block entry."""
     phase("hash with its estimate in one launch")
     m = BLOCK_BYTES // LANE_BYTES
     sizes = {}
@@ -1443,8 +1446,6 @@ def hash_estimate_phase(gen: torch.Generator, smi: str) -> dict:
             "fused": lambda i: hash_torch.hash_estimate_device(pool[i % copies], cnt, lens,
                                                                0x1000 + i),
             "block": lambda i: hash_torch.hash_device(pool[i % copies], cnt, lens, 0x1000 + i),
-            "pair": lambda i: (hash_torch.hash_device(pool[i % copies], cnt, lens, 0x1000 + i),
-                               compress_batch.estimate(pool[i % copies], cnt)),
         }
         times = {k: [] for k in kinds}
         for _round in range(3):
@@ -1452,14 +1453,12 @@ def hash_estimate_phase(gen: torch.Generator, smi: str) -> dict:
                 times[k].append(time_queued(fn)[0])
         row = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
         row["fused_over_block"] = row["fused_ms"] / row["block_ms"]
-        row["fused_over_pair"] = row["fused_ms"] / row["pair_ms"]
         sizes[nb] = row
         flag = "" if nb not in (13, 25) or row["fused_over_block"] <= 1.05 else \
             " (above the 1.05x expected)"
         print(f"{nb} blocks: hash and estimate {row['fused_ms']:.4f} ms in one launch, "
-              f"hash alone {row['block_ms']:.4f} ms ({row['fused_over_block']:.3f}x){flag}, "
-              f"hash then estimator {row['pair_ms']:.4f} ms "
-              f"({row['fused_over_pair']:.3f}x); card {smi}")
+              f"hash alone {row['block_ms']:.4f} ms ({row['fused_over_block']:.3f}x){flag}; "
+              f"card {smi}")
         del pool
     out = {"sizes": sizes, "card": smi}
     print("hash_estimate " + json.dumps(out))
@@ -2653,6 +2652,14 @@ def mount_phase(rng: np.random.Generator, volume_gib: float, smi: str) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+def advised_hash(plane, packed, n: int) -> torch.Tensor:
+    """The advisories of the plane's advised hash of a placed pack (its
+    `hash_async` inside `advised()`), sliced to the n real blocks."""
+    with plane.advised() as advice:
+        plane.hash_async(*packed)
+    return advice[0][:n]
+
+
 def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
                 smi: str) -> dict:
     """Phase 14: the plane's programs on meshes that list the one card
@@ -2675,7 +2682,7 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
     sp1 = one.put_packed(*packed)
     want_h = one.hash_packed(*sp1, n=n)
     want_d, want_dup, want_first = one.scan_packed(*sp1, n=n)
-    want_est = one.make_estimator()(sp1[0], sp1[1])[:n]
+    want_est = advised_hash(one, sp1, n)
     torch.cuda.synchronize()
     del sp1
     want_bytes = digests_to_bytes(want_h)
@@ -2727,7 +2734,7 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         scan_launches = launches(lanes)
         scan_combines = kernels.LAUNCHES["jth256_combine"]
         t0 = time.perf_counter()
-        got_est = plane.make_estimator()(sp[0], sp[1])[:n]
+        got_est = advised_hash(plane, sp, n)
         torch.cuda.synchronize()
         est_ms = (time.perf_counter() - t0) * 1e3
         if hash_launches != ndev or scan_launches != ndev:
@@ -2747,10 +2754,10 @@ def shard_phase(rng: np.random.Generator, volume_gib: float, timing: dict,
         combine_by_path["shard_hash"] += hash_combines
         combine_by_path["shard_scan"] += scan_combines
         meshes[k] = {"snapshot": snap, "put_ms": put_ms, "hash_ms": hash_ms,
-                     "scan_ms": scan_ms, "estimate_ms": est_ms,
+                     "scan_ms": scan_ms, "hash_estimate_ms": est_ms,
                      "launches": hash_launches + scan_launches}
         print(f"[cuda:0] * {k}: {json.dumps(snap)}; place {put_ms:.3f} ms, hash "
-              f"{hash_ms:.3f} ms, scan {scan_ms:.3f} ms, estimate {est_ms:.3f} ms; "
+              f"{hash_ms:.3f} ms, scan {scan_ms:.3f} ms, hash with estimate {est_ms:.3f} ms; "
               f"{hash_launches} + {scan_launches} launches ({hash_combines} + "
               f"{scan_combines} combines); == one-card plane")
         del sp
@@ -4603,13 +4610,15 @@ def main(argv=None) -> int:
         "bound_by": at_32["combine_bound_by"],
         "library_ms": None,
     }, {
-        "name": "compress_estimate",
+        # a mesh's estimate: a histogram a lane shard, an entropy a data row
+        "name": "compress_histogram + compress_entropy",
         "route": "cuda",
         "source": "juicefs_tpu_torch/gpu/kernels/compress_estimate.cu",
         "replaces": None,  # the reference's estimator is XLA (_make_estimator)
         "shape": "13 blocks x 64 lanes (the ingest cell's batch)",
-        "launches_by_path": {"ingest": ingest["launches"]["compress_estimate"],
-                             "ingest_concurrent": conc["launches"]["compress_estimate"]},
+        "launches_by_path": {p: {k: v[k] for k in ("compress_histogram", "compress_entropy")}
+                             for p, v in (("ingest", ingest["launches"]),
+                                          ("ingest_concurrent", conc["launches"]))},
         "ms": estimator["sizes"][13]["ms"],
         "plain_ms": estimator["sizes"][13]["plain_ms"],
         "bound_ms": estimator["sizes"][13]["bound_ms"],
@@ -4624,7 +4633,6 @@ def main(argv=None) -> int:
             "ingest_concurrent": conc["launches"]["jth256_block_digests_estimate"]},
         "ms": fused["sizes"][13]["fused_ms"],
         "block_ms": fused["sizes"][13]["block_ms"],
-        "pair_ms": fused["sizes"][13]["pair_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -25,8 +25,9 @@ Changes from the reference: `ChunkConfig.compress_backend` defaults to
 checks it at construction (None: the process-wide sharding plane over
 every card, which must exist) and an
 `IngestPipeline` attached to the store hashes there unless it is given a
-device of its own. The estimator itself runs wherever the shared pack
-was uploaded, so the two can never disagree into a second upload.
+device of its own. The estimate itself is computed by the hash of the
+shared pack, where it was uploaded, so the two can never disagree into a
+second upload.
 """
 
 from __future__ import annotations

@@ -32,14 +32,14 @@ construction raises instead of falling back to the CPU; `plane=` gives a
 plane of its own). Backend names go through `pipeline_backend`, so a
 reference mount's `xla` hashes on `cuda`. One packed placement per hash
 batch (`shard_packed`, through the sharding plane) feeds both the
-row-chain kernel (`hash_packed`) and the compress plane's estimate, on
-the worker thread's stream: a batch on one device is hashed and
-estimated in one launch (`hash_packed(..., advise=True)`, the plane's
-`record_advisories`), a batch split over a mesh estimated apart
-(`estimate_packed`). A failed upload, hash or estimate still degrades
-instead of failing a write, but it is logged at WARNING and counted: the
-batch's blocks in `errors` and `passthrough`, the estimate in the
-compress plane's `degraded`.
+row-chain kernel and the compress plane's estimate, on the worker
+thread's stream: the sharding plane hashes and estimates the batch where
+it lies (`hash_packed(..., advise=True)`), and the compress plane records
+the advisories (`estimate_packed`). A failed upload, hash or estimate
+still degrades instead of failing a write, but it is logged at WARNING
+and counted: the batch's blocks in `errors` and `passthrough`, the
+estimate in the compress plane's `degraded`, after which the plane stops
+estimating.
 
 Crash windows (repaired offline by `gc --dedup`, cmd/gc.py):
   - elide committed (incref txn) but the slice never commits to meta:
@@ -72,8 +72,9 @@ _H_REGISTER = stage_hist("chunk", "ingest", "register")
 _H_PACK = stage_hist("chunk", "ingest", "pack")
 # inside it, the host pack alone: the same stage as the gc scan's pack
 _H_HOST_PACK = stage_hist("gpu", "hash", "pack")
-# the worker's busy time per batch, the estimator's launch, and the wait
-# on an earlier batch's in-flight register of the same content
+# the worker's busy time per batch, the record of the advisories its hash
+# computed, and the wait on an earlier batch's in-flight register of the
+# same content
 _H_PROCESS = stage_hist("chunk", "ingest", "process")
 _H_ESTIMATE = stage_hist("chunk", "ingest", "estimate")
 _H_AWAIT = stage_hist("chunk", "ingest", "await")
@@ -335,17 +336,16 @@ class ContentRefs:
 
 
 def _hash_packed(pipe, plane, packed, n: int):
-    """A placed batch's digests, and its advisories where the compress
-    plane takes them from the hash launch (a batch on one device), else
-    None. A failure of that launch costs only the estimate in it: logged
-    and counted by the plane, which estimates apart from then on, and the
-    batch is hashed again alone."""
-    if plane is None or not plane.estimates_in_hash:
+    """A placed batch's digests, and its advisories while the compress
+    plane is estimating, else None. A failure of the estimating hash costs
+    only the estimate: logged and counted by the plane, which stops
+    estimating, and the batch is hashed again alone."""
+    if plane is None or not plane.estimating:
         return pipe.hash_packed(*packed, n=n), None
     try:
         return pipe.hash_packed(*packed, n=n, advise=True)
     except Exception as e:
-        plane.hash_estimate_failed(e)
+        plane.estimate_failed(e)
         return pipe.hash_packed(*packed, n=n), None
 
 
@@ -592,7 +592,7 @@ class IngestPipeline:
         packed = None
         if raws and pipe.device_backend:
             # shared upload: ONE pack_blocks upload feeds the hash
-            # digests AND the compress plane's estimator. `shard_packed`
+            # digests AND the compress plane's estimate. `shard_packed`
             # places the batch on the plane once; a failure here degrades
             # the whole batch in `_loop` (logged and counted) rather than
             # letting both consumers upload host arrays again
@@ -619,12 +619,9 @@ class IngestPipeline:
                 digests[i] = hashed[j]
                 if hot is not None:
                     hot.insert(fps[i], hashed[j], batch[i][1])
-        if packed is not None and plane is not None:
+        if advisories is not None:  # computed by the hash of the shared pack
             with _TR.span("chunk", "ingest", stage="estimate", hist=_H_ESTIMATE):
-                if advisories is not None:  # computed in the hash launch
-                    plane.record_advisories(advisories)
-                else:
-                    plane.estimate_packed(packed)  # advisory; rides the upload
+                plane.estimate_packed(advisories)
         with _TR.span("chunk", "ingest", stage="await", hist=_H_AWAIT):
             self._await_inflight(digests)
         # advisory content-index rows for gc/fsck: elided blocks never

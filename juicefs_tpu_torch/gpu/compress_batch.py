@@ -8,56 +8,52 @@ gpu/pipeline.py):
         executor sized to the host cores, one zero-copy liblz4 call per
         block (ctypes releases the GIL, so lanes compress in parallel).
   cuda  the same CPU lane encode (output stays byte-identical to the
-        serial ctypes path), plus a compressibility estimator that reads
-        the SAME packed device tensors the ingest stage already uploaded
-        for hashing (`HashPipeline.shard_packed`): one upload feeds the
-        hash digests AND the per-block entropy predictions. The estimate
-        is advisory (ratio telemetry); the encoded bytes come from liblz4
-        either way, which keeps every volume readable by both packages.
+        serial ctypes path), plus the per-block entropy predictions of
+        the SAME packed device tensors the ingest stage uploaded for
+        hashing (`HashPipeline.shard_packed`): one upload feeds the hash
+        digests AND the estimate. The estimate is advisory (ratio
+        telemetry); the encoded bytes come from liblz4 either way, which
+        keeps every volume readable by both packages.
 
 `cuda` is the default. A volume's or mount's `xla` names it too, as
 `chunk/indexer.py pipeline_backend` maps it for hashing.
 
-A one-device ingest batch is estimated inside its hash launch (the row
-chain's `jth256_block_digests_estimate` entry, the same advisories bit for
-bit): the plane takes those (`record_advisories`, counted in
-`estimated_in_hash`) instead of launching its estimator, and runs
-`estimate_packed` for a batch split over a mesh, or after that launch
-failed (`hash_estimate_failed`: logged, counted in `degraded`).
+The plane computes no estimate itself: the sharding plane estimates every
+ingest batch it hashes (`ShardPlane.hash_async` inside `advised()`), and
+the plane records those advisories (`estimate_packed`). A batch on one
+device is estimated in its hash launch (the row chain's
+`jth256_block_digests_estimate` entry); a batch split over a mesh by the
+mesh's histogram and entropy programs (`sharding.sharded_estimate_step`).
 
 `estimate(words, lane_counts)` is the counterpart of the reference's
-XLA `_make_estimator` (not a Pallas kernel): it takes every 16th row and
+XLA estimator program (not a Pallas kernel): it takes every 16th row and
 every 16th column of each 64 KiB lane (64 words = 256 bytes), builds a
 256-bin byte histogram per block with lanes at or past `lane_counts`
-masked out, and returns min(entropy / 8, 1). On the card it is one
-launch of a hand-written kernel (`gpu/kernels/compress_estimate.cu`,
-entry `compress_estimate`, counted in `kernels.LAUNCHES`): the sampled
-words' bytes binned in shared memory, the blocks' counts gathered by the
-last CTA of each block to arrive, which also runs the entropy. On the CPU
-it is the plain torch version (`estimate_ref`: a strided view, the
-little-endian byte view of the sampled words, one `scatter_add_` into a
-(B, 256) float32 histogram, and the entropy). It reads 1/256 of the
-words and does no upload of its own: `estimate_packed` runs it where the
-shared pack already lies and refuses host arrays. Every bin holds an
-integer count below 2^24, so the histogram is exact either way; the
-entropy may differ from XLA's in the last ulp. The estimator comes from
-the sharding plane (`ShardPlane.make_estimator`) and follows the pack it
-is given: for a pack split over a mesh each device histograms its own
-lanes (`byte_histogram`'s lane offset, the kernel's `compress_histogram`
-entry), the histograms are summed over the lane axis and `entropy_ratio`
-(`compress_entropy`, the same device function as the fused entry's) runs
-on the sum, so the sharded advisory equals the one-device one bit for
-bit.
+masked out, and returns min(entropy / 8, 1). It is `byte_histogram` and
+then `entropy_ratio`: on the card two launches of a hand-written kernel
+(`gpu/kernels/compress_estimate.cu`, entries `compress_histogram` and
+`compress_entropy`, counted in `kernels.LAUNCHES`), the sampled words'
+bytes binned in shared memory and the blocks' counts gathered by the last
+CTA of each block to arrive, then the entropy; on the CPU the plain torch
+versions (`byte_histogram_ref`: a strided view, the little-endian byte
+view of the sampled words, one `scatter_add_` into a (B, 256) float32
+histogram; `entropy_ratio_ref`). A mesh runs the same pair, one
+histogram a lane shard with its lane offset, summed over the lane axis
+before the entropy. Every bin holds an integer count below 2^24, so the
+histogram is exact either way and the advisories of one device and of
+every mesh are the same bits; the entropy may differ from XLA's in the
+last ulp.
 
 Degrades: a lane fan-out that cannot place work (scheduler closed, queue
 full under `nowait`) degrades that batch to the serial in-thread encode,
-and an estimator failure is logged at WARNING and stops estimating. Both
-count in `degraded`. Unlike the reference, which falls back from its
-device backend to cpu at construction, an active `cuda` plane checks its
-device at construction and raises when there is no card (`device=None`
-means the process-wide sharding plane over every card; tests pass
-`device="cpu"` for the plain torch path). The none-compressor
-plane does no device work and checks nothing.
+and a failed estimating hash (`estimate_failed`) is logged at WARNING
+and stops estimating. Both count in `degraded`. Unlike the reference,
+which falls back from its device backend to cpu at construction, an
+active `cuda` plane checks its device at construction and raises when
+there is no card (`device=None` means the process-wide sharding plane
+over every card, as for the hash pipeline; tests pass `device="cpu"` for
+the plain torch path). The none-compressor plane does no device work and
+checks nothing.
 """
 
 from __future__ import annotations
@@ -145,11 +141,6 @@ def entropy_ratio_ref(h: torch.Tensor) -> torch.Tensor:
     return torch.clamp(ent / 8.0, max=1.0)
 
 
-def estimate_ref(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
-    """Plain torch estimate, on the words' device."""
-    return entropy_ratio_ref(byte_histogram_ref(words, lane_counts))
-
-
 def _on_card(x: torch.Tensor, entry: str) -> bool:
     """True for a CUDA tensor (the kernel's), False for a CPU one (the
     plain version's); any other device raises."""
@@ -183,8 +174,7 @@ def _launch(entry: str, dev: torch.device, *args, work_blocks: int = 0) -> None:
     with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         stream = torch.cuda.current_stream(dev).cuda_stream
         if work_blocks:
-            work = zeroed_workspace("compress_estimate", dev, stream, work_blocks,
-                                    _WORK_WORDS)
+            work = zeroed_workspace(entry, dev, stream, work_blocks, _WORK_WORDS)
             args = (*args[:2], work.data_ptr(), *args[2:])
         rc = fn(*args, stream)
     if rc != 0:
@@ -230,18 +220,10 @@ def entropy_ratio(h: torch.Tensor) -> torch.Tensor:
 def estimate(words: torch.Tensor, lane_counts: torch.Tensor) -> torch.Tensor:
     """Per-block compressibility estimate of a packed batch already on its
     device: int32 words (B, M, 128, 128), lane counts (B,) -> float32 (B,)
-    predicted compressed-size fractions min(entropy / 8, 1). One launch of
-    the kernel's fused `compress_estimate` entry on the card; the plain
-    torch version (`estimate_ref`) on the CPU; any other device raises."""
-    if not _on_card(words, "estimate"):
-        return estimate_ref(words, lane_counts)
-    counts = _card_words(words, lane_counts)
-    b, m = words.shape[0], words.shape[1]
-    out = torch.empty((b,), dtype=torch.float32, device=words.device)
-    if b:
-        _launch("compress_estimate", words.device, words.data_ptr(), counts.data_ptr(),
-                out.data_ptr(), b, m, work_blocks=b)
-    return out
+    predicted compressed-size fractions min(entropy / 8, 1). `entropy_ratio`
+    of `byte_histogram`, a mesh's estimate with one shard; any device but
+    cuda or cpu raises."""
+    return entropy_ratio(byte_histogram(words, lane_counts))
 
 
 def compress_backend(name: str) -> str:
@@ -263,18 +245,16 @@ class CompressPlane:
         self.config = config or CompressBatchConfig()
         self.config.backend = compress_backend(self.config.backend)
         self.device: Optional[torch.device] = None
-        self._est_fn = None
         if self.config.backend == "cuda" and self.active:
-            # the estimator comes off the sharding plane and follows the
-            # pack: sharded over the mesh the shared pack was split over
-            # (whichever plane split it), the one-device estimate
-            # otherwise, advisories identical either way. device=None is
-            # the process-wide plane, which raises without a card
-            from .sharding import plane_for
+            # device=None is where the hash pipeline's device=None hashes:
+            # the process-wide sharding plane, which raises without a card
+            if device is None:
+                from .sharding import get_plane
 
-            plane = plane_for(device)
-            self.device = plane.home
-            self._est_fn = plane.make_estimator()
+                device = get_plane().home
+            self.device = torch.device(device)
+        # True while the plane takes advisories; a failed estimate clears it
+        self.estimating = self.device is not None
         self._exec = None
         self.lanes = 0
         if self.active:
@@ -296,9 +276,6 @@ class CompressPlane:
         self.bytes_out = 0
         self.degraded = 0
         self.estimated = 0
-        # blocks whose advisories came out of their hash launch
-        self.estimated_in_hash = 0
-        self._in_hash = True
         self.last_estimate: Optional[list] = None
 
     @property
@@ -369,64 +346,21 @@ class CompressPlane:
             _DEGRADED.inc(degraded)
         return out
 
-    def estimate_packed(self, packed) -> None:
-        """Advisory pass over the shared packed words: the ingest worker
-        calls this with the triple that `HashPipeline.shard_packed` placed
-        for the hash batch (device tensors, or a `ShardedPack` split over a
-        mesh), on the same thread and stream, and the estimate runs where
-        the words lie. Host arrays are refused (they would need a second
-        upload). A failure only costs the estimate, never the batch, and is
-        logged and counted."""
-        if self._est_fn is None:
-            return
-        try:
-            from .sharding import ShardedTensor
-
-            words, counts, _lengths = packed
-            if not isinstance(words, (torch.Tensor, ShardedTensor)):
-                raise TypeError("estimate_packed takes the device tensors of "
-                                "shard_packed, not host arrays")
-            pred = self._est_fn(words, counts)
-            # a plane-placed pack was padded to the mesh's data-axis
-            # extent; slice the advisory back to the real batch
-            n = getattr(packed, "batch", None)
-            if n is not None:
-                pred = pred[:n]
-            self._record(pred.cpu(), in_hash=False)
-        except Exception as e:
-            logger.warning("compress estimate degraded: %s", e)
-            self.degraded += 1
-            _DEGRADED.inc()
-            self._est_fn = None  # broken device: stop paying for retries
-
-    @property
-    def estimates_in_hash(self) -> bool:
-        """True while the plane takes its advisories from the hash launch
-        (`HashPipeline.hash_packed(..., advise=True)`, a batch on one
-        device): it estimates on the device, and that launch has not
-        failed."""
-        return self._est_fn is not None and self._in_hash
-
-    def record_advisories(self, pred: torch.Tensor) -> None:
-        """Take a batch's advisories computed inside its hash launch: a
-        float32 host tensor, one a hashed block, as `estimate_packed`'s."""
-        self._record(pred, in_hash=True)
-
-    def _record(self, pred: torch.Tensor, in_hash: bool) -> None:
+    def estimate_packed(self, advisories: torch.Tensor) -> None:
+        """Record the advisories of a hash batch: the float32 (n,) host
+        tensor, one a hashed block, that the shared pack's hash computed
+        (`HashPipeline.hash_packed(..., advise=True)`)."""
         with self._lock:
-            self.estimated += len(pred)
-            if in_hash:
-                self.estimated_in_hash += len(pred)
-            self.last_estimate = [round(float(p), 4) for p in pred]
+            self.estimated += len(advisories)
+            self.last_estimate = [round(float(p), 4) for p in advisories]
 
-    def hash_estimate_failed(self, e: Exception) -> None:
-        """The hash launch that also estimates failed: logged and counted, and
-        from now on the plane estimates apart from the hash
-        (`estimate_packed`), as before that launch existed."""
-        logger.warning("compress estimate in the hash launch degraded: %s", e)
+    def estimate_failed(self, e: Exception) -> None:
+        """The hash that also estimates failed: logged and counted, and the
+        plane stops estimating (a broken device costs no more retries)."""
+        logger.warning("compress estimate degraded: %s", e)
         self.degraded += 1
         _DEGRADED.inc()
-        self._in_hash = False
+        self.estimating = False
 
     def _account(self, sizes_in: list, sizes_out: list, batch=True) -> None:
         n_in, n_out = sum(sizes_in), sum(sizes_out)
@@ -465,5 +399,4 @@ class CompressPlane:
                 if self.bytes_in else 0.0,
                 "degraded": self.degraded,
                 "estimated": self.estimated,
-                "estimated_in_hash": self.estimated_in_hash,
             }

@@ -350,7 +350,7 @@ def lane_digests(words: torch.Tensor, tweak: int = 0,
 
 
 # Arrival counters of the kernels whose last CTA to arrive finishes a block
-# (the block entries; the compress estimator, whose counts sit beside them;
+# (the block entries; the compress histogram, whose counts sit beside them;
 # the estimating block entry's counts),
 # one zeroed int32 buffer per (entry, card, stream) with the blocks it
 # holds: every launch leaves its workspace at zero, and launches on one
@@ -425,10 +425,10 @@ def hash_estimate_device(words: torch.Tensor, lane_counts: torch.Tensor,
     if words.dim() != 4:
         raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
     if words.device.type == "cpu":
-        from .compress_batch import estimate_ref
+        from .compress_batch import estimate
 
         return (combine(lane_digests(words, tweak), lane_counts, lengths),
-                estimate_ref(words, lane_counts))
+                estimate(words, lane_counts))
     b = words.shape[0]
     out = torch.empty((b, 8), dtype=torch.int64, device=words.device)
     advisories = torch.empty((b,), dtype=torch.float32, device=words.device)

@@ -17,11 +17,9 @@ those of the entry that also combines each block (a one-card hash batch),
 each block for the compress plane (a one-card ingest hash batch),
 `jth256_lane_digests` those of the lane-fold entry alone (a lane shard of
 a mesh), and `jth256_combine` the per-block combine kernel that a
-lane-split mesh runs after its gather. `compress_estimate` counts the
-compress estimator's fused entry (one launch a one-card estimate apart
-from the hash),
-`compress_histogram` and `compress_entropy` the two entries a mesh's
-estimate runs (a histogram per shard, an entropy per data row). The gauge
+lane-split mesh runs after its gather. `compress_histogram` and
+`compress_entropy` count the two entries a mesh's estimate runs (a
+histogram per shard, an entropy per data row). The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
 process (a mount's `.stats` or `/metrics`) shows them too.
 """
@@ -49,14 +47,12 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_block_digests": 0,
                             "jth256_block_digests_estimate": 0,
                             "jth256_lane_digests": 0, "jth256_combine": 0,
-                            "compress_estimate": 0, "compress_histogram": 0,
-                            "compress_entropy": 0}
+                            "compress_histogram": 0, "compress_entropy": 0}
 # the source file each C entry is built from
 ENTRY_SOURCES = {"jth256_block_digests": "jth256_row_chain",
                  "jth256_block_digests_estimate": "jth256_row_chain",
                  "jth256_lane_digests": "jth256_row_chain",
                  "jth256_combine": "jth256_combine",
-                 "compress_estimate": "compress_estimate",
                  "compress_histogram": "compress_estimate",
                  "compress_entropy": "compress_estimate"}
 _LAUNCH_GAUGE = global_registry().gauge(
@@ -165,9 +161,6 @@ _SIGNATURES = {
     # (accs, lane_counts, lengths, out, n_blocks, m, stream)
     "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
-    # (words, lane_counts, work, out, n_blocks, m, stream)
-    "compress_estimate": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_uint,
-                                                  ctypes.c_void_p],
     # (words, lane_counts, work, out, n_blocks, m, lane_offset, stream)
     "compress_histogram": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_uint,
                                                    ctypes.c_uint, ctypes.c_void_p],
@@ -230,9 +223,9 @@ def load_twin():
     them;
     `estimate_histogram(words, lane_counts, lane_offset=0)` takes int32
     (B, M, 128, 128) words and int64 counts and returns int32 (B, 256)
-    sampled byte counts, `estimate_entropy(hist)` int32 (B, 256) counts
-    and returns float32 (B,) advisories, and `estimate(words,
-    lane_counts)` both in turn, as compress_estimate.cu computes them."""
+    sampled byte counts, and `estimate_entropy(hist)` int32 (B, 256)
+    counts and returns float32 (B,) advisories, as compress_estimate.cu's
+    two entries compute them."""
     from torch.utils.cpp_extension import load
 
     build = os.path.join(REPO_ROOT, "build", "torch_ext", "twin")

@@ -1,36 +1,32 @@
-// The compress plane's compressibility estimator on Hopper (sm_90a),
-// hand-written CUDA C++: the sampled byte histogram of each block and its
-// entropy in one launch.
+// The compress plane's compressibility estimate of a batch split over a
+// mesh, on Hopper (sm_90a), hand-written CUDA C++: the sampled byte
+// histogram of each lane shard, and the entropy of the summed histograms.
 //
-// Replaces no Pallas kernel: the reference computes the estimate with the
-// XLA program juicefs_tpu/tpu/compress_batch.py _make_estimator, and the
+// Replaces no Pallas kernel: the reference computes the estimate with an
+// XLA program (juicefs_tpu/tpu/compress_batch.py), and the
 // port first ran it as plain torch ops (compress_batch.py
 // byte_histogram_ref and entropy_ratio_ref): a strided copy, a widening,
 // the lane mask, a scatter-add and a dozen elementwise and reduction ops
-// for the entropy, some 20 launches a hash batch that each read almost
-// nothing but cost a launch's worth of card time (~33 us a 13-block
-// batch, more than the hash kernel itself). This kernel computes the same
-// function in one launch; compress_estimate.cuh holds its arithmetic,
-// which the CPU twin shares. Entries:
-//   compress_estimate:  words (B, M, 128, 128) uint32 -> (B,) float32
-//                       advisories min(entropy / 8, 1) (one-card batches)
+// for the entropy, some 20 launches a batch. A batch on one card is
+// estimated inside its hash launch (jth256_row_chain.cu,
+// jth256_block_digests_estimate); this file holds the mesh's two entries.
+// compress_estimate.cuh holds their arithmetic, which the CPU twin and the
+// row chain share. Entries:
 //   compress_histogram: words (B, M, 128, 128) -> (B, 256) float32 counts,
 //                       lanes [lane_offset, lane_offset + M) of each block
 //                       (a lane shard of a mesh)
-//   compress_entropy:   (B, 256) float32 counts -> (B,) advisories (a
-//                       mesh's summed shard histograms)
-// The fused entry and the entropy entry run the same device function on
-// the same integer counts, so a mesh's advisories equal one card's bit for
-// bit.
+//   compress_entropy:   (B, 256) float32 counts -> (B,) advisories
+//                       min(entropy / 8, 1) (a data row's summed shard
+//                       histograms)
+// The entropy entry runs the row chain's order of the sum on the same
+// integer counts, so a mesh's advisories equal one card's bit for bit.
 //
-// What bounds it: bytes, and few of them. Each sampled word lies 64 B from
-// the next, so every one costs a 32-byte sector: 4096 sectors (128 KiB) a
-// 4 MiB block, 1.7 MB for a 13-block batch, about 0.5 us at 3.35 TB/s. The
-// kernel's time is therefore a launch and a chain of latencies: one round
-// trip to device memory, the shared-memory binning, the handoff to the
-// last CTA (the adds' fence, the ticket, the exchange) and its entropy:
-// measured on an H100 80GB HBM3, 4.9 / 5.4 / 5.6 / 6.1 us at 1 / 8 / 13 /
-// 32 blocks of random words, queued back to back.
+// What bounds the histogram: bytes, and few of them. Each sampled word
+// lies 64 B from the next, so every one costs a 32-byte sector: 4096
+// sectors (128 KiB) a 4 MiB block, 1.7 MB for a 13-block batch, about
+// 0.5 us at 3.35 TB/s. The kernel's time is therefore a launch and a chain
+// of latencies: one round trip to device memory, the shared-memory
+// binning, and the handoff to the last CTA of each block.
 //
 // Design: B x G CTAs of 256 threads, G = ceil(M / 4): each CTA takes 4
 // lanes of one block, one sampled word a thread (a 13-block batch of 64
@@ -43,20 +39,19 @@
 // arrival counter, as the row chain's last-CTA combine does
 // (jth256_row_chain.cu). The CTA that draws the last ticket fences
 // (acquire), takes the block's counts with atomicExch(0), which also
-// leaves the counters zero, and either writes them out (histogram entry)
-// or sums them and the entropy terms with warp shuffles in the fixed order
-// of compress_estimate.cuh and writes the advisory. It sets the arrival
+// leaves the counters zero, and writes them out. It sets the arrival
 // counter back to 0, so the workspace is zero for the next launch on the
 // stream: the wrapper keeps one zeroed workspace per stream, and no memset
 // or fill launch precedes the kernel.
 //
-// Designs timed beside this one on the same H100, at 1-32 blocks of
-// random words: grouping equal bytes with __match_any_sync instead of the
-// two warp reductions, 5.7-9.5 us (it takes a step for each distinct value
-// in a warp, so random words cost most); one 1024-thread CTA a block,
-// which needs no handoff, 19.3 us with __match_any_sync and 6.0-6.5 us
-// with the reductions (one SM bins all 16384 sampled bytes of a block).
-// On all-zero and text words all four came within ~1 us of this one.
+// Designs timed beside this binning on the same H100, with the entropy in
+// the same launch, at 1-32 blocks of random words: grouping equal bytes
+// with __match_any_sync instead of the two warp reductions, 5.7-9.5 us
+// against 4.9-6.1 us (it takes a step for each distinct value in a warp,
+// so random words cost most); one 1024-thread CTA a block, which needs no
+// handoff, 19.3 us with __match_any_sync and 6.0-6.5 us with the
+// reductions (one SM bins all 16384 sampled bytes of a block). On all-zero
+// and text words all four came within ~1 us of this one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,8 +103,7 @@ __device__ __forceinline__ float cta_term_sum(float v, float* parts) {
 }
 
 // The advisory of a block whose bin threadIdx.x holds `count`; valid in
-// thread 0. Every thread of the CTA calls it. The one device function
-// both the fused entry and the entropy entry run.
+// thread 0. Every thread of the CTA calls it.
 __device__ __forceinline__ float block_advisory(uint32_t count) {
   __shared__ uint32_t total_parts[cest::kGroups];
   __shared__ float term_parts[cest::kGroups];
@@ -124,14 +118,13 @@ struct Args {
   const uint32_t* words;         // (B, m, 128, 128)
   const long long* lane_counts;  // (B,)
   uint32_t* work;                // (>= B, 257): arrivals, then 256 counts; zero
-  float* out;                    // (B,) advisories or (B, 256) counts
+  float* out;                    // (B, 256) counts
   uint32_t m;                    // lanes a block in `words`
   uint32_t groups;               // CTAs a block
   uint32_t lane_offset;          // index of the first lane within its block
 };
 
-template <bool kEntropy>
-__global__ void __launch_bounds__(kThreads) compress_estimate_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) compress_histogram_kernel(Args a) {
   __shared__ uint32_t hist[cest::kBins];
   __shared__ uint32_t is_last;
   const uint32_t t = threadIdx.x;
@@ -172,13 +165,8 @@ __global__ void __launch_bounds__(kThreads) compress_estimate_kernel(Args a) {
   }
   __syncthreads();
   if (!is_last) return;
-  const uint32_t count = atomicExch(&work[1 + t], 0u);  // read, and zero again
-  if constexpr (kEntropy) {
-    const float adv = block_advisory(count);
-    if (t == 0) a.out[b] = adv;
-  } else {
-    a.out[b * cest::kBins + t] = static_cast<float>(count);
-  }
+  // the block's counts out, each counter zero again
+  a.out[b * cest::kBins + t] = static_cast<float>(atomicExch(&work[1 + t], 0u));
   if (t == 0) work[0] = 0;  // zero again for the next launch
 }
 
@@ -189,21 +177,6 @@ compress_entropy_kernel(const float* __restrict__ hist, float* __restrict__ out)
   if (threadIdx.x == 0) out[b] = adv;
 }
 
-template <bool kEntropy>
-int launch(const void* words, const void* lane_counts, void* work, void* out,
-           long long n_blocks, unsigned int m, unsigned int lane_offset, void* stream) {
-  if (n_blocks <= 0 || m == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long groups = (static_cast<long long>(m) + kLanesPerCta - 1) / kLanesPerCta;
-  if (n_blocks > 0x7FFFFFFFLL / groups) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const uint32_t*>(words), static_cast<const long long*>(lane_counts),
-               static_cast<uint32_t*>(work), static_cast<float*>(out), m,
-               static_cast<uint32_t>(groups), lane_offset};
-  compress_estimate_kernel<kEntropy>
-      <<<static_cast<unsigned int>(n_blocks * groups), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Every entry launches on `stream` (a cudaStream_t passed as a pointer)
@@ -211,19 +184,20 @@ int launch(const void* words, const void* lane_counts, void* work, void* out,
 // raises on any other value. None synchronises. `work` holds n_blocks x
 // 257 uint32 that are zero at the launch and zero again after it.
 
-// (B,) float32 advisories of n_blocks blocks of m lanes.
-extern "C" int compress_estimate(const void* words, const void* lane_counts, void* work,
-                                 void* out, long long n_blocks, unsigned int m,
-                                 void* stream) {
-  return launch<true>(words, lane_counts, work, out, n_blocks, m, 0u, stream);
-}
-
 // (B, 256) float32 histograms of lanes [lane_offset, lane_offset + m) of
 // n_blocks blocks.
 extern "C" int compress_histogram(const void* words, const void* lane_counts, void* work,
                                   void* out, long long n_blocks, unsigned int m,
                                   unsigned int lane_offset, void* stream) {
-  return launch<false>(words, lane_counts, work, out, n_blocks, m, lane_offset, stream);
+  if (n_blocks <= 0 || m == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long groups = (static_cast<long long>(m) + kLanesPerCta - 1) / kLanesPerCta;
+  if (n_blocks > 0x7FFFFFFFLL / groups) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const uint32_t*>(words), static_cast<const long long*>(lane_counts),
+               static_cast<uint32_t*>(work), static_cast<float*>(out), m,
+               static_cast<uint32_t>(groups), lane_offset};
+  compress_histogram_kernel<<<static_cast<unsigned int>(n_blocks * groups), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (B,) float32 advisories of n_blocks (B, 256) float32 histograms.

@@ -1,7 +1,8 @@
 // JTH-256 row chain on Hopper (sm_90a), hand-written CUDA C++, with three
 // epilogues: the lane fold alone; the lane fold and the per-block combine
 // in one launch; or those and the compress plane's estimate of each block
-// (compress_estimate.cu's, bit for bit) in one launch.
+// (bit for bit what compress_estimate.cu's histogram and entropy entries
+// give) in one launch.
 //
 // Replaces the Pallas kernel juicefs_tpu/tpu/hash_jax.py _pallas_row_chain
 // (pl.pallas_call at hash_jax.py:228) and the fold the TPU program runs
@@ -101,7 +102,7 @@
 // arrival counters), and computes the advisory on warps 1-3 while threads
 // 0-7 of warp 0 run the combine's chain, so the two serial tails overlap:
 // the same integer counts and cest::reduce256's order of the sum as
-// compress_estimate.cu, so the same bits. A second launch would read again
+// compress_estimate.cu's entropy entry, so the same bits. A second launch would read again
 // words the hash held in a register moments before, and cost a launch's
 // worth of card time (~5-6 us at 1-32 blocks, PERF.md section 6). The
 // histogram and the entropy's scratch (~1.1 KiB) lie after the ring in
@@ -241,7 +242,7 @@ __device__ __forceinline__ void entropy_barrier() {
 // in thread kWarp. Bin i + 96k lies in group w + 3k (w = i / 32) at lane
 // i % 32, so each warp sums its groups with the butterflies of
 // cest::reduce256, and warp 1 sums the 8 group sums as compress_estimate.cu's
-// cta_term_sum does: the same bits as the standalone entry's.
+// cta_term_sum does: the same bits as its entropy entry's.
 __device__ __forceinline__ float entropy_advisory(const uint32_t (&bins)[kBinsPerThread],
                                                   EstimateSmem* es) {
   const uint32_t lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp - 1;
@@ -491,9 +492,9 @@ extern "C" int jth256_block_digests(const void* words, void* lane_digests,
                              NoEstimate{}, stream);
 }
 
-// jth256_block_digests and compress_estimate in one launch: the (B, 8)
+// jth256_block_digests and the compress estimate in one launch: the (B, 8)
 // digests into `out` as that entry writes them, and the (B,) float32
-// advisories of the same words (compress_estimate's, bit for bit) into
+// advisories of the same words (compress_estimate.cu's, bit for bit) into
 // `advisories`. `counts` holds >= n_blocks x 256 uint32 that are zero at
 // the launch and zero again after it.
 extern "C" int jth256_block_digests_estimate(const void* words, void* lane_digests,

@@ -187,11 +187,6 @@ torch::Tensor estimate_entropy(torch::Tensor hist) {
   return out;
 }
 
-// compress_estimate: the histogram and the entropy of whole blocks.
-torch::Tensor estimate(torch::Tensor words, torch::Tensor lane_counts) {
-  return estimate_entropy(estimate_histogram(words, lane_counts, 0));
-}
-
 // jth256_block_digests_estimate: block_digests' digests, and the advisories
 // of the same words from the sample the chain bins as it reads it (a lane
 // at or past its block's lane count adds nothing), in the kernel's order.
@@ -245,8 +240,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           pybind11::arg("lane_offset") = 0);
   mod.def("estimate_entropy", &estimate_entropy,
           "Entropy advisories of byte histograms on the CPU (twin)", pybind11::arg("hist"));
-  mod.def("estimate", &estimate, "Compressibility advisories of packed words on the CPU (twin)",
-          pybind11::arg("words"), pybind11::arg("lane_counts"));
   mod.def("block_digests_estimate", &block_digests_estimate,
           "Block digests and compressibility advisories in one pass on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("lane_counts"),

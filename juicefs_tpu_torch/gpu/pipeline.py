@@ -264,12 +264,10 @@ class HashPipeline:
         `shard_packed`); `n` slices the outputs back to the original batch
         size when the input was padded.
 
-        With `advise` it returns (digests, advisories): a batch that lies
-        whole on one device of the plane (one tensor, not split over a
-        mesh) is hashed and estimated for the compress plane in one launch
+        With `advise` it returns (digests, advisories): the plane hashes
+        the batch and estimates it for the compress plane where it lies
         (`ShardPlane.advised`), its advisories a float32 host tensor of n;
-        any other batch is hashed alone, with advisories None, for the
-        caller to estimate apart."""
+        advisories are None only where the plane's hash appended none."""
         if n is None:
             n = int(words.shape[0])
         if isinstance(lengths, (torch.Tensor, ShardedTensor)):

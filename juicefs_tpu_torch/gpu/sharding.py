@@ -68,6 +68,7 @@ import torch
 
 from ..metric import global_registry
 from ..utils import get_logger
+from .compress_batch import byte_histogram, entropy_ratio
 from .dedup import dedup_scan
 from .hash_torch import (
     MASK,
@@ -313,12 +314,11 @@ def sharded_estimate_step(mesh: Mesh):
     sampled bytes (the lane offset keeps the padded-lane mask global; on a
     card the kernel's `compress_histogram` entry), the lead device of each
     data row sums the histograms over lane and runs the entropy (on a card
-    `compress_entropy`, the device function the fused one-card entry runs),
-    and the advisories are gathered over data on the home device. The bins
-    are integer-valued float32 counts (<= 16384 per bin, exact), so the sum
-    is exact in any order and the entropy sees the one-device histogram
-    bit for bit."""
-    from .compress_batch import byte_histogram, entropy_ratio
+    `compress_entropy`, the device function the row chain's estimating
+    entry runs), and the advisories are gathered over data on the home
+    device. The bins are integer-valued float32 counts (<= 16384 per bin,
+    exact), so the sum is exact in any order and the entropy sees the
+    one-device histogram bit for bit."""
 
     def est(words: ShardedTensor, lane_counts: ShardedTensor) -> torch.Tensor:
         preds = []
@@ -333,18 +333,6 @@ def sharded_estimate_step(mesh: Mesh):
         return torch.cat(preds, 0)
 
     return est
-
-
-def estimate_placed(words, lane_counts) -> torch.Tensor:
-    """The compressibility estimate of a placed batch, run where the batch
-    lies: over the batch's own mesh for a ShardedTensor (whichever plane
-    split it), `compress_batch.estimate` on the words' device otherwise.
-    float32 (B,) on the home device, padded rows included."""
-    from . import compress_batch
-
-    if isinstance(words, ShardedTensor):
-        return sharded_estimate_step(words.mesh)(words, lane_counts)
-    return compress_batch.estimate(words, _as_int64(lane_counts, words.device))
 
 
 class ShardedPack(tuple):
@@ -403,6 +391,7 @@ class ShardPlane:
         if self.mesh is not None:
             self._hash_sharded = sharded_hash_step(self.mesh)
             self._scan_sharded = sharded_scan_step(self.mesh)
+            self._estimate_sharded = sharded_estimate_step(self.mesh)
 
     # -- mesh geometry ----------------------------------------------------
     @property
@@ -486,16 +475,24 @@ class ShardPlane:
         """Queue the hash program and return the (not yet synchronised)
         int64 (B, 8) digests on the home device, padding included. Host
         arrays are placed here (one counted placement); a batch placed by
-        `put_packed` is not placed again. Inside `advised()` on this
-        thread, a batch that lies whole on one device is also estimated for
-        the compress plane in the same launch (`hash_estimate_device`)."""
+        `put_packed` is not placed again.
+
+        Inside `advised()` on this thread every batch is also estimated for
+        the compress plane, where it lies: a batch on one device in the
+        hash's own launch (`hash_estimate_device`), a batch split over the
+        mesh by the mesh's histogram and entropy programs
+        (`sharded_estimate_step`). The advisories are the same bits either
+        way."""
         if not self._placed(words):
             words, lane_counts, lengths = self.put_packed(words, lane_counts, lengths)
+        advice = getattr(self._advice, "sink", None)
         if isinstance(words, ShardedTensor):
-            return self._hash_sharded(words, lane_counts, lengths)
+            digests = self._hash_sharded(words, lane_counts, lengths)
+            if advice is not None:
+                advice.append(self._estimate_sharded(words, lane_counts))
+            return digests
         dev = words.device
         counts, lens = _as_int64(lane_counts, dev), _as_int64(lengths, dev)
-        advice = getattr(self._advice, "sink", None)
         if advice is None:
             return hash_device(words, counts, lens)
         digests, advisories = hash_estimate_device(words, counts, lens)
@@ -504,10 +501,9 @@ class ShardPlane:
 
     @contextlib.contextmanager
     def advised(self):
-        """Within the block, each hash on this thread (`hash_async`) of a
-        batch that lies whole on one device appends its float32 (B,)
-        compress advisories, computed in the hash's launch, to the list
-        this yields; a batch split over a mesh appends none."""
+        """Within the block, each hash on this thread (`hash_async`) appends
+        its batch's float32 (B,) compress advisories, padding included, on
+        the home device, to the list this yields."""
         advice: list = []
         self._advice.sink = advice
         try:
@@ -543,14 +539,6 @@ class ShardPlane:
             dup, first = dedup_scan(d)
         return (digests_to_numpy(d[:n]), dup[:n].cpu().numpy(),
                 first[:n].cpu().numpy())
-
-    def make_estimator(self):
-        """Estimator callable for the compress plane: (words, lane_counts)
-        -> float32 predicted ratio per block (padded rows included).
-        `estimate_placed`: it follows the batch, sharded over the mesh a
-        batch was split over and one-device otherwise, so a pack placed by
-        another plane is estimated where it lies."""
-        return estimate_placed
 
 
 _plane_lock = threading.Lock()

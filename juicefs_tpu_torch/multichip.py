@@ -12,8 +12,8 @@ dedup_scan`) on the same plane, which reads every block back and hashes
 it again. Three gates hold before any number is reported: the scan's
 digest rows equal the rows ingest recorded, sampled rows equal the numpy
 JTH-256 spec, and the duplicate count equals the duplicates planted.
-Beside them, the compress estimator must have read every block ingest
-hashed from the shared pack split over the mesh, with no degrade. It
+Beside them, every block ingest hashed must have been estimated on the
+mesh from the shared pack split over it, with no degrade. It
 prints one `MULTICHIP {json}` line and returns the same dict.
 
 `devices` takes the place of the reference's forced host device count:
@@ -98,8 +98,8 @@ def dryrun_multichip(devices=None, gib: float = 0.0625, block_mib: int = 1,
         m.load()
         storage = create_storage(f"file://{base}/blob")
         storage.create()
-        # the store's compress plane is a one-device one; its estimator
-        # follows the pack ingest splits over the plane's mesh
+        # the store's compress plane records the advisories the plane's
+        # mesh computes as it hashes the pack ingest split over it
         store = CachedStore(storage, ChunkConfig(
             block_size=bs, compress="lz4", cache_dirs=("memory",), cache_size=1,
             max_upload=4, max_download=fetch_threads, device=plane.home))

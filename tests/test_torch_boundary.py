@@ -251,7 +251,9 @@ packed = pack_blocks([b"a" * 70000, b"b", b"a" * 70000], pad_lanes=2)
 sp = plane.put_packed(*packed)
 assert plane.hash_packed(*sp, n=sp.batch).shape == (3, 8)
 assert plane.scan_packed(*packed)[1].tolist() == [False, False, True]
-assert plane.make_estimator()(sp[0], sp[1]).shape == (4,)
+with plane.advised() as advice:
+    plane.hash_async(*sp)
+assert advice[0].shape == (4,)
 assert dryrun_multichip([torch.device("cpu")] * 4, gib=9 / 1024)["identity_ok"]
 print(json.dumps(sorted(sys.modules)))
 """

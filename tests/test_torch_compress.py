@@ -20,6 +20,7 @@ from juicefs_tpu.tpu import compress_batch as ref_cb
 from juicefs_tpu.tpu.jth256 import pack_blocks
 from juicefs_tpu_torch.compress import LZ4Compressor, NoneCompressor
 from juicefs_tpu_torch.gpu import compress_batch as cb
+from juicefs_tpu_torch.gpu.sharding import ShardPlane
 from juicefs_tpu_torch.qos import IOClass, Scheduler
 
 LANE = 1 << 16
@@ -132,7 +133,9 @@ def test_compress_blocks_byte_identical_to_reference(scheds, lanes, min_blocks):
 
 def test_cuda_plane_estimates_like_reference_xla_plane(scheds):
     """The cuda backend (plain torch path on the CPU) encodes the same bytes
-    and records the same advisories as the reference's xla backend."""
+    as the reference's xla backend and records the advisories that an
+    advised hash of the shared pack computes (`ShardPlane.hash_async`),
+    which equal the reference's `_make_estimator`."""
     ref_s, port_s = scheds
     ref = ref_cb.CompressPlane(RefLZ4(), ref_cb.CompressBatchConfig(backend="xla"),
                                scheduler=ref_s)
@@ -140,9 +143,16 @@ def test_cuda_plane_estimates_like_reference_xla_plane(scheds):
                             scheduler=port_s, device="cpu")
     try:
         assert port.backend == "cuda" and port.device == torch.device("cpu")
+        assert port.estimating
         blocks = [_rand(1 << 20), bytes(1 << 20), _text(1 << 20)]
         packed = pack_blocks(blocks, pad_lanes=16)
-        port.estimate_packed(_tensors(packed))
+        plane = ShardPlane([torch.device("cpu")])
+        with plane.advised() as advice:
+            plane.hash_async(*_tensors(packed))
+        (adv,) = advice
+        want = np.asarray(ref_cb._make_estimator()(packed[0], packed[1]))
+        np.testing.assert_allclose(adv.numpy(), want, rtol=0, atol=1e-5)
+        port.estimate_packed(adv)
         assert port.compress_blocks(blocks) == ref.compress_blocks(blocks, packed=packed)
         assert port.estimated == ref.estimated == 3
         np.testing.assert_allclose(port.last_estimate, ref.last_estimate, atol=1e-4)
@@ -168,34 +178,36 @@ def test_unknown_backend_rejected(scheds):
                          scheduler=scheds[1])
 
 
-def test_estimator_failure_is_logged_and_counted(scheds, monkeypatch, caplog):
+def test_estimator_failure_is_logged_and_counted(scheds, caplog):
+    """A failed estimate is logged at WARNING and counted once, the plane
+    stops estimating, and encoding goes on as before."""
     plane = cb.CompressPlane(LZ4Compressor(), cb.CompressBatchConfig(backend="cuda"),
                              scheduler=scheds[1], device="cpu")
-
-    def boom(words, counts):
-        raise RuntimeError("device lost")
-
-    monkeypatch.setattr(cb, "estimate", boom)
+    assert plane.estimating
     blocks = [_rand(LANE), _rand(LANE)]
-    packed = _tensors(pack_blocks(blocks, pad_lanes=1))
     with caplog.at_level(logging.WARNING):
-        plane.estimate_packed(packed)
+        plane.estimate_failed(RuntimeError("device lost"))
     assert plane.compress_blocks(blocks) == [plane.compressor.compress(b) for b in blocks]
-    assert plane.degraded == 1 and plane.estimated == 0
-    assert "compress estimate degraded" in caplog.text
-    plane.estimate_packed(packed)  # stopped: no retry
-    assert plane.degraded == 1
+    assert plane.degraded == 1 and plane.estimated == 0 and not plane.estimating
+    assert "compress estimate degraded: device lost" in caplog.text
+    assert plane.stats()["degraded"] == 1
     plane.close()
 
 
-def test_estimate_packed_refuses_host_arrays(scheds, caplog):
-    """Host arrays would cost a second upload: refused, logged and counted."""
+def test_estimate_packed_records_the_advisories(scheds):
+    """`estimate_packed` records a batch's host advisories: one estimated
+    block each, the last batch's rounded to 4 places, across batches."""
     plane = cb.CompressPlane(LZ4Compressor(), scheduler=scheds[1], device="cpu")
-    blocks = [_rand(LANE), bytes(LANE)]
-    with caplog.at_level(logging.WARNING):
-        plane.estimate_packed(pack_blocks(blocks, pad_lanes=1))
-    assert plane.degraded == 1 and plane.estimated == 0
-    assert "device tensors of shard_packed" in caplog.text
+    blocks = [_rand(LANE), bytes(LANE), _text(LANE)]
+    words, counts, _ = _tensors(pack_blocks(blocks, pad_lanes=1))
+    adv = cb.estimate(words, counts)
+    plane.estimate_packed(adv[:2])
+    assert plane.estimated == 2
+    plane.estimate_packed(adv)
+    assert plane.estimated == 5 and plane.degraded == 0
+    assert plane.last_estimate == [round(float(p), 4) for p in adv]
+    assert plane.last_estimate[0] > plane.last_estimate[2] > plane.last_estimate[1] == 0.0
+    assert plane.stats()["estimated"] == 5 and "estimated_in_hash" not in plane.stats()
     plane.close()
 
 

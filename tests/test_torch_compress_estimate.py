@@ -1,12 +1,12 @@
-"""The compress estimator kernel's arithmetic on the CPU: the g++ twin of
-juicefs_tpu_torch/gpu/kernels/compress_estimate.cu (its sample, lane mask,
-binning and entropy, from the same compress_estimate.cuh) against the
-port's plain torch estimator, an independent numpy histogram and the JAX
-package's `_make_estimator` (XLA on the CPU); and the twin of the row
-chain's estimating entry (jth256_row_chain.cu,
-`jth256_block_digests_estimate`: the sample binned as the chain reads it)
-against the twin's block entry and estimator and the JAX package's hash
-and estimator.
+"""The compress estimator kernels' arithmetic on the CPU: the g++ twin of
+juicefs_tpu_torch/gpu/kernels/compress_estimate.cu (its histogram and
+entropy entries: the sample, lane mask, binning and entropy, from the same
+compress_estimate.cuh) against the port's plain torch estimator, an
+independent numpy histogram and the JAX package's `_make_estimator` (XLA
+on the CPU); and the twin of the row chain's estimating entry
+(jth256_row_chain.cu, `jth256_block_digests_estimate`: the sample binned
+as the chain reads it) against the twin's block entry and estimator and
+the JAX package's hash and estimator.
 
 Histograms must be exact. The JAX estimator returns advisories only, so
 its histogram is held through the plain torch version, which
@@ -36,6 +36,12 @@ def twin():
     return kernels.load_twin()
 
 
+def _estimate(twin, words, counts):
+    """The twin's advisories of whole blocks: the histogram entry, then the
+    entropy entry, as a batch's estimate runs on the card."""
+    return twin.estimate_entropy(twin.estimate_histogram(words, counts))
+
+
 @pytest.mark.parametrize("b,m", SHAPES)
 def test_twin_histogram_is_exact(twin, b, m):
     """The kernel's histogram (twin) equals the plain torch one and numpy's,
@@ -55,14 +61,15 @@ def test_twin_histogram_is_exact(twin, b, m):
 
 @pytest.mark.parametrize("b,m", SHAPES)
 def test_twin_estimate_matches_jax(twin, b, m):
-    """The kernel's advisories (twin: the fused entry, and the entropy entry
-    on the plain histogram) within 1e-5 of the JAX package's estimator and
-    of the plain torch version; zero and text blocks below 0.5, full random
-    blocks above 0.9; the two entries agree bit for bit."""
+    """The kernel's advisories (twin: the histogram entry then the entropy
+    entry, and the entropy entry on the plain histogram) within 1e-5 of the
+    JAX package's estimator and of the plain torch version; zero and text
+    blocks below 0.5, full random blocks above 0.9; the two histograms give
+    the same bits."""
     words, counts = pack(23 + b, b, m)
     tc = torch.from_numpy(counts)
     want = np.asarray(ref_cb._make_estimator()(words, counts.astype(np.int32)))
-    got = twin.estimate(_t(words), tc)
+    got = _estimate(twin, _t(words), tc)
     assert got.dtype == torch.float32 and tuple(got.shape) == (b,)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), cb.estimate(_t(words), tc).numpy(),
@@ -110,7 +117,7 @@ def test_twin_empty_and_dead_blocks(twin):
     assert int(hist[0].sum()) == 0 and int(hist[1].sum()) == 4 * 256
     np.testing.assert_array_equal(hist.numpy(), np_histogram(words, counts))
     want = np.asarray(ref_cb._make_estimator()(words, counts.astype(np.int32)))
-    got = twin.estimate(_t(words), tc)
+    got = _estimate(twin, _t(words), tc)
     assert float(got[0]) == 0.0
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
@@ -150,7 +157,7 @@ def test_twin_hash_estimate_matches_block_entry_estimator_and_jax(twin, b, m, tw
     want = np.asarray(hj.hash_packed_jax(words ^ np.uint32(tweak), counts.astype(np.int32),
                                          lengths.astype(np.uint32)))
     np.testing.assert_array_equal(digests.numpy().astype(np.uint32), want)
-    assert torch.equal(adv, twin.estimate(_t(words), tc))
+    assert torch.equal(adv, _estimate(twin, _t(words), tc))
     ref = np.asarray(ref_cb._make_estimator()(words, counts.astype(np.int32)))
     np.testing.assert_allclose(adv.numpy(), ref, rtol=0, atol=1e-5)
     if tweak:
@@ -167,7 +174,7 @@ def test_twin_hash_estimate_counts_no_dead_lane(twin):
     flat = _t(words).reshape(12, 128, 128)
     digests, adv = twin.block_digests_estimate(flat, 4, tc, tl)
     assert float(adv[0]) == 0.0
-    assert torch.equal(adv, twin.estimate(_t(words), tc))
+    assert torch.equal(adv, _estimate(twin, _t(words), tc))
     assert torch.equal(digests, twin.block_digests(flat, 4, tc, tl))
 
 
@@ -187,4 +194,4 @@ def test_hash_estimate_device_plain_on_the_cpu(twin, b, m):
     assert torch.equal(digests, twin.block_digests(flat, m, tc, tl))
     assert torch.equal(digests, ht.hash_device(tw, tc, tl))
     assert torch.equal(adv, cb.estimate(tw, tc))
-    np.testing.assert_allclose(adv.numpy(), twin.estimate(tw, tc).numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(adv.numpy(), _estimate(twin, tw, tc).numpy(), rtol=0, atol=1e-5)

@@ -1,9 +1,10 @@
 """The compress estimator's kernel (juicefs_tpu_torch/gpu/kernels/
-compress_estimate.cu) on the card against the plain torch version on the
-CPU: histograms exact, advisories within 1e-5 (float32 log2 and the order
-of the sum differ); and the row chain's estimating entry
-(jth256_row_chain.cu, `jth256_block_digests_estimate`) against the block
-entry and the estimator's fused entry on the card, bit for bit. Every test
+compress_estimate.cu: its histogram and entropy entries) on the card
+against the plain torch version on the CPU: histograms exact, advisories
+within 1e-5 (float32 log2 and the order of the sum differ); and the row
+chain's estimating entry (jth256_row_chain.cu,
+`jth256_block_digests_estimate`) against the block entry and the
+histogram and entropy entries on the card, bit for bit. Every test
 needs a CUDA card and skips without one; the kernels' arithmetic is held
 on the CPU through their g++ twin (test_torch_compress_estimate.py). This
 file imports no JAX.
@@ -24,7 +25,7 @@ from juicefs_tpu_torch.gpu.jth256 import pack_blocks
 from torch_estimate_packs import SHAPES, blocks, np_histogram, pack, pack_with_lengths
 from torch_estimate_packs import as_int32 as _t
 
-ESTIMATE_ENTRIES = ("compress_estimate", "compress_histogram", "compress_entropy")
+ESTIMATE_ENTRIES = ("compress_histogram", "compress_entropy")
 HASH_ENTRIES = ("jth256_row_chain", "jth256_block_digests", "jth256_block_digests_estimate",
                 "jth256_lane_digests", "jth256_combine")
 
@@ -66,8 +67,8 @@ def _card_ops(fn, tmp_path) -> list:
 def test_kernel_matches_plain_on_seeded_packs(card, b, m):
     """Each entry on the card against the plain torch version on the CPU:
     the histogram entry exact (whole blocks and lane shards with their
-    offsets), the fused entry within 1e-5, the entropy entry bit for bit
-    the fused one."""
+    offsets), the estimate (histogram, then entropy) within 1e-5, the
+    entropy entry on the histogram bit for bit the estimate."""
     words, counts = pack(101 + b + m, b, m)
     cw, cc = _t(words), torch.from_numpy(counts)
     dw, dc = cw.to(card), cc.to(card)
@@ -76,8 +77,7 @@ def test_kernel_matches_plain_on_seeded_packs(card, b, m):
     pred = cb.estimate(dw, dc)
     ent = cb.entropy_ratio(hist)
     torch.cuda.synchronize()
-    assert _launches() == {"compress_estimate": 1, "compress_histogram": 1,
-                           "compress_entropy": 1}
+    assert _launches() == {"compress_histogram": 2, "compress_entropy": 2}
     assert torch.equal(hist.cpu(), cb.byte_histogram(cw, cc))
     np.testing.assert_array_equal(hist.cpu().numpy(), np_histogram(words, counts))
     np.testing.assert_allclose(pred.cpu().numpy(), cb.estimate(cw, cc).numpy(),
@@ -91,19 +91,18 @@ def test_kernel_matches_plain_on_seeded_packs(card, b, m):
 
 
 @pytest.mark.cuda
-def test_one_launch_and_one_card_kernel_per_estimate(card, tmp_path):
-    """An estimate on the card is one launch of the fused entry and one
-    kernel, with no memset or fill before it (the workspace is zeroed once,
-    when it is made)."""
+def test_estimate_is_the_histogram_then_the_entropy_kernel(card, tmp_path):
+    """An estimate on the card is one launch of the histogram entry and one
+    of the entropy entry, two kernels, with no memset or fill before them
+    (the workspace is zeroed once, when it is made)."""
     words, counts = pack(7, 13, 64)
     dw, dc = _t(words).to(card), torch.from_numpy(counts).to(card)
     cb.estimate(dw, dc)  # builds the library and makes the stream's workspace
     kernels.reset_launches()
     ops = _card_ops(lambda: cb.estimate(dw, dc), tmp_path)
-    assert _launches() == {"compress_estimate": 1, "compress_histogram": 0,
-                           "compress_entropy": 0}
-    assert len(ops) == 1 and ops[0][0] == "kernel", ops
-    assert "compress_estimate_kernel" in ops[0][1]
+    assert _launches() == {"compress_histogram": 1, "compress_entropy": 1}
+    assert [cat for cat, _name in ops] == ["kernel", "kernel"], ops
+    assert "compress_histogram_kernel" in ops[0][1] and "compress_entropy_kernel" in ops[1][1]
 
 
 @pytest.mark.cuda
@@ -121,7 +120,7 @@ def test_workspace_is_zero_after_each_launch(card):
         hist = cb.byte_histogram(dw, dc)
         again = cb.estimate(dw, dc)
         torch.cuda.synchronize()
-        work, size = ht._ARRIVALS[("compress_estimate", dw.device.index, stream.cuda_stream)]
+        work, size = ht._ARRIVALS[("compress_histogram", dw.device.index, stream.cuda_stream)]
     assert size >= 32 and work.numel() == size * cb._WORK_WORDS and not work.any()
     assert torch.equal(again, whole) and torch.equal(first, whole[:1])
     assert torch.equal(cb.entropy_ratio(hist), whole)
@@ -130,26 +129,33 @@ def test_workspace_is_zero_after_each_launch(card):
     assert torch.equal(default, whole)
 
 
+def _advised(plane, packed, n):
+    """The advisories of the plane's advised hash of a placed pack."""
+    with plane.advised() as advice:
+        plane.hash_async(*packed)
+    return advice[0][:n]
+
+
 @pytest.mark.cuda
 def test_shard_plane_advisories_equal_one_card(card):
-    """On ShardPlane([cuda:0] * k) the estimate (a histogram per shard with
-    its lane offset, their sum, the entropy entry per data row) equals the
-    one-card plane's bit for bit."""
+    """On ShardPlane([cuda:0] * k) the advised hash's estimate (a histogram
+    per shard with its lane offset, their sum, the entropy entry per data
+    row) equals the one-card plane's, computed in its hash launch, bit for
+    bit."""
     rng = np.random.default_rng(29)
     batch = blocks(rng, 13, 64)
     packed = pack_blocks(batch, pad_lanes=64)
     one = sharding.ShardPlane([card])
-    sp = one.put_packed(*packed)
-    want = one.make_estimator()(sp[0], sp[1])[: len(batch)]
+    want = _advised(one, one.put_packed(*packed), len(batch))
     for k, (rows, lanes) in ((2, (2, 1)), (4, (2, 2)), (8, (4, 2))):
         plane = sharding.ShardPlane([card] * k)
         sp = plane.put_packed(*packed)
         kernels.reset_launches()
-        got = plane.make_estimator()(sp[0], sp[1])[: len(batch)]
+        got = _advised(plane, sp, len(batch))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want.cpu()), k
-        assert _launches() == {"compress_estimate": 0, "compress_histogram": rows * lanes,
-                               "compress_entropy": rows}
+        assert _launches() == {"compress_histogram": rows * lanes, "compress_entropy": rows}
+        assert kernels.LAUNCHES["jth256_block_digests_estimate"] == 0
 
 
 def _hash_launches() -> dict:
@@ -164,7 +170,7 @@ def _fused(words, counts, lengths, tweak=0):
 @pytest.mark.parametrize("b", [1, 8, 13, 25, 32])
 def test_estimating_hash_entry_matches_both_entries(card, b):
     """The estimating entry's digests equal the block entry's and its
-    advisories the estimator's fused entry's, bit for bit, on seeded packs
+    advisories the histogram and entropy entries', bit for bit, on seeded packs
     of whole, short and dead-laned blocks; with a tweak the digests follow
     it and the advisories do not (the estimate samples the words as
     read)."""

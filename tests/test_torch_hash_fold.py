@@ -195,12 +195,11 @@ def test_wrappers_validate_input():
 
 def test_kernel_entries_have_sources_and_signatures():
     """The live C entries, each in its source with a ctypes signature; the
-    row chain's states entry is gone."""
+    row chain's states entry and the estimator's one-card entry are gone."""
     assert set(kernels.ENTRY_SOURCES) == {"jth256_block_digests",
                                           "jth256_block_digests_estimate",
                                           "jth256_lane_digests", "jth256_combine",
-                                          "compress_estimate", "compress_histogram",
-                                          "compress_entropy"}
+                                          "compress_histogram", "compress_entropy"}
     assert set(kernels._SIGNATURES) == set(kernels.ENTRY_SOURCES)
     for src in set(kernels.ENTRY_SOURCES.values()):
         with open(f"{kernels.KERNEL_DIR}/{src}.cu") as f:
@@ -209,11 +208,11 @@ def test_kernel_entries_have_sources_and_signatures():
             if s == src:
                 assert f'extern "C" int {entry}(' in text
         assert 'extern "C" int jth256_row_chain(' not in text
+        assert 'extern "C" int compress_estimate(' not in text
     assert set(kernels.LAUNCHES) == {"jth256_row_chain", "jth256_block_digests",
                                      "jth256_block_digests_estimate",
                                      "jth256_lane_digests", "jth256_combine",
-                                     "compress_estimate", "compress_histogram",
-                                     "compress_entropy"}
+                                     "compress_histogram", "compress_entropy"}
 
 
 # (B, M): one and three blocks of 1, 2 and 64 lanes
@@ -309,8 +308,7 @@ def test_hash_device_is_one_launch_on_the_card(card):
     assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 2,
                                 "jth256_block_digests_estimate": 0,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
-                                "compress_estimate": 0, "compress_histogram": 0,
-                                "compress_entropy": 0}
+                                "compress_histogram": 0, "compress_entropy": 0}
     assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
 
 
@@ -335,5 +333,4 @@ def test_hash_estimate_device_is_one_launch_on_the_card(card):
     assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 0,
                                 "jth256_block_digests_estimate": 2,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
-                                "compress_estimate": 0, "compress_histogram": 0,
-                                "compress_entropy": 0}
+                                "compress_histogram": 0, "compress_entropy": 0}

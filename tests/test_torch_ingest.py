@@ -582,21 +582,24 @@ def _estimates_seen(store, datas, sid):
 def test_one_device_batches_are_estimated_in_their_hash_launch(meta, tmp_path, monkeypatch):
     """A batch on one device is hashed and estimated in one call of the
     estimating hash (one launch of the row chain's estimating entry on the
-    card), and the compress plane's own estimator never runs: every hashed
-    block is estimated, each batch once, elision exact."""
+    card), and the compress plane records its advisories once a batch:
+    every hashed block is estimated, elision exact."""
     from juicefs_tpu_torch.gpu import sharding
 
     store, counting = _device_store(meta, tmp_path, "blob-in-hash", batch_blocks=4,
                                     hot_bytes=0)
     try:
         fused = _count_calls(monkeypatch, sharding, "hash_estimate_device")
-        apart = _count_calls(monkeypatch, store.compress_plane, "estimate_packed")
+        recorded = _count_calls(monkeypatch, store.compress_plane, "estimate_packed")
         dup = os.urandom(BS)
         datas = [dup, os.urandom(BS), dup, os.urandom(BS), os.urandom(BS), os.urandom(BS)]
         st, hashed, n_batches = _estimates_seen(store, datas, 990)
         comp = st["compress"]
-        assert hashed == 6 and len(fused) == n_batches > 0 and apart == []
-        assert comp["estimated"] == comp["estimated_in_hash"] == hashed
+        assert hashed == 6 and len(fused) == len(recorded) == n_batches > 0
+        assert sum(len(adv) for (adv,) in recorded) == hashed
+        assert all(adv.device.type == "cpu" and adv.dtype == torch.float32
+                   for (adv,) in recorded)
+        assert comp["estimated"] == hashed and "estimated_in_hash" not in comp
         assert comp["degraded"] == 0 and len(store.compress_plane.last_estimate) >= 1
         assert st["put_elided"] == 1 and st["passthrough"] == st["errors"] == 0
         r = store.new_reader(990, 6 * BS)
@@ -606,10 +609,10 @@ def test_one_device_batches_are_estimated_in_their_hash_launch(meta, tmp_path, m
 
 
 def test_mesh_split_batches_are_estimated_apart(meta, tmp_path, monkeypatch):
-    """A batch split over a mesh (ShardedTensors) keeps the estimate apart
-    from the hash: the mesh's hash program, then the compress plane's
-    estimator, which follows the pack; nothing is estimated in a hash
-    launch and nothing degrades."""
+    """A batch split over a mesh (ShardedTensors) is estimated apart from
+    the hash launches, by the mesh's histogram and entropy programs inside
+    the plane's hash (`hash_async`); the compress plane records the
+    advisories, sliced to the real blocks, and nothing degrades."""
     from juicefs_tpu_torch.gpu import sharding
 
     mesh = sharding.ShardPlane([torch.device("cpu")] * 2)
@@ -617,15 +620,18 @@ def test_mesh_split_batches_are_estimated_apart(meta, tmp_path, monkeypatch):
     store, counting = _device_store(meta, tmp_path, "blob-mesh", batch_blocks=4,
                                     hot_bytes=0, plane=mesh)
     try:
-        apart = _count_calls(monkeypatch, store.compress_plane, "estimate_packed")
+        sharded = _count_calls(monkeypatch, mesh, "_estimate_sharded")
+        fused = _count_calls(monkeypatch, sharding, "hash_estimate_device")
+        recorded = _count_calls(monkeypatch, store.compress_plane, "estimate_packed")
         dup = os.urandom(BS)
         datas = [dup, os.urandom(BS), dup, os.urandom(BS), os.urandom(BS)]
         st, hashed, n_batches = _estimates_seen(store, datas, 995)
         comp = st["compress"]
-        assert hashed == 5 and len(apart) == n_batches > 0
-        assert all(isinstance(packed[0], sharding.ShardedTensor) for (packed,) in apart)
-        assert comp["estimated"] == hashed and comp["estimated_in_hash"] == 0
-        assert comp["degraded"] == 0
+        assert hashed == 5 and len(sharded) == len(recorded) == n_batches > 0
+        assert fused == []
+        assert all(isinstance(words, sharding.ShardedTensor) for words, _c in sharded)
+        assert sum(len(adv) for (adv,) in recorded) == hashed
+        assert comp["estimated"] == hashed and comp["degraded"] == 0
         assert st["put_elided"] == 1 and st["passthrough"] == st["errors"] == 0
         r = store.new_reader(995, 5 * BS)
         assert [bytes(r.read(j * BS, BS)) for j in range(5)] == datas
@@ -635,9 +641,9 @@ def test_mesh_split_batches_are_estimated_apart(meta, tmp_path, monkeypatch):
 
 def test_failed_hash_estimate_launch_degrades_only_the_estimate(meta, tmp_path, monkeypatch,
                                                                 caplog):
-    """A failed launch of the estimating hash costs only the estimate in it:
+    """A failed launch of the estimating hash costs only the estimate:
     logged and counted once in the compress plane's `degraded`, the batch
-    hashed again alone and estimated apart from then on; no block passes
+    hashed again alone and no batch estimated from then on; no block passes
     through, every block is hashed, elided or uploaded as without it."""
     from juicefs_tpu_torch.gpu import sharding
 
@@ -648,20 +654,20 @@ def test_failed_hash_estimate_launch_degrades_only_the_estimate(meta, tmp_path, 
             raise RuntimeError("estimating launch lost")
 
         monkeypatch.setattr(sharding, "hash_estimate_device", lost)
+        tried = _count_calls(monkeypatch, sharding, "hash_estimate_device")
         passthrough0 = _counter("juicefs_ingest_passthrough")
         dup = os.urandom(BS)
         datas = [dup, os.urandom(BS), dup, os.urandom(BS), os.urandom(BS), os.urandom(BS)]
         with caplog.at_level(logging.WARNING):
             st, hashed, n_batches = _estimates_seen(store, datas, 998)
         comp = st["compress"]
-        assert hashed == 6 and n_batches >= 2
-        assert comp["degraded"] == 1 and not store.compress_plane.estimates_in_hash
-        assert comp["estimated"] == hashed and comp["estimated_in_hash"] == 0
+        assert hashed == 6 and n_batches >= 2 and len(tried) == 1
+        assert comp["degraded"] == 1 and not store.compress_plane.estimating
+        assert comp["estimated"] == 0 and store.compress_plane.last_estimate is None
         assert st["passthrough"] == st["errors"] == 0
         assert _counter("juicefs_ingest_passthrough") == passthrough0
         assert st["put_elided"] == 1 and st["uploaded"] == 5
-        assert "compress estimate in the hash launch degraded: estimating launch lost" \
-            in caplog.text
+        assert "compress estimate degraded: estimating launch lost" in caplog.text
         r = store.new_reader(998, 6 * BS)
         assert [bytes(r.read(j * BS, BS)) for j in range(6)] == datas
     finally:
@@ -802,10 +808,7 @@ def test_slice_matches_reference(tmp_path):
     assert pst["compress"].pop("backend") == "cuda"
     rst["compress"].pop("lanes")
     pst["compress"].pop("lanes")
-    # the port estimates each batch inside its hash call (the reference has
-    # no such count)
-    assert pst["compress"].pop("estimated_in_hash") == pst["compress"]["estimated"] > 0
-    assert pst == rst
+    assert pst == rst and pst["compress"]["estimated"] > 0
     assert pst["put_elided"] == expect_dups and pst["uploaded"] == n - expect_dups
     assert pst["passthrough"] == pst["errors"] == pst["race_collapsed"] == 0
     assert pst["compress"]["degraded"] == 0

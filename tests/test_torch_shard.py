@@ -80,6 +80,15 @@ def plane():
     return sharding.ShardPlane(cpus(8))
 
 
+def _advised(plane, packed):
+    """The advisories of the plane's advised hash (`hash_async` inside
+    `advised()`) of a placed pack, sliced to its real blocks."""
+    with plane.advised() as advice:
+        plane.hash_async(*packed)
+    (pred,) = advice
+    return pred[: packed.batch]
+
+
 # -- the reference's drills, on the port's plane -------------------------------
 
 def test_plane_mesh_over_all_devices(plane):
@@ -143,7 +152,7 @@ def test_estimator_advisory_identity_sharded_vs_single(plane):
     words, counts, _ = _tensors(packed)
     single = cb.estimate(words, counts)
     sp = plane.put_packed(*packed)
-    pred = plane.make_estimator()(sp[0], sp[1])[: sp.batch]
+    pred = _advised(plane, sp)
     # the integer-valued histogram sum is exact, so the advisory is not
     # merely close: it is bit-identical to the one-device estimate
     assert torch.equal(single, pred)
@@ -154,22 +163,26 @@ def test_estimator_advisory_identity_sharded_vs_single(plane):
 
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_compress_plane_estimates_a_pack_another_plane_split(n):
-    """The store's compress plane is a one-device one while ingest may
-    split its shared pack over a mesh: the estimator follows the pack (a
-    ShardedTensor carries its mesh), every real block is estimated, the
-    padding is sliced off, and nothing degrades."""
+    """The store's compress plane holds no plane while ingest may split its
+    shared pack over a mesh: the pipeline's advised hash estimates the pack
+    where it lies, every real block is estimated, the padding is sliced
+    off, and the compress plane records the one-device advisories."""
     rng = np.random.default_rng(40 + n)
     blocks = _blocks(rng)[:5]  # 5 blocks: padded over every data axis here
     packed = pack_blocks(blocks, pad_lanes=16)
     words, counts, _ = _tensors(packed)
     want = [round(float(p), 4) for p in cb.estimate(words, counts)]
-    sp = sharding.ShardPlane(cpus(n)).put_packed(*packed)
+    pipe = HashPipeline(PipelineConfig(backend="cuda", pad_lanes=16),
+                        plane=sharding.ShardPlane(cpus(n)))
+    sp = pipe.shard_packed(packed)
     assert isinstance(sp[0], sharding.ShardedTensor) and sp[0].shape[0] > sp.batch == 5
+    digests, adv = pipe.hash_packed(*sp, n=sp.batch, advise=True)
+    assert digests == [jth256(b) for b in blocks] and tuple(adv.shape) == (5,)
     sched = Scheduler()
     comp = cb.CompressPlane(LZ4Compressor(), scheduler=sched, device="cpu")
     try:
         assert comp.device == CPU
-        comp.estimate_packed(sp)
+        comp.estimate_packed(adv)
         assert comp.degraded == 0 and comp.estimated == 5
         assert comp.last_estimate == want
     finally:
@@ -344,9 +357,7 @@ def test_device_count_byte_identity(n):
         assert list(dup) == list(rdup) and list(first) == list(rfirst)
         if blocks:
             words, counts, _ = _tensors(packed)
-            sp = p.put_packed(*packed)
-            pred = p.make_estimator()(sp[0], sp[1])[: sp.batch]
-            assert torch.equal(cb.estimate(words, counts), pred)
+            assert torch.equal(cb.estimate(words, counts), _advised(p, p.put_packed(*packed)))
 
 
 # -- parity with the JAX package's plane ---------------------------------------
@@ -367,7 +378,7 @@ def test_plane_parity_with_reference(n):
         rsp = ref.put_packed(*packed)
         rpred = np.asarray(ref.make_estimator()(rsp[0], rsp[1]))[: rsp.batch]
         sp = port.put_packed(*packed)
-        pred = port.make_estimator()(sp[0], sp[1])[: sp.batch]
+        pred = _advised(port, sp)
         np.testing.assert_allclose(pred.numpy(), rpred, rtol=0, atol=1e-5)
         assert sp.batch == rsp.batch and tuple(sp[0].shape) == tuple(rsp[0].shape)
 
@@ -457,8 +468,8 @@ def test_dryrun_multichip_on_a_2x2_cpu_mesh(capsys):
     assert res["identity_ok"] and res["mesh"] == {"data": 2, "lane": 2}
     assert not res["degraded"] and sharding._DEGRADED.value == before
     assert res["blocks"] == 9 and res["scan"]["hashed_now"] == 9
-    # lz4 on: the store's one-device compress plane estimated every block
-    # ingest hashed, from the pack split over the 2 x 2 mesh
+    # lz4 on: every block ingest hashed was estimated on the 2 x 2 mesh,
+    # from the pack split over it, and recorded by the store's compress plane
     ing = res["ingest"]
     assert ing["estimated"] == ing["hashed"] > 0 and ing["compress_degraded"] == 0
     assert res["duplicate_blocks"] == res["ingest"]["put_elided"] > 0
