@@ -3,13 +3,11 @@
 
     python3 chip_smoke.py [--seed N] [--volume-gib G]
     python3 chip_smoke.py --compare-row-chain DIR   # DIR: another checkout
-    python3 chip_smoke.py --compare-row-chain . --compare-define JTH256_STAGES=8
 
 With --compare-row-chain it only builds DIR's row-chain kernel beside this
-checkout's and times their lane-digests entries at the timing phase's
-sizes, in turns; --compare-define passes a macro to DIR's build (the
-second form times another ring size of this checkout's kernel against its
-4 stages).
+checkout's and times their three entries (lane digests, block digests,
+block digests with the estimate) at COMPARE_BLOCKS, in turns, then sweeps
+this checkout's ring depth at SWEEP_BLOCKS.
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -366,6 +364,14 @@ ESTIMATE_BLOCKS = (1, 8, 13, 32)
 # the row chain's estimating entry's timed sizes: as ESTIMATE_BLOCKS, and
 # the one-writer ingest cell's ~25-block batch
 FUSED_BLOCKS = (1, 8, 13, 25, 32)
+# --compare-row-chain's sizes: one block, 8, each side of one and of two
+# waves of the 32 KiB ring every launch took before the ring followed the
+# batch (792 lanes, 12.4 blocks, an H100's 132 SMs x 6 CTAs: the ingest
+# cells' batches straddle both), a full 32-block batch and 1 GiB; and the
+# sizes of its depth sweep, the ingest cells' batches
+COMPARE_BLOCKS = (1, 8, 12, 13, 24, 25, 32, 256)
+SWEEP_BLOCKS = (13, 25)
+BLOCK_ENTRIES = ("jth256_block_digests", "jth256_block_digests_estimate")
 SECTOR_BYTES = 32  # the least a device-memory read moves
 SPIN_CYCLES = 10_000_000  # torch.cuda._sleep ahead of queued calls (ms on an H100)
 QUEUED = 10  # calls queued behind one spin
@@ -869,104 +875,144 @@ def timing_phase(gen: torch.Generator, smi: str) -> dict:
     return out
 
 
-def compare_phase(gen: torch.Generator, smi: str, other: str, define: str | None) -> dict:
-    """`--compare-row-chain DIR`: DIR's jth256_row_chain.cu (another
-    checkout's row chain with the same `jth256_lane_digests` C entry,
-    e.g. an earlier commit unpacked with `git archive`, or this one built
-    with the macro `define`, NAME=VALUE) built beside this one
-    and timed against this checkout's lane-digests entry at TIMING_BLOCKS,
-    in turns (other, this, this, other) by `time_queued` and by one host
-    call (`time_cuda`, launch included); both must give the same lane
-    digests. Where DIR's source has the `jth256_block_digests` entry, the
-    two block entries are timed the same way, on whole blocks with dead
-    lanes, and must give the same digests."""
+def other_row_chain(other: str):
+    """Build DIR's jth256_row_chain.cu apart from this checkout's build and
+    return its library and whether its entries take a ring depth (a
+    checkout from before the depth was a launch argument has none)."""
     import ctypes
 
-    phase(f"row chain vs {other}" + (f" built with {define}" if define else ""))
     kdir = os.path.join(other, "juicefs_tpu_torch", "gpu", "kernels")
     out_dir = os.path.join(kernels.BUILD_DIR, "compare")
     os.makedirs(out_dir, exist_ok=True)
     so = os.path.join(out_dir, f"libjth256_row_chain_other{os.getpid()}.so")
-    macro = [f"-D{define}"] if define else []
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, *macro, "-I", kdir, "-o", so,
-                           os.path.join(kdir, "jth256_row_chain.cu")],
+    src = os.path.join(kdir, "jth256_row_chain.cu")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kdir, "-o", so, src],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise AssertionError(f"nvcc failed on {kdir}:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(so)
-    fn = lib.jth256_lane_digests
-    fn.argtypes = kernels._SIGNATURES["jth256_lane_digests"]
-    fn.restype = ctypes.c_int
-    # DIR's block entry, where it has one
-    fn_block = getattr(lib, "jth256_block_digests", None)
-    if fn_block is not None:
-        fn_block.argtypes = kernels._SIGNATURES["jth256_block_digests"]
-        fn_block.restype = ctypes.c_int
+    with open(src) as f:
+        has_depth = "unsigned int depth" in f.read()
+    return ctypes.CDLL(so), has_depth
+
+
+class RowChainEntry:
+    """One build's row-chain C entry `entry`, called through ctypes on the
+    current stream with its own zeroed arrival counters and count
+    workspace (left zero by every launch). `depth=None` launches at the
+    ring this checkout's rule picks; a build whose entries take no depth
+    (`has_depth` False) is launched without one."""
+
+    def __init__(self, fn, entry: str, has_depth: bool, max_blocks: int):
+        import ctypes
+
+        sig = list(kernels._SIGNATURES[entry])
+        fn.argtypes = sig if has_depth else sig[:-2] + sig[-1:]
+        fn.restype = ctypes.c_int
+        self.fn, self.entry, self.has_depth = fn, entry, has_depth
+        self.arrivals = torch.zeros(max_blocks, dtype=torch.int32, device="cuda")
+        self.counts = torch.zeros(max_blocks * 256, dtype=torch.int32, device="cuda")
+
+    def __call__(self, words, counts, lengths, tweak: int, depth: int | None = None):
+        """words (B, M, 128, 128) -> lane digests (B*M, 8) for the lane
+        entry, else digests (B, 8) and, for the estimating entry, the
+        advisories (B,)."""
+        b, m = words.shape[0], words.shape[1]
+        if depth is None:
+            depth = hash_torch._ring(self.entry, words.device, b * m, m)[0]
+        lane_out = torch.empty((b * m, 8), dtype=torch.int32, device="cuda")
+        if self.entry == "jth256_lane_digests":
+            args, got = [words.data_ptr(), lane_out.data_ptr(), b * m, m, 0, tweak & MASK], \
+                lane_out
+        else:
+            out = torch.empty((b, 8), dtype=torch.int64, device="cuda")
+            args, got = [words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(),
+                         lengths.data_ptr(), self.arrivals.data_ptr(), out.data_ptr()], out
+            if self.entry == "jth256_block_digests_estimate":
+                adv = torch.empty((b,), dtype=torch.float32, device="cuda")
+                args += [self.counts.data_ptr(), adv.data_ptr()]
+                got = (out, adv)
+            args += [b, m, tweak & MASK]
+        args += [depth] if self.has_depth else []
+        rc = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"{self.entry} launch failed: CUDA error {rc}")
+        return got
+
+
+def compare_phase(gen: torch.Generator, smi: str, other: str) -> dict:
+    """`--compare-row-chain DIR`: DIR's jth256_row_chain.cu (another
+    checkout's row chain, e.g. the parent commit unpacked with `git
+    archive`) built beside this one, and its three entries (the lane
+    digests, the block digests and the block digests with the estimate)
+    timed against this checkout's at COMPARE_BLOCKS, in turns (other,
+    this, this, other) by `time_queued`'s device ms, on random words
+    cycling through COLD_BYTES in whole blocks with dead lanes; each pair
+    must give the same lane digests, digests and advisories. A build whose
+    entries take a ring depth is launched at the depth this checkout's
+    rule picks. Then this checkout's two block entries at every ring depth
+    at SWEEP_BLOCKS, in two rounds (deepest first, then shallowest first):
+    the rule's depth should be the fastest or within 2 % of it."""
+    phase(f"row chain vs {other}")
+    lib, has_depth = other_row_chain(other)
     m = BLOCK_BYTES // LANE_BYTES
-
-    def run_other(words, tweak):
-        out = torch.empty((words.shape[0], 8), dtype=torch.int32, device="cuda")
-        rc = fn(words.data_ptr(), out.data_ptr(), words.shape[0], m, 0, tweak & MASK,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise AssertionError(f"the other row chain's launch failed: CUDA error {rc}")
-        return out
-
-    arrivals = torch.zeros(max(TIMING_BLOCKS), dtype=torch.int32, device="cuda")
-
-    def run_other_block(words, counts, lengths, tweak):
-        b = counts.numel()
-        scratch = torch.empty((b * m, 8), dtype=torch.int32, device="cuda")
-        out = torch.empty((b, 8), dtype=torch.int64, device="cuda")
-        rc = fn_block(words.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
-                      lengths.data_ptr(), arrivals.data_ptr(), out.data_ptr(), b, m,
-                      tweak & MASK, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise AssertionError(f"the other block entry's launch failed: CUDA error {rc}")
-        return out
-
+    entries = ("jth256_lane_digests",) + BLOCK_ENTRIES
+    biggest = max(COMPARE_BLOCKS)
+    theirs = {e: RowChainEntry(getattr(lib, e), e, has_depth, biggest) for e in entries}
+    ours = {e: RowChainEntry(kernels.function(e), e, True, biggest) for e in entries}
     rows = {}
-    for blocks in TIMING_BLOCKS:
+    for blocks in COMPARE_BLOCKS:
         n = blocks * m
         copies = max(1, -(-COLD_BYTES // (n * LANE_BYTES)))
-        pool = random_words(gen, n * copies).reshape(copies, n, ROWS, COLS)
-        if max_abs_err(run_other(pool[0], 7), hash_torch.chain_digests(pool[0], m, 7)) != 0:
-            raise AssertionError(f"{blocks} blocks: the two row chains disagree")
-        fns = {"other": lambda i: run_other(pool[i % copies], 0x5000 + i),
-               "this": lambda i: hash_torch.chain_digests(pool[i % copies], m, 0x5000 + i)}
-        row = {k: [] for k in ("other_ms", "this_ms", "other_call_ms", "this_call_ms")}
-        for who in ("other", "this", "this", "other"):
-            row[f"{who}_ms"].append(time_queued(fns[who])[0])
-            row[f"{who}_call_ms"].append(time_cuda(fns[who], 10))
-        bound, _ = row_chain_bound_ms(n, smi)
-        rows[blocks] = {**row, "bound_ms": bound}
-        print(f"{blocks} blocks, lane digests: other {row['other_ms'][0]:.4f} / "
-              f"{row['other_ms'][1]:.4f} ms, this {row['this_ms'][0]:.4f} / "
-              f"{row['this_ms'][1]:.4f} ms (queued); one call: other "
-              f"{row['other_call_ms'][0]:.4f} / {row['other_call_ms'][1]:.4f}, this "
-              f"{row['this_call_ms'][0]:.4f} / {row['this_call_ms'][1]:.4f}; bound {bound:.4f} ms; "
-              f"card {smi}")
-        if fn_block is not None:
-            counts, lengths = block_inputs(gen, n, m)
-            blocked = pool.view(copies, blocks, m, ROWS, COLS)
-            if max_abs_err(run_other_block(pool[0], counts, lengths, 7),
-                           hash_torch.hash_device(blocked[0], counts, lengths, 7)) != 0:
-                raise AssertionError(f"{blocks} blocks: the two block entries disagree")
-            fns = {"other": lambda i: run_other_block(pool[i % copies], counts, lengths,
-                                                      0x5000 + i),
-                   "this": lambda i: hash_torch.hash_device(blocked[i % copies], counts,
-                                                            lengths, 0x5000 + i)}
-            brow = {"other_ms": [], "this_ms": []}
+        pool = random_words(gen, n * copies).view(copies, blocks, m, ROWS, COLS)
+        counts, lengths = block_inputs(gen, n, m)
+        row = {"lanes": n, "depth": {e: hash_torch._ring(e, pool.device, n, m)[0]
+                                     for e in entries}}
+        for e in entries:
+            want, got = theirs[e](pool[0], counts, lengths, 7), ours[e](pool[0], counts, lengths, 7)
+            for a, b in zip(want if isinstance(want, tuple) else (want,),
+                            got if isinstance(got, tuple) else (got,)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{blocks} blocks: the two {e} entries disagree")
+            fns = {"other": lambda i, e=e: theirs[e](pool[i % copies], counts, lengths,
+                                                     0x5000 + i),
+                   "this": lambda i, e=e: ours[e](pool[i % copies], counts, lengths, 0x5000 + i)}
+            times = {"other_ms": [], "this_ms": []}
             for who in ("other", "this", "this", "other"):
-                brow[f"{who}_ms"].append(time_queued(fns[who])[0])
-            bbound, _ = row_chain_bound_ms(n, smi, counts)
-            rows[blocks]["block_digests"] = {**brow, "bound_ms": bbound}
-            print(f"{blocks} blocks, block digests: other {brow['other_ms'][0]:.4f} / "
-                  f"{brow['other_ms'][1]:.4f} ms, this {brow['this_ms'][0]:.4f} / "
-                  f"{brow['this_ms'][1]:.4f} ms (queued); bound {bbound:.4f} ms; card {smi}")
+                times[f"{who}_ms"].append(time_queued(fns[who])[0])
+            row[e] = times
+        row["block_bound_ms"], _ = row_chain_bound_ms(n, smi, counts)
+        rows[blocks] = row
+        print(f"{blocks} blocks ({n} lanes), depth {row['depth']}: " + "; ".join(
+            f"{e} other {row[e]['other_ms'][0]:.4f} / {row[e]['other_ms'][1]:.4f} ms, this "
+            f"{row[e]['this_ms'][0]:.4f} / {row[e]['this_ms'][1]:.4f} ms" for e in entries)
+            + f"; block bound {row['block_bound_ms']:.4f} ms; card {smi}")
         del pool
-    print("row_chain_compare " + json.dumps(rows))
-    return rows
+    sweep = {}
+    for blocks in SWEEP_BLOCKS:
+        n = blocks * m
+        copies = max(1, -(-COLD_BYTES // (n * LANE_BYTES)))
+        pool = random_words(gen, n * copies).view(copies, blocks, m, ROWS, COLS)
+        counts, lengths = block_inputs(gen, n, m)
+        for e in BLOCK_ENTRIES:
+            times = {d: [] for d in kernels.RING_DEPTHS}
+            for order in (reversed(kernels.RING_DEPTHS), kernels.RING_DEPTHS):
+                for d in order:
+                    times[d].append(time_queued(
+                        lambda i, d=d: ours[e](pool[i % copies], counts, lengths, 0x6000 + i,
+                                               d))[0])
+            ms = {d: statistics.mean(v) for d, v in times.items()}
+            rule = hash_torch._ring(e, pool.device, n, m)[0]
+            best = min(ms, key=ms.get)
+            sweep.setdefault(blocks, {})[e] = {"ms": ms, "rule": rule, "fastest": best,
+                                                "rule_over_fastest": ms[rule] / ms[best]}
+            flag = "" if ms[rule] <= 1.02 * ms[best] else " (more than 2 % off the fastest)"
+            print(f"{blocks} blocks, {e}: the rule's depth {rule} {ms[rule]:.4f} ms, the "
+                  f"fastest depth {best} {ms[best]:.4f} ms ({ms[rule] / ms[best]:.3f}x){flag}; "
+                  + ", ".join(f"{d}: {v:.4f}" for d, v in ms.items()) + f"; card {smi}")
+        del pool
+    out = {"sizes": rows, "sweep": sweep, "card": smi}
+    print("row_chain_compare " + json.dumps(out))
+    return out
 
 
 def batch_breakdown_phase(rng: np.random.Generator) -> dict:
@@ -4455,8 +4501,6 @@ def main(argv=None) -> int:
     ap.add_argument("--volume-gib", type=float, default=1.0)
     ap.add_argument("--compare-row-chain", metavar="DIR",
                     help="only build and time DIR's row-chain kernel beside this one")
-    ap.add_argument("--compare-define", metavar="NAME=VALUE",
-                    help="a macro for DIR's build under --compare-row-chain")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4467,7 +4511,7 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     if args.compare_row_chain:
-        compare_phase(gen, smi, args.compare_row_chain, args.compare_define)
+        compare_phase(gen, smi, args.compare_row_chain)
         end_phase()
         return 0
     err = kernel_phase(gen)

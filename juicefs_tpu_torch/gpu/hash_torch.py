@@ -10,7 +10,9 @@ compress plane estimates too, takes the entry that also estimates them
 of a mesh holds only part of each block, so it runs the entry that stops
 after the lane fold (`jth256_lane_digests`, `chain_digests`), and the
 mesh combines the gathered lane digests with
-`gpu/kernels/jth256_combine.cu` (`combine`).
+`gpu/kernels/jth256_combine.cu` (`combine`). Each row-chain launch takes
+the ring depth `kernels.ring_depth` picks for its lane count on its card
+and observes the waves it needs in `juicefs_torch_row_chain_waves`.
 
 Every wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version only for a tensor on the CPU: `row_chain_ref`,
@@ -38,6 +40,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..metric import global_registry
 from . import kernels
 from .jth256 import (
     COLS,
@@ -181,6 +184,33 @@ def _check_rc(entry: str, rc: int) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
+_ROW_CHAIN_WAVES = global_registry().histogram(
+    "juicefs_torch_row_chain_waves",
+    "Waves of resident CTAs a row-chain launch needs at its ring depth",
+    buckets=(1, 2, 3, 4, 8, 16, 32))
+# per (entry, card): the SM count and the entry's resident CTAs an SM at
+# each ring depth, read once
+_RING_TABLES: dict[tuple[str, int], tuple[int, dict[int, int]]] = {}
+
+
+def _ring(entry: str, dev: torch.device, n_lanes: int, m: int) -> tuple[int, int]:
+    """(depth, waves) of a row-chain launch of `entry` over n_lanes lanes,
+    m a block, on the card `dev`, by `kernels.ring_depth`; called with
+    `dev` current. A block entry's ring also holds a block's lane digests
+    (32 B a lane) for its combine."""
+    table = _RING_TABLES.get((entry, dev.index))
+    if table is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        table = _RING_TABLES[entry, dev.index] = (sms, kernels.row_chain_occupancy(entry))
+    sms, ctas = table
+    staged = 0 if entry == "jth256_lane_digests" else m * kernels.LANE_DIGEST_BYTES
+    depth = kernels.ring_depth(n_lanes, sms, ctas, staged)
+    if depth not in ctas:
+        raise ValueError(f"{entry}: blocks of {m} lanes outgrow the row chain's deepest "
+                         f"ring ({max(ctas)} chunks)")
+    return depth, kernels.waves(n_lanes, sms, ctas[depth])
+
+
 def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0,
               lane_offset: int = 0) -> torch.Tensor:
     """Row chain: int32 (L, 128, 128) -> int32 (L, 128) lane states, lane l
@@ -251,11 +281,13 @@ def chain_digests(words_flat: torch.Tensor, m: int, tweak: int = 0,
     if n_lanes:
         fn = kernels.function(entry)
         with torch.cuda.device(words_flat.device):
+            depth, waves = _ring(entry, words_flat.device, n_lanes, m)
             _check_rc(entry, fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
-                                int(lane_offset) & MASK, int(tweak) & MASK,
+                                int(lane_offset) & MASK, int(tweak) & MASK, depth,
                                 _stream(words_flat.device)))
         kernels.LAUNCHES["jth256_row_chain"] += 1
         kernels.LAUNCHES[entry] += 1
+        _ROW_CHAIN_WAVES.observe(waves)
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
     return out
 
@@ -467,9 +499,11 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
             if advisories is not None:
                 args += [zeroed_workspace(entry, dev, stream, b, 256).data_ptr(),
                          advisories.data_ptr()]
-            _check_rc(entry, fn(*args, b, m, int(tweak) & MASK, stream))
+            depth, waves = _ring(entry, dev, b * m, m)
+            _check_rc(entry, fn(*args, b, m, int(tweak) & MASK, depth, stream))
         kernels.LAUNCHES["jth256_row_chain"] += 1
         kernels.LAUNCHES[entry] += 1
+        _ROW_CHAIN_WAVES.observe(waves)
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
 
 

@@ -22,6 +22,10 @@ lane-split mesh runs after its gather. `compress_histogram` and
 histogram per shard, an entropy per data row). The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
 process (a mount's `.stats` or `/metrics`) shows them too.
+
+The row chain's ring depth is a launch argument of its three entries;
+`ring_depth` picks it from the launch's lane count, the card's SM count
+and the entry's resident CTAs an SM at each depth (`row_chain_occupancy`).
 """
 
 from __future__ import annotations
@@ -147,17 +151,19 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 _SIGNATURES = {
-    # (words, out, n_lanes, m, lane_offset, tweak, stream)
+    # (words, out, n_lanes, m, lane_offset, tweak, depth, stream)
     "jth256_lane_digests": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                            ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
+                            ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint,
+                            ctypes.c_void_p],
     # (words, lane_digests, lane_counts, lengths, arrivals, out, n_blocks, m,
-    #  tweak, stream)
+    #  tweak, depth, stream)
     "jth256_block_digests": [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_uint,
-                                                     ctypes.c_uint, ctypes.c_void_p],
+                                                     ctypes.c_uint, ctypes.c_uint,
+                                                     ctypes.c_void_p],
     # (words, lane_digests, lane_counts, lengths, arrivals, out, counts,
-    #  advisories, n_blocks, m, tweak, stream)
+    #  advisories, n_blocks, m, tweak, depth, stream)
     "jth256_block_digests_estimate": [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
+        ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
     # (accs, lane_counts, lengths, out, n_blocks, m, stream)
     "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
@@ -183,6 +189,67 @@ def function(entry: str):
         fn.restype = ctypes.c_int
         _fns[entry] = fn
     return fn
+
+
+# The row chain's ring (jth256_row_chain.cu): 1-16 chunks of 4 KiB a lane
+# CTA, chosen for each launch by `ring_depth`. RING_BYTES_IN_FLIGHT is what
+# the card's memory needs in flight to stay busy: ~2.5 us of an H100's
+# 3.35 TB/s, where a sweep of every depth at 1-32 blocks put the fastest
+# ring (PERF.md section 6). A batch that no depth puts in one wave takes
+# LARGE_BATCH_DEPTH (32 KiB a lane). A block entry's last CTA a block
+# stages the block's lane digests (LANE_DIGEST_BYTES a lane) in its ring.
+RING_DEPTHS = range(1, 17)
+RING_CHUNK_BYTES = 4096
+RING_BYTES_IN_FLIGHT = 8 << 20
+LARGE_BATCH_DEPTH = 8
+LANE_DIGEST_BYTES = 32
+# the code jth256_row_chain_occupancy takes for each row-chain entry
+_OCCUPANCY_ENTRY = {"jth256_lane_digests": 0, "jth256_block_digests": 1,
+                    "jth256_block_digests_estimate": 2}
+
+
+def ring_depth(n_lanes: int, sms: int, ctas: dict[int, int], staged: int = 0) -> int:
+    """The ring depth, in chunks, of a row-chain launch over n_lanes lanes
+    (a CTA each) on a card of `sms` SMs, where ctas[d] CTAs of the entry
+    fit on an SM at depth d, and a ring has to hold `staged` bytes (a
+    block entry's lane digests of a block): the shallowest ring that keeps
+    RING_BYTES_IN_FLIGHT in flight across the launch, or the deepest one
+    below it at which every lane is resident at once (ceil(n_lanes / sms)
+    CTAs an SM), so that the launch is one wave; LARGE_BATCH_DEPTH where
+    no depth is; never one too small for `staged`. A deeper ring only
+    queues more bytes ahead of the chains, which then finish later. On an
+    H100 the residency binds only past 16 CTAs an SM (2112 lanes)."""
+    least = max(RING_DEPTHS[0], -(-staged // RING_CHUNK_BYTES))
+    need = -(-n_lanes // sms)
+    want = -(-RING_BYTES_IN_FLIGHT // (n_lanes * RING_CHUNK_BYTES))
+    for depth in range(min(max(want, least), RING_DEPTHS[-1]), least - 1, -1):
+        if ctas[depth] >= need:
+            return depth
+    return max(LARGE_BATCH_DEPTH, least)
+
+
+def waves(n_lanes: int, sms: int, ctas: int) -> int:
+    """The waves a launch of n_lanes lane CTAs needs when `ctas` fit on
+    each of `sms` SMs."""
+    return -(-n_lanes // (sms * ctas))
+
+
+def row_chain_occupancy(entry: str) -> dict[int, int]:
+    """The resident CTAs per SM of the row-chain entry `entry` on the
+    current device at each depth of RING_DEPTHS (the library is built at
+    the first call)."""
+    fn = getattr(load_library(ENTRY_SOURCES[entry]), "jth256_row_chain_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    table = {}
+    for depth in RING_DEPTHS:
+        ctas = ctypes.c_int(0)
+        rc = fn(_OCCUPANCY_ENTRY[entry], depth, ctypes.byref(ctas))
+        if rc != 0:
+            raise RuntimeError(f"jth256_row_chain_occupancy({entry}, {depth}) failed: "
+                               f"CUDA error {rc}")
+        table[depth] = ctas.value
+    return table
 
 
 def build_all() -> dict[str, float]:

@@ -35,24 +35,44 @@
 // many round trips, and the 512 B of states a lane were read back by some
 // 130 small torch launches of the fold.
 //
-// Design: still one CTA of 128 threads per lane, one thread per column
-// (the chain is sequential in the rows, parallel in the columns). The
-// lane streams through shared memory in chunks of 16 rows (8 KiB): one
-// thread issues TMA's 1-D bulk copies (cp.async.bulk global -> shared)
-// into a ring of kStages chunks, each completing on its own mbarrier, and
-// refills a slot once every thread has consumed it. A warp reads a row of
-// a chunk as 32 consecutive words, so the reads are free of bank
-// conflicts. The ring is 4 stages (32 KiB): half the lane is in flight at
-// once (2 MiB of a one-block batch) and 6 CTAs stay resident per SM on a
-// large batch, about 192 KiB in flight per SM against 64 KiB for the
-// first design. Builds with 2 stages (16 KiB, 13 CTAs) and 8 (the whole
-// lane, 3 CTAs), timed beside this one on an H100 80GB HBM3 (PERF.md
-// section 6), came within 7% of it at 1, 27, 32 and 256 blocks; 4 was
-// the fastest at 1, 32 and 256 blocks and at most 4% from the fastest
-// elsewhere, where 8 ran 11% slower at 8 blocks. 4 keeps twice as many
-// CTAs resident as 8 for the same bytes in flight. A build with
-// -DJTH256_STAGES=n (1-8) sets another ring for such a sweep
-// (chip_smoke.py --compare-row-chain . --compare-define JTH256_STAGES=n).
+// Design: one CTA of 128 threads per lane, one thread per column (the
+// chain is sequential in the rows, parallel in the columns). The lane
+// streams through shared memory in chunks of 8 rows (4 KiB): one thread
+// issues TMA's 1-D bulk copies (cp.async.bulk global -> shared) into a
+// ring of `depth` chunks, each completing on its own mbarrier, and refills
+// a slot once every thread has consumed it. A warp reads a row of a chunk
+// as 32 consecutive words, so the reads are free of bank conflicts.
+//
+// The ring's depth is a launch argument, 1-16 chunks (4-64 KiB), chosen
+// for each launch from its lane count by kernels.ring_depth (in a block
+// entry never below a block's lane digests, see the combine): the
+// shallowest ring that keeps ~8 MiB in flight across the launch, or the
+// deepest below it at which every lane is resident at once, so that the
+// batch runs as one wave; a batch that no depth holds at once (more than
+// 16 CTAs an SM, 2112 lanes on an H100's 132 SMs) takes 8 chunks, the
+// 32 KiB a lane every launch had before the depth followed the batch
+// (entry jth256_row_chain_occupancy reads each depth's resident CTAs,
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor). Why: with a fixed
+// 32 KiB ring an SM held 6 CTAs, 792 lanes (12.4 blocks), and the ingest
+// cells' batches of 13-16 and 25-32 blocks ran in two and three waves,
+// the last lanes starting only as a wave drained. Every lane resident is
+// not enough: with all of them resident, a deeper ring only queues more
+// bytes ahead of the chains, which then finish later; each size was
+// fastest at the shallowest ring that still kept the memory busy.
+// Measured on an H100 80GB HBM3 (700 W, PERF.md section 6), every depth
+// at 1-32 blocks and 1 GiB, beside the fixed ring: the rule's depth within
+// ~1 % of each size's fastest; against the fixed ring, 0.92x at 13-14
+// blocks, 0.96-0.97x at 12 and 16-20, 0.98-1.00x at 8 and 24-28, 0.99-1.02x
+// at 32 and 1.00x at 1 GiB, but 1.03 / 1.06 / 1.08-1.09x at 4 / 2 / 1 blocks, where
+// a lone CTA's chain is the critical path and pays at each of its 16
+// chunk boundaries (the 16-row chunks it replaced had 8). 64 threads a
+// lane, two columns a thread, came out slower than 128 at every size; 8
+// KiB chunks matched 4 KiB ones from 6 blocks up and beat them at 1-2, but
+// hold 16 MiB in flight at 32 blocks, 1.02-1.03x. 128 threads use 28 / 26
+// / 18 registers (estimating / block / lane-digests instance), no spill,
+// so 16 CTAs fit an SM: threads, not registers, are the limit. chip_smoke.py
+// --compare-row-chain DIR times the three entries beside another
+// checkout's and sweeps the depth at 13 and 25 blocks.
 //
 // The lane fold: the 128 column states go to shared memory; after one
 // __syncthreads, 8 threads each run the 16 fold steps of their k (column
@@ -62,64 +82,64 @@
 // The combine, in the block entry: the combine is a sequential chain over
 // a block's lanes, so it needs every lane digest of the block, and a block
 // is M = 64 CTAs (4 MiB). On a TPU the program's next stage reads them; on
-// Hopper no CTA can wait for the others (they are not all resident, and
-// nothing orders them), and a thread-block cluster holds at most 16 CTAs
-// (8 portable), so distributed shared memory cannot hold a block's lanes.
-// The handoff goes through L2 instead: each lane CTA writes its digests,
-// fences them (release, one thread after a CTA barrier) and takes a ticket
-// from the block's arrival counter; the CTA that draws the last ticket
-// (M - 1) fences (acquire),
-// reads the block's live lane digests from L2 (__ldcg, not through L1)
-// into the ring it no longer needs, in one coalesced pass, and 8 threads
-// run the combine chain (jth256::finish_word, min(lane_counts[b], M)
-// lanes), the length mix and fmix. It then sets the counter back to 0, so
-// the counters are zero for the next launch on the stream (the wrapper
-// keeps one zeroed counter buffer per stream). Every lane of a block
-// arrives, dead padding lanes too: the combine masks by count, not by
-// arrivals. The extra work falls on one CTA a block, the ticket's round
-// trip, 2 KiB from L2 and a 64-step dependent chain, and overlaps the
-// other blocks' chains except on the last wave. That replaces a second
-// launch (jth256_combine, ~4 us queued) and its host call. Measured on an
-// H100 (PERF.md section 6) the tail costs ~3 us on a one-block batch, all
-// of it serial on the last CTA; unrolling the chain, acquire-release
-// instead of sequentially consistent fences and loading each block's count
-// and length while the chain runs each took a few percent off it.
+// Hopper no CTA can wait for the others (they need not all be resident,
+// and nothing orders them), and a thread-block cluster holds at most 16
+// CTAs (8 portable), so distributed shared memory cannot hold a block's
+// lanes. The handoff goes through L2 instead: each lane CTA writes its
+// digests, fences them (release, one thread after a CTA barrier) and takes
+// a ticket from the block's arrival counter; the CTA that draws the last
+// ticket (M - 1) fences (acquire), reads the block's live lane digests
+// from L2 (__ldcg, not through L1) into the ring it no longer needs (m x
+// 32 B, which the launch's depth has to hold: kernels.ring_depth never
+// picks a ring below it, and the entries refuse one), in one coalesced
+// pass, and 8 threads run the combine chain (jth256::finish_word,
+// min(lane_counts[b], M) lanes), the length mix and fmix. It then sets the
+// counter back to 0, so the counters are zero for the next launch on the
+// stream (the wrapper keeps one zeroed counter buffer per stream). Every
+// lane of a block arrives, dead padding lanes too: the combine masks by
+// count, not by arrivals. The extra work falls on one CTA a block, the
+// ticket's round trip, 2 KiB from L2 and a 64-step dependent chain (at
+// 4 MiB blocks). That replaces a second launch (jth256_combine, ~4 us
+// queued) and its host call. Measured
+// on an H100 (PERF.md section 6) the tail costs ~3 us on a one-block
+// batch, all of it serial on the last CTA; unrolling the chain,
+// acquire-release instead of sequentially consistent fences and loading
+// each block's count and length while the chain runs each took a few
+// percent off it.
 //
 // The estimate, in the third entry (row_chain_kernel<true, true>; the
 // other two instances compile without it). The estimator samples every
 // 16th row and every 16th column of each lane (compress_estimate.cuh), and
-// the chain streams a lane through the ring in chunks of 16 rows, one
-// thread a column: each sampled word is row 0 of a chunk, read from the
-// ring by a thread whose column is a multiple of 16 (2 threads a warp).
-// That thread bins the word's 4 bytes, as read and before the tweak, into
-// a 256-bin shared histogram as the chunk arrives (cest::bin_word). After
-// the chain the lane's non-zero bins go to the block's 256 counts in
-// device memory as L2 reductions, unless the lane is at or past its
-// block's lane count (it is still hashed and still takes its ticket): the
-// combine's release fence and ticket publish them with the lane digests.
-// The block's last CTA takes the counts with atomicExch(0), which leaves
-// them zero for the next launch (one zeroed workspace per stream, as the
-// arrival counters), and computes the advisory on warps 1-3 while threads
-// 0-7 of warp 0 run the combine's chain, so the two serial tails overlap:
-// the same integer counts and cest::reduce256's order of the sum as
-// compress_estimate.cu's entropy entry, so the same bits. A second launch would read again
-// words the hash held in a register moments before, and cost a launch's
-// worth of card time (~5-6 us at 1-32 blocks, PERF.md section 6). The
-// histogram and the entropy's scratch (~1.1 KiB) lie after the ring in
-// this instance's dynamic shared memory, which keeps 6 CTAs resident per
-// SM as the block entry does (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// entry jth256_row_chain_occupancy). Measured on an H100 80GB HBM3 at 1 / 8
-// / 13 / 25 / 32 blocks of random words, this entry takes 1.07-1.08 / 1.04
-// / 1.04-1.05 / 1.02-1.03 / 1.02-1.03x the block entry's time, against
-// 1.50 / 1.30 / 1.22 / 1.18 / 1.15x for the block entry followed by the
-// standalone estimator. Taken out one at a time, the binning in the chain
-// costs 1.6-6.8 points of that, the flush of the bins 0.9-3.7 and the
-// entropy none. Flushing in an order rotated by lane did not help, and
-// keeping the sample in shared memory and binning it on warps 2-3 while
-// warp 0 folds came out at 1.031-1.097x.
+// the chain streams a lane through the ring in chunks of 8 rows, one
+// thread a column: each sampled word is row 0 of an even chunk
+// (cest::chunk_sampled), read from the ring by a thread whose column is a
+// multiple of 16 (2 threads a warp). That thread bins the word's 4 bytes,
+// as read and before the tweak, into a 256-bin shared histogram as the
+// chunk arrives (cest::bin_word). After the chain the lane's non-zero bins go to the
+// block's 256 counts in device memory as L2 reductions, unless the lane is
+// at or past its block's lane count (it is still hashed and still takes
+// its ticket): the combine's release fence and ticket publish them with
+// the lane digests. The block's last CTA takes the counts with
+// atomicExch(0), which leaves them zero for the next launch (one zeroed
+// workspace per stream, as the arrival counters), and computes the
+// advisory on warps 1-3 while threads 0-7 of warp 0 run the combine's chain,
+// so the two serial tails overlap: the same integer counts and
+// cest::reduce256's order of the sum as compress_estimate.cu's entropy
+// entry, so the same bits. A second launch would read again words the
+// hash held in a register moments before, and cost a launch's worth of
+// card time (~5-6 us at 1-32 blocks, PERF.md section 6). The histogram and
+// the entropy's scratch (~1 KiB) lie after the ring in this instance's
+// dynamic shared memory. Measured on an H100 80GB HBM3 with the fixed
+// 32 KiB ring of 16-row chunks, at 1 / 8 / 13 / 25 / 32 blocks of random
+// words, this entry took 1.07-1.08 / 1.04 / 1.04-1.05 / 1.02-1.03 /
+// 1.02-1.03x the block entry's time, against 1.50 / 1.30 / 1.22 / 1.18 /
+// 1.15x for the block entry followed by the standalone estimator; taken
+// out one at a time, the binning in the chain cost 1.6-6.8 points of that
+// and the flush of the bins 0.9-3.7.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "compress_estimate.cuh"
@@ -127,25 +147,20 @@
 
 namespace {
 
-constexpr int kStageRows = 16;
-constexpr int kStageBytes = kStageRows * jth256::kCols * 4;  // 8 KiB
-constexpr int kChunks = jth256::kRows / kStageRows;          // 8 a lane
+constexpr int kThreads = jth256::kCols;  // a column a thread
+constexpr int kChunkRows = cest::kChunkRows;  // the estimate samples row 0 of even chunks
+constexpr int kChunkBytes = kChunkRows * jth256::kCols * 4;  // 4 KiB
+constexpr int kChunks = jth256::kRows / kChunkRows;          // 16 a lane
+constexpr int kMinDepth = 1;                                 // ring of 1-16 chunks
+constexpr int kMaxDepth = kChunks;
 constexpr long long kLaneBytes = jth256::kRows * jth256::kCols * 4;
-#ifndef JTH256_STAGES
-#define JTH256_STAGES 4
-#endif
-constexpr int kStages = JTH256_STAGES;
-static_assert(kStages >= 1 && kStages <= kChunks, "ring of 1-8 chunks");
-constexpr int kRingBytes = kStages * kStageBytes;
-// the estimate's sample is row 0 of each chunk
-static_assert(kStageRows == cest::kStride && jth256::kCols == cest::kCols &&
-                  jth256::kRows == cest::kRows,
-              "the chain's chunks are the estimate's sampled rows");
+static_assert(jth256::kCols == cest::kCols && jth256::kRows == cest::kRows,
+              "the chain's lanes are the estimate's");
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // the last CTA's entropy runs on warps 1-3 while warp 0 combines
-constexpr int kEntropyWarps = jth256::kCols / kWarp - 1;                       // 3
-constexpr int kEntropyThreads = kEntropyWarps * kWarp;                         // 96
+constexpr int kEntropyWarps = kThreads / kWarp - 1;                                    // 3
+constexpr int kEntropyThreads = kEntropyWarps * kWarp;                                 // 96
 constexpr int kBinsPerThread = (cest::kBins + kEntropyThreads - 1) / kEntropyThreads;  // 3
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -223,12 +238,12 @@ struct EstimateSmem {
   uint32_t hist[cest::kBins];            // the lane's sampled bytes
   uint32_t total_parts[kEntropyWarps];   // the last CTA's count sums, a warp each
   float group_sums[cest::kGroups];       // the last CTA's 8 group sums of terms
-  uint32_t counted;                      // the lane is below its block's count
+  uint32_t counted;                      // the lane is below its block's lane count
 };
 
 template <bool kEstimate>
-constexpr int smem_bytes() {
-  return kRingBytes + (kEstimate ? static_cast<int>(sizeof(EstimateSmem)) : 0);
+constexpr int smem_bytes(int depth) {
+  return depth * kChunkBytes + (kEstimate ? static_cast<int>(sizeof(EstimateSmem)) : 0);
 }
 
 // Named barrier 1 over warps 1-3, the last CTA's entropy, which warp 0
@@ -278,14 +293,14 @@ __device__ __forceinline__ float entropy_advisory(const uint32_t (&bins)[kBinsPe
 }
 
 template <bool kBlocks, bool kEstimate>
-__global__ void __launch_bounds__(jth256::kCols)
+__global__ void __launch_bounds__(kThreads)
 row_chain_kernel(const uint32_t* __restrict__ words,
                  uint32_t* __restrict__ lane_out, uint32_t m,
-                 uint32_t lane_offset, uint32_t tweak, BlockArgs blk,
+                 uint32_t lane_offset, uint32_t tweak, uint32_t depth, BlockArgs blk,
                  EstimateArg<kEstimate> est) {
   static_assert(kBlocks || !kEstimate, "the estimate is a block entry's");
   extern __shared__ __align__(128) uint8_t ring[];
-  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t full[kMaxDepth];
   __shared__ uint32_t states[jth256::kCols];
   __shared__ uint32_t is_last, block_live, block_len;
   const long long lane = blockIdx.x;
@@ -293,19 +308,19 @@ row_chain_kernel(const uint32_t* __restrict__ words,
   const uint8_t* src = reinterpret_cast<const uint8_t*>(words) + lane * kLaneBytes;
 
   if (col == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
+    for (uint32_t i = 0; i < depth; ++i) mbar_init(&full[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   EstimateSmem* es = nullptr;
   if constexpr (kEstimate) {
-    es = reinterpret_cast<EstimateSmem*>(ring + kRingBytes);
-    for (uint32_t i = col; i < cest::kBins; i += jth256::kCols) es->hist[i] = 0;
+    es = reinterpret_cast<EstimateSmem*>(ring + depth * kChunkBytes);
+    for (uint32_t i = col; i < cest::kBins; i += kThreads) es->hist[i] = 0;
   }
   __syncthreads();
   if (col == 0) {
-    for (int c = 0; c < kStages; ++c) {
-      mbar_expect_tx(&full[c], kStageBytes);
-      bulk_load(ring + c * kStageBytes, src + c * kStageBytes, kStageBytes, &full[c]);
+    for (uint32_t c = 0; c < depth; ++c) {
+      mbar_expect_tx(&full[c], kChunkBytes);
+      bulk_load(ring + c * kChunkBytes, src + c * kChunkBytes, kChunkBytes, &full[c]);
     }
   }
 
@@ -319,27 +334,28 @@ row_chain_kernel(const uint32_t* __restrict__ words,
 
   const uint32_t lane_idx = lane_offset + static_cast<uint32_t>(lane % m);
   uint32_t s = jth256::init_state(col, lane_idx);
+  uint32_t slot = 0, parity = 0;
 #pragma unroll 1
-  for (int c = 0; c < kChunks; ++c) {
-    const int slot = c % kStages;
-    mbar_wait(&full[slot], static_cast<uint32_t>(c / kStages) & 1u);
-    const uint32_t* tile =
-        reinterpret_cast<const uint32_t*>(ring + slot * kStageBytes) + col;
+  for (uint32_t c = 0; c < kChunks; ++c) {
+    mbar_wait(&full[slot], parity);
+    const uint32_t* tile = reinterpret_cast<const uint32_t*>(ring + slot * kChunkBytes) + col;
     if constexpr (kEstimate) {
-      // row 0 of the chunk, as read: a sampled word in every 16th column
-      if (cest::sampled(c * kStageRows, col)) cest::bin_word(es->hist, tile[0]);
+      // row 0 of an even chunk, as read: a sampled word in every 16th column
+      if (cest::chunk_sampled(c, col)) cest::bin_word(es->hist, tile[0]);
     }
 #pragma unroll
-    for (int r = 0; r < kStageRows; ++r) {
-      s = jth256::row_step(s, tile[r * jth256::kCols] ^ tweak);
-    }
-    if (c + kStages < kChunks) {
+    for (int r = 0; r < kChunkRows; ++r) s = jth256::row_step(s, tile[r * kThreads] ^ tweak);
+    if (c + depth < kChunks) {
       __syncthreads();  // every thread is done with the slot: refill it
       if (col == 0) {
-        mbar_expect_tx(&full[slot], kStageBytes);
-        bulk_load(ring + slot * kStageBytes, src + (c + kStages) * kStageBytes,
-                  kStageBytes, &full[slot]);
+        mbar_expect_tx(&full[slot], kChunkBytes);
+        bulk_load(ring + slot * kChunkBytes, src + (c + depth) * kChunkBytes, kChunkBytes,
+                  &full[slot]);
       }
+    }
+    if (++slot == depth) {
+      slot = 0;
+      parity ^= 1u;
     }
   }
 
@@ -366,7 +382,7 @@ row_chain_kernel(const uint32_t* __restrict__ words,
       // a counted lane's bins into its block's counts: L2 reductions, which
       // the barrier and the release fence below order before the ticket
       if (es->counted) {
-        for (uint32_t i = col; i < cest::kBins; i += jth256::kCols) {
+        for (uint32_t i = col; i < cest::kBins; i += kThreads) {
           const uint32_t v = es->hist[i];
           if (v != 0) atomicAdd(&est.counts[b * cest::kBins + i], v);
         }
@@ -400,7 +416,7 @@ row_chain_kernel(const uint32_t* __restrict__ words,
     const uint32_t live = block_live;
     const uint32_t* block_src = lane_out + b * m * jth256::kDigestWords;
     uint32_t* stage = reinterpret_cast<uint32_t*>(ring);
-    for (uint32_t i = col; i < live * jth256::kDigestWords; i += jth256::kCols) {
+    for (uint32_t i = col; i < live * jth256::kDigestWords; i += kThreads) {
       stage[i] = __ldcg(block_src + i);
     }
     __syncthreads();
@@ -419,36 +435,56 @@ row_chain_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// Above 48 KiB a CTA's dynamic shared memory must be allowed per function
+// on each device: allowed once a device, up to the deepest ring's size.
+template <bool kBlocks, bool kEstimate>
+cudaError_t allow_deepest_ring() {
+  static std::atomic<unsigned long long> allowed{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (allowed.load(std::memory_order_relaxed) & bit) != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(row_chain_kernel<kBlocks, kEstimate>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<kEstimate>(kMaxDepth));
+  if (err == cudaSuccess) allowed.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
 template <bool kBlocks, bool kEstimate>
 int launch(const void* words, void* lane_out, long long n_lanes, unsigned int m,
-           unsigned int lane_offset, unsigned int tweak, BlockArgs blk,
+           unsigned int lane_offset, unsigned int tweak, unsigned int depth, BlockArgs blk,
            EstimateArg<kEstimate> est, void* stream) {
-  constexpr int smem = smem_bytes<kEstimate>();
-  if (n_lanes <= 0 || n_lanes > 0x7FFFFFFFLL || m == 0) {
+  if (n_lanes <= 0 || n_lanes > 0x7FFFFFFFLL || m == 0 ||
+      depth < static_cast<unsigned int>(kMinDepth) ||
+      depth > static_cast<unsigned int>(kMaxDepth)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // the block entry stages a block's lane digests in the ring
-  if (kBlocks && (n_lanes % m != 0 ||
-                  static_cast<long long>(m) * jth256::kDigestWords * 4 > kRingBytes)) {
+  if (kBlocks && (n_lanes % m != 0 || static_cast<long long>(m) * jth256::kDigestWords * 4 >
+                                          static_cast<long long>(depth) * kChunkBytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(words) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
   }
-  auto kernel = row_chain_kernel<kBlocks, kEstimate>;
-  if (smem > 48 * 1024) {
-    // above 48 KiB a CTA's dynamic shared memory must be allowed per
-    // function on the current device; setting it on each such launch
-    // keeps that true on whichever card the caller's stream belongs to
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<static_cast<unsigned int>(n_lanes), jth256::kCols, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(lane_out), m,
-      lane_offset, tweak, blk, est);
+  cudaError_t err = allow_deepest_ring<kBlocks, kEstimate>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  row_chain_kernel<kBlocks, kEstimate>
+      <<<static_cast<unsigned int>(n_lanes), kThreads, smem_bytes<kEstimate>(depth),
+         static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(words),
+                                              static_cast<uint32_t*>(lane_out), m,
+                                              lane_offset, tweak, depth, blk, est);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBlocks, bool kEstimate>
+int occupancy(int depth, int* ctas) {
+  cudaError_t err = allow_deepest_ring<kBlocks, kEstimate>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, row_chain_kernel<kBlocks, kEstimate>, kThreads, smem_bytes<kEstimate>(depth)));
 }
 
 BlockArgs block_args(const void* lane_counts, const void* lengths, void* arrivals,
@@ -464,16 +500,18 @@ bool bad_blocks(long long n_blocks, unsigned int m) {
 
 }  // namespace
 
-// Every entry launches on `stream` (a cudaStream_t passed as a pointer) and
-// return the cudaError_t of the launch (0 on success); the wrapper raises
-// on any other value. They do not synchronise.
+// Every entry launches on `stream` (a cudaStream_t passed as a pointer)
+// with a ring of `depth` chunks of 4 KiB (1-16; a block entry's ring has
+// to hold a block's lane digests, m x 32 B <= depth x 4 KiB) and returns the
+// cudaError_t of the launch (0 on success); the wrapper raises on any
+// other value. They do not synchronise.
 
 // (L, 8) uint32 per-lane digests (the lane fold of the states).
 extern "C" int jth256_lane_digests(const void* words, void* out,
                                    long long n_lanes, unsigned int m,
                                    unsigned int lane_offset,
-                                   unsigned int tweak, void* stream) {
-  return launch<false, false>(words, out, n_lanes, m, lane_offset, tweak, BlockArgs{},
+                                   unsigned int tweak, unsigned int depth, void* stream) {
+  return launch<false, false>(words, out, n_lanes, m, lane_offset, tweak, depth, BlockArgs{},
                               NoEstimate{}, stream);
 }
 
@@ -484,10 +522,10 @@ extern "C" int jth256_lane_digests(const void* words, void* out,
 extern "C" int jth256_block_digests(const void* words, void* lane_digests,
                                     const void* lane_counts, const void* lengths,
                                     void* arrivals, void* out, long long n_blocks,
-                                    unsigned int m, unsigned int tweak,
+                                    unsigned int m, unsigned int tweak, unsigned int depth,
                                     void* stream) {
   if (bad_blocks(n_blocks, m)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true, false>(words, lane_digests, n_blocks * m, m, 0u, tweak,
+  return launch<true, false>(words, lane_digests, n_blocks * m, m, 0u, tweak, depth,
                              block_args(lane_counts, lengths, arrivals, out),
                              NoEstimate{}, stream);
 }
@@ -502,22 +540,24 @@ extern "C" int jth256_block_digests_estimate(const void* words, void* lane_diges
                                              void* arrivals, void* out, void* counts,
                                              void* advisories, long long n_blocks,
                                              unsigned int m, unsigned int tweak,
-                                             void* stream) {
+                                             unsigned int depth, void* stream) {
   if (bad_blocks(n_blocks, m)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true, true>(words, lane_digests, n_blocks * m, m, 0u, tweak,
+  return launch<true, true>(words, lane_digests, n_blocks * m, m, 0u, tweak, depth,
                             block_args(lane_counts, lengths, arrivals, out),
                             EstimateArgs{static_cast<uint32_t*>(counts),
                                          static_cast<float*>(advisories)},
                             stream);
 }
 
-// The resident CTAs per SM of the block entry (estimate 0) or the
-// estimating entry (1) on the current device, into *ctas; returns the
-// cudaError_t of the query.
-extern "C" int jth256_row_chain_occupancy(int estimate, int* ctas) {
-  return static_cast<int>(
-      estimate ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     ctas, row_chain_kernel<true, true>, jth256::kCols, smem_bytes<true>())
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     ctas, row_chain_kernel<true, false>, jth256::kCols, smem_bytes<false>()));
+// The resident CTAs per SM, on the current device, of the lane-digests
+// entry (entry 0), the block entry (1) or the estimating entry (2) with a
+// ring of `depth` chunks, into *ctas; returns the cudaError_t of the query.
+extern "C" int jth256_row_chain_occupancy(int entry, int depth, int* ctas) {
+  if (depth < kMinDepth || depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+  switch (entry) {
+    case 0: return occupancy<false, false>(depth, ctas);
+    case 1: return occupancy<true, false>(depth, ctas);
+    case 2: return occupancy<true, true>(depth, ctas);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

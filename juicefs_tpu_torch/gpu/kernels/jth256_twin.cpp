@@ -26,21 +26,27 @@ void check_words(const torch::Tensor& words, int64_t m) {
   TORCH_CHECK(m >= 1, "m must be >= 1");
 }
 
-// Final states of lane `lane` (its index in the batch) into s[128]. With
-// `hist`, the words the estimate samples are binned into it as the chain
-// reads them, before the tweak, as the estimating entry's threads do.
+// Final states of lane `lane` (its index in the batch) into s[128], the
+// lane streamed in chunks of cest::kChunkRows rows as the kernel streams
+// it. With `hist`, the words the estimate samples (row 0 of a chunk that
+// cest::chunk_sampled names) are binned into it as the chain reads them,
+// before the tweak, as the estimating entry's threads do.
 void chain_lane(const uint32_t* w, int64_t lane, int64_t m, uint32_t tw,
                 uint32_t loff, uint32_t* s, uint32_t* hist = nullptr) {
   const uint32_t* lw = w + lane * jth256::kRows * jth256::kCols;
   const uint32_t idx = loff + static_cast<uint32_t>(lane % m);
-  for (uint32_t col = 0; col < static_cast<uint32_t>(jth256::kCols); ++col) {
-    uint32_t st = jth256::init_state(col, idx);
-    for (int r = 0; r < jth256::kRows; ++r) {
-      const uint32_t word = lw[r * jth256::kCols + col];
-      if (hist != nullptr && cest::sampled(r, col)) cest::bin_word(hist, word);
-      st = jth256::row_step(st, word ^ tw);
+  constexpr uint32_t kCols = jth256::kCols;
+  for (uint32_t col = 0; col < kCols; ++col) s[col] = jth256::init_state(col, idx);
+  for (uint32_t c = 0; c < static_cast<uint32_t>(jth256::kRows / cest::kChunkRows); ++c) {
+    const uint32_t* chunk = lw + c * cest::kChunkRows * kCols;
+    for (uint32_t col = 0; hist != nullptr && col < kCols; ++col) {
+      if (cest::chunk_sampled(c, col)) cest::bin_word(hist, chunk[col]);
     }
-    s[col] = st;
+    for (int r = 0; r < cest::kChunkRows; ++r) {
+      for (uint32_t col = 0; col < kCols; ++col) {
+        s[col] = jth256::row_step(s[col], chunk[r * kCols + col] ^ tw);
+      }
+    }
   }
 }
 

@@ -135,8 +135,12 @@ def test_estimator_wrappers_refuse_other_devices():
 
 
 # (B, M): one 4 MiB block, the ingest cells' ~13- and ~25-block batches (at
-# fewer lanes a block), and a batch whose M is not a power of two
-FUSED_SHAPES = [(1, 64), (13, 4), (25, 2), (3, 3)]
+# fewer lanes a block), and a batch whose M is not a power of two; then the
+# ingest cells' batch sizes on each side of the wave boundaries of a fixed
+# 32 KiB ring on an H100 (12 / 13 and 24 / 25 blocks of 64 lanes), at 16
+# lanes a block
+FUSED_SHAPES = [(1, 64), (13, 4), (25, 2), (3, 3),
+                (12, 16), (13, 16), (24, 16), (25, 16), (32, 16)]
 
 
 @pytest.mark.parametrize("tweak", [0, 0x5BD1E995])

@@ -2,15 +2,18 @@
 compress_estimate.cu: its histogram and entropy entries) on the card
 against the plain torch version on the CPU: histograms exact, advisories
 within 1e-5 (float32 log2 and the order of the sum differ); and the row
-chain's estimating entry (jth256_row_chain.cu,
-`jth256_block_digests_estimate`) against the block entry and the
-histogram and entropy entries on the card, bit for bit. Every test
-needs a CUDA card and skips without one; the kernels' arithmetic is held
-on the CPU through their g++ twin (test_torch_compress_estimate.py). This
-file imports no JAX.
+chain's block entries (jth256_row_chain.cu, `jth256_block_digests` and
+`jth256_block_digests_estimate`) against the plain references at the
+batch sizes around the ring's wave boundaries and at 1 GiB: digests bit
+for bit the numpy spec's (`hash_packed_np`), advisories bit for bit the
+histogram and entropy entries' (which share the estimate's arithmetic,
+compress_estimate.cuh, and whose histogram is the plain one exactly) and
+within 1e-5 of the plain torch estimate; and the ring each launch takes.
+Every test needs a CUDA card and skips without one; the kernels'
+arithmetic is held on the CPU through their g++ twin
+(test_torch_compress_estimate.py, test_torch_hash_fold.py). This file
+imports no JAX.
 """
-import ctypes
-
 import json
 import os
 
@@ -21,7 +24,7 @@ import torch
 from juicefs_tpu_torch.gpu import compress_batch as cb
 from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels, sharding
-from juicefs_tpu_torch.gpu.jth256 import pack_blocks
+from juicefs_tpu_torch.gpu.jth256 import hash_packed_np, pack_blocks, pack_into
 from torch_estimate_packs import SHAPES, blocks, np_histogram, pack, pack_with_lengths
 from torch_estimate_packs import as_int32 as _t
 
@@ -46,18 +49,27 @@ def _card_ops(fn, tmp_path) -> list:
     """(category, name) of every kernel, memcpy and memset the card ran for
     fn(), in order, as a profiler recording card activity alone sees them.
     A spin of the card goes first and only what follows it is returned:
-    such a profiler can drop the first operation it would see."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(100_000)
-        fn()
+    such a profiler can drop the first operation it would see. A capture
+    that holds no card operation at all, not even the spin, saw nothing
+    (the card tests met one now and then) and is taken again, up to three
+    times; `kernels.LAUNCHES` then counts the last capture's launches."""
+    for attempt in range(3):
+        if attempt:
+            kernels.reset_launches()
         torch.cuda.synchronize()
-    path = os.path.join(tmp_path, "card.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    ops = sorted((float(e["ts"]), e.get("cat"), e.get("name")) for e in events
-                 if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp_path, f"card{attempt}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        ops = sorted((float(e["ts"]), e.get("cat"), e.get("name")) for e in events
+                     if e.get("ph") == "X"
+                     and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        if ops:
+            break
     spins = [i for i, (_ts, _cat, name) in enumerate(ops) if "spin_kernel" in name]
     return [(cat, name) for _ts, cat, name in ops[spins[-1] + 1 if spins else 0:]]
 
@@ -167,27 +179,62 @@ def _fused(words, counts, lengths, tweak=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 8, 13, 25, 32])
+@pytest.mark.parametrize("b", [1, 8, 12, 13, 24, 25, 32, 256])
 def test_estimating_hash_entry_matches_both_entries(card, b):
-    """The estimating entry's digests equal the block entry's and its
-    advisories the histogram and entropy entries', bit for bit, on seeded packs
-    of whole, short and dead-laned blocks; with a tweak the digests follow
-    it and the advisories do not (the estimate samples the words as
-    read)."""
+    """Both block entries against the plain references on seeded packs of
+    whole, short and dead-laned blocks of 64 lanes, on each side of the
+    wave boundaries of a fixed 32 KiB ring (12 / 13 and 24 / 25 blocks)
+    and at 1 GiB, with and without a tweak: the digests of the block entry
+    and of the estimating entry bit for bit `hash_packed_np`'s of the
+    tweaked words; the advisories bit for bit the histogram and entropy
+    entries', whose histogram is the plain one exactly, within 1e-5 of the
+    plain torch estimate, and unmoved by the tweak (the estimate samples
+    the words as read)."""
     words, counts, lengths = pack_with_lengths(300 + b, b, 64)
     dw = _t(words).to(card)
     dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
-    want_d = ht.hash_device(dw, dc, dl)
+    hist = cb.byte_histogram(dw, dc)
     want_a = cb.estimate(dw, dc)
+    plain_a = cb.entropy_ratio_ref(cb.byte_histogram_ref(dw, dc))
+    for tweak in (0, 0x5BD1E995):
+        want_d = hash_packed_np(words ^ np.uint32(tweak), counts, lengths)
+        block_d = ht.hash_device(dw, dc, dl, tweak)
+        got_d, got_a = _fused(dw, dc, dl, tweak)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(block_d.cpu().numpy().astype(np.uint32), want_d)
+        np.testing.assert_array_equal(got_d.cpu().numpy().astype(np.uint32), want_d)
+        assert torch.equal(got_a, want_a)
+    np.testing.assert_array_equal(hist.cpu().numpy(), np_histogram(words, counts))
+    np.testing.assert_allclose(got_a.cpu().numpy(), plain_a.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m", [(8, 256), (11, 192)])
+def test_block_entries_hash_blocks_past_8_mib(card, b, m):
+    """Blocks of 16 MiB (8 of them, 2048 lanes) and 12 MiB (11, 2112
+    lanes), the sizes at which a ring picked from the lane count alone
+    would be one chunk, too small for the block's lane digests that the
+    last CTA stages there: both block entries give `hash_packed_np`'s
+    digests bit for bit, and the advisories are the histogram and entropy
+    entries'. The blocks are packed as gc, fsck and ingest pack them, into
+    a buffer of the volume's lanes a block (`pack_into`), with random
+    words in the dead lanes."""
+    rng = np.random.default_rng(400 + b)
+    words = np.zeros((b, m, 128, 128), dtype=np.uint32)
+    counts, lengths = (x.astype(np.int64) for x in pack_into(words, blocks(rng, b, m)))
+    for i in range(b):
+        dead = words[i, int(counts[i]):]
+        dead[...] = rng.integers(0, 1 << 32, size=dead.shape, dtype=np.uint32)
+    dw = _t(words).to(card)
+    dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
+    want_d = hash_packed_np(words, counts, lengths)
+    want_a = cb.estimate(dw, dc)
+    block_d = ht.hash_device(dw, dc, dl)
     got_d, got_a = _fused(dw, dc, dl)
-    tw_d, tw_a = _fused(dw, dc, dl, 0x5BD1E995)
     torch.cuda.synchronize()
-    assert torch.equal(got_d, want_d) and torch.equal(got_a, want_a)
-    assert torch.equal(tw_d, ht.hash_device(dw, dc, dl, 0x5BD1E995))
-    assert torch.equal(tw_a, want_a) and not torch.equal(tw_d, got_d)
-    np.testing.assert_allclose(got_a.cpu().numpy(),
-                               cb.estimate(_t(words), torch.from_numpy(counts)).numpy(),
-                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(block_d.cpu().numpy().astype(np.uint32), want_d)
+    np.testing.assert_array_equal(got_d.cpu().numpy().astype(np.uint32), want_d)
+    assert torch.equal(got_a, want_a)
 
 
 @pytest.mark.cuda
@@ -236,15 +283,32 @@ def test_estimating_hash_entry_workspaces_are_zero_after_each_launch(card):
 
 
 @pytest.mark.cuda
-def test_estimating_hash_entry_keeps_six_ctas_per_sm(card):
-    """The estimate's shared memory leaves the row chain at 6 resident CTAs
-    per SM, as the block entry."""
-    lib = kernels.load_library("jth256_row_chain")
-    fn = lib.jth256_row_chain_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    for estimate in (0, 1):
-        ctas = ctypes.c_int(0)
-        with torch.cuda.device(card):
-            assert fn(estimate, ctypes.byref(ctas)) == 0
-        assert ctas.value == 6, (estimate, ctas.value)
+def test_ring_puts_every_batch_of_up_to_32_blocks_in_one_wave(card):
+    """At the ring depth the rule picks for a batch of 1-32 blocks of 64
+    lanes, each row-chain entry holds ceil(lanes / SMs) CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so every lane is
+    resident at once, and a launch of either block entry at each of those
+    sizes observes 1 in juicefs_torch_row_chain_waves."""
+    from juicefs_tpu_torch.metric import global_registry
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    entries = ("jth256_lane_digests", "jth256_block_digests", "jth256_block_digests_estimate")
+    with torch.cuda.device(card):
+        tables = {e: kernels.row_chain_occupancy(e) for e in entries}
+    for b in range(1, 33):
+        n = 64 * b
+        for e in entries:
+            depth, waves = ht._ring(e, card, n, 64)
+            staged = 0 if e == "jth256_lane_digests" else 64 * kernels.LANE_DIGEST_BYTES
+            assert depth == kernels.ring_depth(n, sms, tables[e], staged)
+            assert tables[e][depth] >= -(-n // sms) and waves == 1, (b, e, depth)
+    waves_h = global_registry()._metrics["juicefs_torch_row_chain_waves"]
+    words, counts, lengths = pack_with_lengths(5, 32, 64)
+    dw = _t(words).to(card)
+    dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
+    ones, total = waves_h.counts[0], waves_h.total
+    for b in range(1, 33):
+        ht.hash_device(dw[:b], dc[:b], dl[:b])
+        _fused(dw[:b], dc[:b], dl[:b])
+    torch.cuda.synchronize()
+    assert waves_h.counts[0] - ones == 64 and waves_h.total - total == 64

@@ -27,6 +27,8 @@ import juicefs_tpu.tpu  # noqa: F401  (loads the reference spec module)
 from juicefs_tpu.tpu import hash_jax as hj
 from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels, sharding
+from juicefs_tpu_torch.gpu.jth256 import hash_packed_np
+from torch_estimate_packs import pack_with_lengths
 
 ref_spec = sys.modules["juicefs_tpu.tpu.jth256"]
 LANE = ref_spec.LANE_BYTES
@@ -251,6 +253,112 @@ def test_twin_block_digests_match_pallas_and_xla(twin, b, m, tweak):
     plain = ht.hash_device(_t(words), t_counts, t_lengths, tweak)
     assert dict(kernels.LAUNCHES) == before  # the plain version: no launch
     assert plain.dtype == torch.int64 and np.array_equal(_u32(plain), want)
+
+
+# the ingest cells' batch sizes, on each side of the wave boundaries of a
+# fixed 32 KiB ring (12 / 13 and 24 / 25 blocks of 64 lanes on an H100);
+# the CPU packs them at 16 lanes a block past one block
+INGEST_BLOCKS = [1, 12, 13, 24, 25, 32]
+
+
+@pytest.mark.parametrize("b", INGEST_BLOCKS)
+def test_twin_block_entries_at_ingest_batch_sizes(twin, b):
+    """Both block entries' arithmetic (twin), which streams each lane in
+    the kernel's 8-row chunks, on whole, short and dead-laned blocks with a
+    tweak: the digests of the block entry and of the estimating entry equal
+    the numpy spec's (`hash_packed_np`) and the JAX package's
+    `hash_packed_jax` of the tweaked words, exactly."""
+    m = 64 if b == 1 else 16
+    words, counts, lengths = pack_with_lengths(400 + b, b, m)
+    tweak = 0x5BD1E995
+    tweaked = words ^ np.uint32(tweak)
+    want = hash_packed_np(tweaked, counts, lengths)
+    np.testing.assert_array_equal(np.asarray(hj.hash_packed_jax(
+        tweaked, counts.astype(np.int32), lengths.astype(np.uint32))), want)
+    tc, tl = torch.from_numpy(counts), torch.from_numpy(lengths)
+    flat = _t(words).reshape(b * m, 128, 128)
+    np.testing.assert_array_equal(_u32(twin.block_digests(flat, m, tc, tl, tweak)), want)
+    np.testing.assert_array_equal(
+        _u32(twin.block_digests_estimate(flat, m, tc, tl, tweak)[0]), want)
+
+
+# An H100's SMs, and the row chain's resident CTAs an SM at each ring depth
+# as its shared memory implies: 228 KiB an SM, of which 1 KiB is reserved
+# a CTA, taken in 128 B units; a CTA holds the ring (4 KiB a chunk), its
+# static shared memory (768 B; 640 B in the lane-digests entry) and, in the
+# estimating entry, 1072 B of histogram and entropy scratch; at most 16
+# CTAs of 128 threads. These are the tables
+# cudaOccupancyMaxActiveBlocksPerMultiprocessor gives on an H100 80GB HBM3.
+H100_SMS = 132
+
+
+def _h100_ctas(static: int, scratch: int) -> dict:
+    def cta_bytes(depth):
+        return -(-(4096 * depth + static + 1024 + scratch) // 128) * 128
+
+    return {d: min(16, 233472 // cta_bytes(d)) for d in kernels.RING_DEPTHS}
+
+
+H100_CTAS = {"estimate": _h100_ctas(768, 1072), "block": _h100_ctas(768, 0),
+             "lane": _h100_ctas(640, 0)}
+
+
+@pytest.mark.parametrize("entry", sorted(H100_CTAS))
+def test_ring_depth_puts_each_batch_of_up_to_32_blocks_in_one_wave(entry):
+    """The rule's ring for every batch of 1-32 blocks of 64 lanes holds
+    ceil(lanes / SMs) CTAs an SM, so the launch is one wave; its depth
+    never grows with the lane count; a batch past what an SM holds at
+    once at the shallowest ring (2112 lanes) takes the large-batch ring."""
+    ctas = H100_CTAS[entry]
+    depths = []
+    for b in range(1, 33):
+        n = 64 * b
+        depth = kernels.ring_depth(n, H100_SMS, ctas)
+        assert ctas[depth] >= -(-n // H100_SMS), (b, depth)
+        assert kernels.waves(n, H100_SMS, ctas[depth]) == 1
+        depths.append(depth)
+    assert depths[0] == max(kernels.RING_DEPTHS)  # one block: the whole lane in flight
+    assert depths == sorted(depths, reverse=True)
+    most = H100_SMS * ctas[min(kernels.RING_DEPTHS)]
+    assert most == 2112
+    assert kernels.ring_depth(most, H100_SMS, ctas) == min(kernels.RING_DEPTHS)
+    for n in (most + 1, 4096, 16384):
+        assert kernels.ring_depth(n, H100_SMS, ctas) == kernels.LARGE_BATCH_DEPTH
+        assert kernels.waves(n, H100_SMS, ctas[kernels.LARGE_BATCH_DEPTH]) > 1
+
+
+def test_ring_depth_on_an_h100():
+    """The estimating entry's rings on an H100 at the ingest cells' batch
+    sizes: the shallowest that keeps 8 MiB in flight, every lane resident;
+    and the waves each size took at the fixed 32 KiB ring (8 chunks) that
+    every launch had before."""
+    ctas = H100_CTAS["estimate"]
+    got = {b: kernels.ring_depth(64 * b, H100_SMS, ctas)
+           for b in (1, 2, 4, 8, 12, 13, 16, 24, 25, 32)}
+    assert got == {1: 16, 2: 16, 4: 8, 8: 4, 12: 3, 13: 3, 16: 2, 24: 2, 25: 2, 32: 1}
+    assert [kernels.waves(64 * b, H100_SMS, ctas[8]) for b in (12, 13, 24, 25, 32)] == \
+        [1, 2, 2, 3, 3]
+
+
+@pytest.mark.parametrize("entry", ["block", "estimate"])
+def test_ring_depth_holds_a_block_of_lane_digests(entry):
+    """A block entry's ring also holds its block's lane digests (32 B a
+    lane) for the last CTA's combine: blocks of 16 MiB (256 lanes) and
+    12 MiB (192) need 2 chunks even where the lane count alone would give
+    one, blocks of 64 MiB (1024 lanes) 8; the ring stays one wave where
+    it can, and blocks past the deepest ring's 2048 lanes get a depth the
+    kernel refuses."""
+    ctas = H100_CTAS[entry]
+    digests = kernels.LANE_DIGEST_BYTES
+    assert kernels.ring_depth(2048, H100_SMS, ctas) == 1
+    for b, m in ((8, 256), (11, 192)):
+        depth = kernels.ring_depth(b * m, H100_SMS, ctas, m * digests)
+        assert depth == 2 and depth * kernels.RING_CHUNK_BYTES >= m * digests
+        assert kernels.waves(b * m, H100_SMS, ctas[depth]) == 1
+    assert kernels.ring_depth(1024, H100_SMS, ctas, 1024 * digests) == 8
+    assert kernels.ring_depth(16384, H100_SMS, ctas, 1024 * digests) == \
+        kernels.LARGE_BATCH_DEPTH
+    assert kernels.ring_depth(4096, H100_SMS, ctas, 4096 * digests) > max(kernels.RING_DEPTHS)
 
 
 def test_arrival_counters_are_per_stream_and_grow_zeroed():
