@@ -87,9 +87,16 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               and 32 blocks beside its bound and the plain torch version on
               the card. The row chain's estimating entry on the same batch:
               one kernel, the block entry's digests and the estimator's
-              advisories bit for bit, its workspaces zero again; then its
-              device ms at 1, 8, 13, 25 and 32 blocks beside the block
-              entry alone, in turns
+              advisories bit for bit, its workspaces zero again; and on
+              the packs a small-file ingest batch takes
+              (`HashPipeline.pack_batch`, sized to its longest block): one
+              128 KiB block (2 lanes), one short block (1 lane) and a mixed
+              batch of 4 lanes, one launch each, digests bit for bit the
+              numpy spec's, advisories bit for bit the histogram and
+              entropy entries' and within 1e-5 of the plain torch version
+              on the CPU; then its device ms at 1, 8, 13, 25 and 32 blocks
+              and at 1 block of 2 lanes beside the block entry alone, in
+              turns, and beside its bound at 1 block of 2 lanes
   11. main    the admin path through the port's CLI on a sqlite3:// volume
               of the same plan: `format --hash-backend pallas` (probes the
               card), a write of every block as its own slice through
@@ -364,6 +371,14 @@ ESTIMATE_BLOCKS = (1, 8, 13, 32)
 # the row chain's estimating entry's timed sizes: as ESTIMATE_BLOCKS, and
 # the one-writer ingest cell's ~25-block batch
 FUSED_BLOCKS = (1, 8, 13, 25, 32)
+# the packs a small-file ingest batch takes (sized to its longest block):
+# (name, lanes, blocks as (kind, bytes)); kinds "random", "text", "zero"
+SMALL_PACKS = (
+    ("1 block x 2 lanes", 2, (("random", 2 * LANE_BYTES),)),
+    ("1 block x 1 lane", 1, (("text", 40_000),)),
+    ("4 blocks x 4 lanes", 4, (("random", 2 * LANE_BYTES), ("text", 3 * LANE_BYTES + 777),
+                               ("zero", 777), ("random", 70_000))),
+)
 # --compare-row-chain's sizes: one block, 8, each side of one and of two
 # waves of the 32 KiB ring every launch took before the ring followed the
 # batch (792 lanes, 12.4 blocks, an H100's 132 SMs x 6 CTAs: the ingest
@@ -389,7 +404,8 @@ def hbm_bytes_per_s(name: str) -> float:
 
 
 def row_chain_bound_ms(n_lanes: int, smi: str,
-                       lane_counts: torch.Tensor | None = None) -> tuple[float, str]:
+                       lane_counts: torch.Tensor | None = None,
+                       extra_bytes: int = 0) -> tuple[float, str]:
     """Least time the card could take for the row chain over n_lanes with
     its lane fold (the lane-digests entry): each input word read once and
     32 B of digests a lane written once at the memory rate, or the integer
@@ -397,8 +413,8 @@ def row_chain_bound_ms(n_lanes: int, smi: str,
     (the block entry, B blocks of n_lanes / B lanes) also each live lane's
     digests read back once, the counts and lengths (16 B a block) read and
     the (B, 8) int64 digests (64 B a block) written, and the combine's
-    operations."""
-    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * DIGEST_BYTES
+    operations. `extra_bytes` are further bytes the launch moves."""
+    in_bytes, out_bytes = n_lanes * LANE_BYTES, n_lanes * DIGEST_BYTES + extra_bytes
     ops = in_bytes // 4 * OPS_PER_WORD + n_lanes * 8 * 16 * FOLD_OPS_PER_STEP
     if lane_counts is not None:
         n_blocks = int(lane_counts.numel())
@@ -1216,10 +1232,15 @@ def drive_ingest(root: str, blocks: list, expect_dups: int, slice_blocks: int,
             raise AssertionError(f"{fused} jth256_block_digests_estimate and "
                                  f"{launches['compress_histogram']} compress_histogram launches "
                                  f"for {n_estimates} estimates of {n_batches} hash batches")
-        # gate 4: one upload per hash batch (each block padded to 64 lanes)
+        # gate 4: one upload per hash batch, each packed to its longest
+        # block: a full block is 64 lanes, and the short last block
+        # (unique, so always hashed) its own lanes when a batch holds it
+        # alone, else 64
         pad = bs // LANE_BYTES * LANE_BYTES
-        if h2d != hashed * pad:
-            raise AssertionError(f"h2d bytes {h2d} != {hashed} hashed blocks x {pad}")
+        tail = -(-len(blocks[-1]) // LANE_BYTES) * LANE_BYTES
+        if h2d not in (hashed * pad, (hashed - 1) * pad + tail):
+            raise AssertionError(f"h2d bytes {h2d}: want {hashed} hashed blocks x {pad}, "
+                                 f"or the last block alone at {tail}")
         return {"store": store, "storage": storage, "meta": meta, "refs": refs,
                 "slices": slices, "blocks": n_blocks, "bytes": nbytes,
                 "seconds": seconds, "gibs": gibs, "stats": st, "stage_seconds": stages,
@@ -1346,6 +1367,24 @@ def card_ops(fn) -> tuple[list, object]:
     return [(cat, name) for _ts, cat, name in ops[spins[-1] + 1 if spins else 0:]], out
 
 
+def hash_estimate_bound_ms(n_blocks: int, m: int, smi: str) -> tuple[float, str]:
+    """Least time for the estimating block entry over n_blocks blocks of m
+    whole lanes: the block entry's (`row_chain_bound_ms`), and each block's
+    256 bin counts (4 B each) added into its workspace and read back once
+    and its 4 B advisory written; the sampled words are read by the chain
+    already."""
+    counts = torch.full((n_blocks,), m, dtype=torch.int64)
+    return row_chain_bound_ms(n_blocks * m, smi, counts, n_blocks * (2 * 256 * 4 + 4))
+
+
+def small_pack_blocks(rng: np.random.Generator, spec) -> list:
+    """The blocks of one SMALL_PACKS entry: random, text or zero bytes."""
+    text = b"hello world "
+    make = {"random": rng.bytes, "zero": bytes,
+            "text": lambda n: (text * (n // len(text) + 1))[:n]}
+    return [make[kind](n) for kind, n in spec]
+
+
 def estimate_bound_ms(n_blocks: int, m: int, smi: str) -> float:
     """Least time for the estimate of n_blocks blocks of m lanes: each
     sampled word costs a 32-byte sector (the next lies 64 B on), plus the
@@ -1436,6 +1475,37 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
         raise AssertionError("the estimating entry != the block entry and the estimator")
     if kernels.LAUNCHES["jth256_block_digests_estimate"] != 1:
         raise AssertionError(f"estimating entry launches {kernels.LAUNCHES}")
+    # the same entry on the packs a small-file ingest batch takes: packed
+    # to the batch's longest block as the ingest stage packs it, one launch
+    # a pack, the digests the numpy spec's, the advisories the histogram
+    # and entropy entries' bit for bit and the plain torch version's on
+    # the CPU within 1e-5
+    small = {}
+    for name, lanes, spec in SMALL_PACKS:
+        host = pipe.pack_batch(small_pack_blocks(rng, spec))
+        if host[0].shape != (len(spec), lanes, ROWS, COLS):
+            raise AssertionError(f"{name}: the pack is {host[0].shape}")
+        sw, sc, sl = pipe.shard_packed(host)
+        want_a = compress_batch.estimate(sw, sc)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got_d, got_a = hash_torch.hash_estimate_device(sw, sc, sl)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["jth256_block_digests_estimate"] != 1:
+            raise AssertionError(f"{name}: estimating entry launches {kernels.LAUNCHES}")
+        if not np.array_equal(got_d.cpu().numpy().astype(np.uint32), hash_packed_np(*host)):
+            raise AssertionError(f"{name}: the estimating entry's digests != hash_packed_np")
+        if not torch.equal(got_a, want_a):
+            raise AssertionError(f"{name}: the estimating entry's advisories != the "
+                                 "histogram and entropy entries'")
+        plain_a = compress_batch.estimate(torch.from_numpy(host[0].view(np.int32)),
+                                          torch.from_numpy(host[1].astype(np.int64)))
+        serr = float((got_a.cpu() - plain_a).abs().max())
+        if serr > 1e-5:
+            raise AssertionError(f"{name}: advisories differ from the plain estimate by "
+                                 f"{serr} > 1e-5")
+        small[name] = {"max_abs_err": serr, "advisories": got_a.cpu().tolist()}
+    print("estimating entry on small packs " + json.dumps(small))
     t0 = time.perf_counter()
     compress_batch.estimate(words, counts)
     enqueue_ms = (time.perf_counter() - t0) * 1e3
@@ -1465,7 +1535,7 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
               f"on the card {row['plain_ms']:.4f} ms; {QUEUED} calls queued in {enq:.3f} ms")
         del pool
     out = {"blocks": n, "estimate_enqueue_ms": enqueue_ms,
-           "upload_ms": statistics.median(upload_ms), "max_abs_err": err,
+           "upload_ms": statistics.median(upload_ms), "max_abs_err": err, "small": small,
            "zero": p[0], "text": p[1], "random_min": min(p[2:]), "sizes": sizes,
            "card": smi}
     print("estimator " + json.dumps(out))
@@ -1475,18 +1545,20 @@ def estimator_phase(rng: np.random.Generator, gen: torch.Generator, smi: str) ->
 def hash_estimate_phase(gen: torch.Generator, smi: str) -> dict:
     """The row chain's estimating entry (`hash_estimate_device`, an ingest
     hash batch with its compress estimate in one launch) beside the block
-    entry alone at FUSED_BLOCKS, in turns over 3 rounds, each time
-    `time_queued`'s device ms on random words cycling through COLD_BYTES;
-    the medians of the rounds. At the ingest cells' 13 and 25 blocks the
-    estimating entry should cost within 1.05x the block entry."""
+    entry alone at FUSED_BLOCKS of 64 lanes and at one block of 2 lanes
+    (the small-file cell's close, beside its bound too), in turns over 3
+    rounds, each time `time_queued`'s device ms on random words cycling
+    through COLD_BYTES; the medians of the rounds. At the ingest cells' 13
+    and 25 blocks the estimating entry should cost within 1.05x the block
+    entry."""
     phase("hash with its estimate in one launch")
     m = BLOCK_BYTES // LANE_BYTES
-    sizes = {}
-    for nb in FUSED_BLOCKS:
-        copies = max(1, -(-COLD_BYTES // (nb * BLOCK_BYTES)))
-        pool = random_words(gen, nb * m * copies).reshape(copies, nb, m, ROWS, COLS)
-        cnt = torch.full((nb,), m, dtype=torch.int64, device="cuda")
-        lens = torch.full((nb,), BLOCK_BYTES, dtype=torch.int64, device="cuda")
+
+    def time_both(nb: int, lanes: int) -> dict:
+        copies = max(1, -(-COLD_BYTES // (nb * lanes * LANE_BYTES)))
+        pool = random_words(gen, nb * lanes * copies).reshape(copies, nb, lanes, ROWS, COLS)
+        cnt = torch.full((nb,), lanes, dtype=torch.int64, device="cuda")
+        lens = torch.full((nb,), lanes * LANE_BYTES, dtype=torch.int64, device="cuda")
         hash_torch.hash_estimate_device(pool[0], cnt, lens)  # warm-up
         kinds = {
             "fused": lambda i: hash_torch.hash_estimate_device(pool[i % copies], cnt, lens,
@@ -1499,14 +1571,23 @@ def hash_estimate_phase(gen: torch.Generator, smi: str) -> dict:
                 times[k].append(time_queued(fn)[0])
         row = {f"{k}_ms": statistics.median(v) for k, v in times.items()}
         row["fused_over_block"] = row["fused_ms"] / row["block_ms"]
-        sizes[nb] = row
+        return row
+
+    sizes = {}
+    for nb in FUSED_BLOCKS:
+        row = sizes[nb] = time_both(nb, m)
         flag = "" if nb not in (13, 25) or row["fused_over_block"] <= 1.05 else \
             " (above the 1.05x expected)"
         print(f"{nb} blocks: hash and estimate {row['fused_ms']:.4f} ms in one launch, "
               f"hash alone {row['block_ms']:.4f} ms ({row['fused_over_block']:.3f}x){flag}; "
               f"card {smi}")
-        del pool
-    out = {"sizes": sizes, "card": smi}
+    small = time_both(1, 2)
+    small["bound_ms"], small["bound_by"] = hash_estimate_bound_ms(1, 2, smi)
+    print(f"1 block x 2 lanes: hash and estimate {small['fused_ms']:.5f} ms in one launch "
+          f"(bound {small['bound_ms']:.6f}, {small['bound_by']}, "
+          f"{small['bound_ms'] / small['fused_ms']:.4f} of it), hash alone "
+          f"{small['block_ms']:.5f} ms ({small['fused_over_block']:.3f}x); card {smi}")
+    out = {"sizes": sizes, "small": small, "card": smi}
     print("hash_estimate " + json.dumps(out))
     return out
 
@@ -4677,6 +4758,14 @@ def main(argv=None) -> int:
             "ingest_concurrent": conc["launches"]["jth256_block_digests_estimate"]},
         "ms": fused["sizes"][13]["fused_ms"],
         "block_ms": fused["sizes"][13]["block_ms"],
+    }, {
+        # the same entry on a small-file close: one block packed to 2 lanes
+        "name": "jth256_block_digests_estimate", **row_chain,
+        "shape": "1 block x 2 lanes (the small-file cell's 128 KiB close)",
+        "ms": fused["small"]["fused_ms"],
+        "block_ms": fused["small"]["block_ms"],
+        "bound_ms": fused["small"]["bound_ms"],
+        "bound_by": fused["small"]["bound_by"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

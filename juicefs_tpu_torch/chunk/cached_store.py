@@ -72,6 +72,7 @@ _H_STAGE = stage_hist("chunk", "upload", "stage")
 _H_PACK = stage_hist("chunk", "upload", "pack")
 _H_COMPRESS = stage_hist("chunk", "upload", "compress")
 _H_BUFFER_WAIT = stage_hist("chunk", "write", "buffer_wait")
+_H_FINISH = stage_hist("chunk", "write", "finish")
 # elided-block memo bound: ~150 B an entry, so ~10 MiB at the cap
 _CANONICALS_MAX = 1 << 16
 
@@ -1027,15 +1028,20 @@ class WSlice:
                 if indx not in self._blocks:
                     self._blocks[indx] = bytearray()  # hole: zero-filled block
                 self._upload_block(indx, last_size if indx == n_blocks - 1 else self.bs)
-        if self.store.ingest is not None:
-            # commit barrier: hash whatever the ingest stage buffered NOW
-            # instead of waiting out its flush timeout
-            self.store.ingest.kick()
         errs = []
-        for fut in self._futures:
-            e = fut.exception()
-            if e is not None:
-                errs.append(e)
+        # the commit barrier's wait on its blocks: hash, lookup, elision or
+        # compress + PUT, whichever each block takes
+        with _TR.span("chunk", "write", stage="finish", hist=_H_FINISH) as sp:
+            if sp.active:
+                sp.set(blocks=len(self._futures))
+            if self.store.ingest is not None:
+                # hash whatever the ingest stage buffered NOW instead of
+                # waiting out its flush timeout
+                self.store.ingest.kick()
+            for fut in self._futures:
+                e = fut.exception()
+                if e is not None:
+                    errs.append(e)
         # a done future's callbacks may still be running on its setter's
         # thread: release here too, so the account holds none of this
         # slice's blocks once finish returns

@@ -591,18 +591,17 @@ class IngestPipeline:
         raws = [batch[i][1] for i in unknown]
         packed = None
         if raws and pipe.device_backend:
-            # shared upload: ONE pack_blocks upload feeds the hash
-            # digests AND the compress plane's estimate. `shard_packed`
+            # shared upload: ONE upload, packed to the batch's own longest
+            # block (`pack_batch`), feeds the hash digests AND the compress
+            # plane's estimate. `shard_packed`
             # places the batch on the plane once; a failure here degrades
             # the whole batch in `_loop` (logged and counted) rather than
             # letting both consumers upload host arrays again
-            from ..gpu.jth256 import pack_blocks
-
             with _TR.span("chunk", "ingest", stage="pack", hist=_H_PACK) as sp:
                 if sp.active:
                     sp.set(blocks=len(raws))
                 with _TR.span("gpu", "hash", stage="pack", hist=_H_HOST_PACK):
-                    host = pack_blocks(raws, pad_lanes=pipe.config.pad_lanes)
+                    host = pipe.pack_batch(raws)
                 packed = pipe.shard_packed(host)
         advisories = None
         if raws:

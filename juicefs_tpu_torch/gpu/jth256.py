@@ -144,19 +144,26 @@ def digest_hex(digest: bytes) -> str:
 # ---------------------------------------------------------------------------
 
 def pack_blocks(
-    blocks: Sequence[bytes], pad_lanes: int | None = None
+    blocks: Sequence[bytes], pad_lanes: int | None = None, multiple: int | None = None
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Pack a batch to fixed shape for a single compiled program.
 
     Returns (words (B, M, 128, 128) uint32, lane_counts (B,) int32,
-    lengths (B,) uint32). Blocks shorter than M lanes are zero-padded;
+    lengths (B,) uint32). M is `pad_lanes`, else the longest block's lanes;
+    with `multiple`, M is the longest block's lanes rounded up to a
+    multiple of it, and `pad_lanes` only its ceiling. A block longer than
+    the ceiling raises. Blocks shorter than M lanes are zero-padded;
     lane_counts masks the padded lanes out of the combine step, so padding
     never changes a digest.
     """
     counts = [max(1, -(-len(b) // LANE_BYTES)) for b in blocks]
-    m = pad_lanes or max(counts, default=1)
-    if max(counts, default=1) > m:
-        raise ValueError(f"block needs {max(counts)} lanes > pad_lanes={m}")
+    need = max(counts, default=1)
+    m = pad_lanes or need
+    if multiple:
+        fit = -(-need // multiple) * multiple
+        m = min(m, fit) if pad_lanes else fit
+    if need > m:
+        raise ValueError(f"block needs {need} lanes > pad_lanes={m}")
     out = np.zeros((len(blocks), m, ROWS, COLS), dtype=np.uint32)
     for i, b in enumerate(blocks):
         w = pack_block(b)

@@ -49,6 +49,7 @@ from .jth256 import (
     ROWS,
     digests_to_bytes,
     hash_packed_np,
+    pack_blocks,
     pack_into,
 )
 
@@ -235,6 +236,16 @@ class HashPipeline:
 
     def hash_blocks(self, blocks: Iterable[bytes]) -> list[bytes]:
         return [d for _, d in self.hash_stream((str(i), b) for i, b in enumerate(blocks))]
+
+    def pack_batch(self, blocks):
+        """Pack a batch for `shard_packed` to its own longest block: its
+        lanes rounded up to the plane's lane-axis extent, so that a
+        lane-split mesh still splits it, with the configured pad as the
+        ceiling. Padding never enters a digest or an advisory (lane_counts
+        masks it out), so a 128 KiB block ships and chains 2 lanes, not a
+        4 MiB block size's 64."""
+        return pack_blocks(blocks, pad_lanes=self.config.pad_lanes,
+                           multiple=self.plane.n_lane if self.plane is not None else 1)
 
     def shard_packed(self, packed):
         """Place a packed (words, counts, lengths) triple on the plane once,

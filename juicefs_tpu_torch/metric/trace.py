@@ -60,9 +60,9 @@ def stage_hist(layer: str, op: str, stage: str = "total"):
 def stage_metrics_snapshot() -> dict:
     """Compact {layer.op.stage: {count, sum_seconds}} dump of the stage
     rollup (chip_smoke.py prints it). The object layer's
-    per-backend request histogram is folded in as object.<method>.<backend>
-    so the snapshot attributes every stage without double-observing on the
-    object hot path."""
+    per-backend request histogram is folded in as object.<method>.<backend>,
+    and the VFS ops' latency histogram as vfs.<method>, so the snapshot
+    attributes every stage without double-observing on either hot path."""
     out = {}
 
     def collect(hist, keyfn):
@@ -75,13 +75,17 @@ def stage_metrics_snapshot() -> dict:
 
     collect(_STAGE_SECONDS,
             lambda l: f"{l.get('layer')}.{l.get('op')}.{l.get('stage')}")
-    obj = global_registry()._metrics.get(
-        "juicefs_object_request_durations_histogram_seconds"
-    )
+    metrics = global_registry()._metrics
+    obj = metrics.get("juicefs_object_request_durations_histogram_seconds")
     if obj is not None:
         collect(obj,
                 lambda l: f"object.{l.get('method', '?').lower()}"
                           f".{l.get('backend', '?')}")
+    # the VFS op wrapper's latency histogram, as vfs.<method>: the name of
+    # the profiler range the wrapper opens around the same op
+    ops = metrics.get("juicefs_fuse_ops_durations_histogram_seconds")
+    if ops is not None:
+        collect(ops, lambda l: f"vfs.{l.get('method', '?')}")
     return out
 
 

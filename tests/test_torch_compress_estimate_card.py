@@ -179,18 +179,21 @@ def _fused(words, counts, lengths, tweak=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 8, 12, 13, 24, 25, 32, 256])
-def test_estimating_hash_entry_matches_both_entries(card, b):
+@pytest.mark.parametrize("b,m", [(1, 64), (8, 64), (12, 64), (13, 64), (24, 64), (25, 64),
+                                 (32, 64), (256, 64), (1, 2), (1, 1), (4, 2), (4, 4)])
+def test_estimating_hash_entry_matches_both_entries(card, b, m):
     """Both block entries against the plain references on seeded packs of
     whole, short and dead-laned blocks of 64 lanes, on each side of the
     wave boundaries of a fixed 32 KiB ring (12 / 13 and 24 / 25 blocks)
-    and at 1 GiB, with and without a tweak: the digests of the block entry
+    and at 1 GiB, and on the packs of 1, 2 and 4 lanes a small-file ingest
+    batch takes (sized to its longest block), with and without a tweak:
+    the digests of the block entry
     and of the estimating entry bit for bit `hash_packed_np`'s of the
     tweaked words; the advisories bit for bit the histogram and entropy
     entries', whose histogram is the plain one exactly, within 1e-5 of the
     plain torch estimate, and unmoved by the tweak (the estimate samples
     the words as read)."""
-    words, counts, lengths = pack_with_lengths(300 + b, b, 64)
+    words, counts, lengths = pack_with_lengths(300 + b, b, m)
     dw = _t(words).to(card)
     dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
     hist = cb.byte_histogram(dw, dc)

@@ -53,6 +53,31 @@ def test_pack_blocks_rejects_too_few_lanes():
         port.pack_blocks(blocks, pad_lanes=2)
 
 
+@pytest.mark.parametrize("sizes, pad_lanes, multiple, lanes", [
+    ([2 * LANE], 64, 1, 2),
+    ([LANE + 7, 100], 64, 1, 2),
+    ([100], 64, 1, 1),
+    ([LANE + 7], 64, 4, 4),
+    ([3 * LANE + 1, 0], 64, 2, 4),
+    ([100], None, 4, 4),
+    ([4 << 20, 100], 64, 1, 64),
+    ([2 * LANE + 1], 3, 2, 3),
+])
+def test_pack_blocks_sizes_to_the_longest_block(sizes, pad_lanes, multiple, lanes):
+    # with `multiple` the pack is the longest block's lanes rounded up to
+    # it, under the ceiling `pad_lanes`: the reference's pack at that width
+    blocks = _blocks(16, sizes)
+    got = port.pack_blocks(blocks, pad_lanes=pad_lanes, multiple=multiple)
+    assert got[0].shape == (len(blocks), lanes, 128, 128)
+    for a, b in zip(got, ref.pack_blocks(blocks, pad_lanes=lanes)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_pack_blocks_sized_to_its_blocks_still_rejects_past_the_ceiling():
+    with pytest.raises(ValueError):
+        port.pack_blocks(_blocks(17, [5 * LANE]), pad_lanes=4, multiple=1)
+
+
 def test_pack_into_matches_pack_blocks():
     # a reused staging buffer holding stale bytes must come out identical
     blocks = _blocks(13, [LANE + 7, 0, 3 * LANE, 100])

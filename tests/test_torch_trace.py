@@ -589,7 +589,13 @@ def _span_shape(pkg, write_size, read_size):
     return shape
 
 
+# spans the port adds to the reference's tree: the commit barrier's wait on
+# its blocks (`WSlice.finish`), under the file's flush
+PORT_ONLY = {("chunk", "write", "finish", ("vfs", "flush"))}
+
+
 @pytest.mark.parametrize("write_size,read_size", [(1 << 20, 1 << 20), (3 << 20, 2 << 20)])
 def test_span_tree_matches_reference(write_size, read_size):
-    assert _span_shape("juicefs_tpu_torch", write_size, read_size) == \
-        _span_shape("juicefs_tpu", write_size, read_size)
+    port = _span_shape("juicefs_tpu_torch", write_size, read_size)
+    assert PORT_ONLY <= port
+    assert port - PORT_ONLY == _span_shape("juicefs_tpu", write_size, read_size)
