@@ -7,7 +7,9 @@
 With --compare-row-chain it only builds DIR's row-chain kernel beside this
 checkout's and times their three entries (lane digests, block digests,
 block digests with the estimate) at COMPARE_BLOCKS, in turns, then sweeps
-this checkout's ring depth at SWEEP_BLOCKS.
+this checkout's ring depth at SWEEP_BLOCKS, then times DIR's block entries
+(its one-CTA entries where it has them) beside this checkout's one-CTA and
+cross-CTA entries on the short blocks of CTA_TIMED.
 
 Phases, in order; any mismatch raises and the script exits non-zero:
 
@@ -97,6 +99,17 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               on the CPU; then its device ms at 1, 8, 13, 25 and 32 blocks
               and at 1 block of 2 lanes beside the block entry alone, in
               turns, and beside its bound at 1 block of 2 lanes
+  10b. cta    the one-CTA design of both block entries (a block in one
+              CTA; the wrappers send it blocks of at most 4 lanes): its
+              entries and the wrappers at 1, 2, 4 and 8 lanes x 1, 13 and
+              100 blocks with dead lanes, counts past m, odd lengths and a
+              tweak give digests bit for bit the numpy spec's and the
+              cross-CTA entries', advisories bit for bit the cross-CTA
+              estimating entry's and the histogram and entropy entries';
+              each wrapper launch at 4 lanes or fewer is counted under
+              jth256_block_cta, at 8 none; then its device ms beside the
+              cross-CTA entries at 1 block x 1, 2, 4 and 8 lanes and 8 and
+              32 blocks x 2 lanes
   11. main    the admin path through the port's CLI on a sqlite3:// volume
               of the same plan: `format --hash-backend pallas` (probes the
               card), a write of every block as its own slice through
@@ -387,6 +400,12 @@ SMALL_PACKS = (
 COMPARE_BLOCKS = (1, 8, 12, 13, 24, 25, 32, 256)
 SWEEP_BLOCKS = (13, 25)
 BLOCK_ENTRIES = ("jth256_block_digests", "jth256_block_digests_estimate")
+# the one-CTA block entries' gate (lanes a block, blocks a batch) and timed
+# shapes (blocks, lanes): a block of 1, 2, 4 and 8 lanes alone (a small
+# file's close packs 1-2) and 8 and 32 blocks of 2 lanes
+CTA_GATE_LANES = (1, 2, 4, 8)
+CTA_GATE_BLOCKS = (1, 13, 100)
+CTA_TIMED = ((1, 1), (1, 2), (1, 4), (1, 8), (8, 2), (32, 2))
 SECTOR_BYTES = 32  # the least a device-memory read moves
 SPIN_CYCLES = 10_000_000  # torch.cuda._sleep ahead of queued calls (ms on an H100)
 QUEUED = 10  # calls queued behind one spin
@@ -575,7 +594,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
     # the lane-digests entry with lane offsets as phase 14's lane-split
     # meshes pass them
     shapes = {}
-    for n_lanes, m in ((37, 1), (64, 64), (150, 2), (2048, 64), (201, 64)):
+    for n_lanes, m in ((37, 1), (64, 64), (150, 2), (2048, 64), (201, 64), (1200, 16)):
         words = random_words(gen, n_lanes)
         for tweak in (0, 0x5BD1E995):
             for loff in (0, 32, 1000):
@@ -625,12 +644,14 @@ def kernel_phase(gen: torch.Generator) -> dict:
     for i, (words, counts, lengths, want) in enumerate(pair):
         for got in outs[i]:
             check("jth256_block_digests", got, want, f"stream {i}, B={counts.numel()}")
-    # counter growth on a fresh stream: 1 block, then 32, then 75
+    # counter growth on a fresh stream: 1 block, then 32, then 75 (of 16
+    # lanes: blocks of 4 lanes and fewer take the one-CTA design, which has
+    # no counters)
     grow = torch.cuda.Stream()
     grow.wait_stream(torch.cuda.current_stream())
     sizes = []
     with torch.cuda.stream(grow):
-        for key in ((64, 64), (2048, 64), (150, 2)):
+        for key in ((64, 64), (2048, 64), (1200, 16)):
             words, counts, lengths, want = shapes[key]
             got = block_digests(words, key[1], counts, lengths)
             held = hash_torch._ARRIVALS[("jth256_block_digests", 0, grow.cuda_stream)]
@@ -893,8 +914,9 @@ def timing_phase(gen: torch.Generator, smi: str) -> dict:
 
 def other_row_chain(other: str):
     """Build DIR's jth256_row_chain.cu apart from this checkout's build and
-    return its library and whether its entries take a ring depth (a
-    checkout from before the depth was a launch argument has none)."""
+    return its library, whether its entries take a ring depth (a checkout
+    from before the depth was a launch argument has none) and the rows of
+    its one-CTA entries' chunks (None where it has no such entries)."""
     import ctypes
 
     kdir = os.path.join(other, "juicefs_tpu_torch", "gpu", "kernels")
@@ -907,24 +929,30 @@ def other_row_chain(other: str):
     if proc.returncode != 0:
         raise AssertionError(f"nvcc failed on {kdir}:\n{proc.stdout}{proc.stderr}")
     with open(src) as f:
-        has_depth = "unsigned int depth" in f.read()
-    return ctypes.CDLL(so), has_depth
+        text = f.read()
+    has_depth = "unsigned int depth" in text
+    found = re.search(r"constexpr int kCtaChunkRows = (\d+);", text)
+    return ctypes.CDLL(so), has_depth, int(found.group(1)) if found else None
 
 
 class RowChainEntry:
     """One build's row-chain C entry `entry`, called through ctypes on the
     current stream with its own zeroed arrival counters and count
     workspace (left zero by every launch). `depth=None` launches at the
-    ring this checkout's rule picks; a build whose entries take no depth
-    (`has_depth` False) is launched without one."""
+    ring this checkout's rule picks (for a one-CTA entry built with chunks
+    of `cta_rows` rows, a ring of as many rows a lane, at least a chunk);
+    a build whose entries take no depth (`has_depth` False) is launched
+    without one."""
 
-    def __init__(self, fn, entry: str, has_depth: bool, max_blocks: int):
+    def __init__(self, fn, entry: str, has_depth: bool, max_blocks: int,
+                 cta_rows: int = kernels.CTA_CHUNK_BYTES // (COLS * 4)):
         import ctypes
 
         sig = list(kernels._SIGNATURES[entry])
         fn.argtypes = sig if has_depth else sig[:-2] + sig[-1:]
         fn.restype = ctypes.c_int
         self.fn, self.entry, self.has_depth = fn, entry, has_depth
+        self.cta_rows = cta_rows
         self.arrivals = torch.zeros(max_blocks, dtype=torch.int32, device="cuda")
         self.counts = torch.zeros(max_blocks * 256, dtype=torch.int32, device="cuda")
 
@@ -935,10 +963,21 @@ class RowChainEntry:
         b, m = words.shape[0], words.shape[1]
         if depth is None:
             depth = hash_torch._ring(self.entry, words.device, b * m, m)[0]
+            if kernels.is_cta_entry(self.entry):
+                depth = max(1, depth * kernels.CTA_CHUNK_BYTES // (COLS * 4) // self.cta_rows)
         lane_out = torch.empty((b * m, 8), dtype=torch.int32, device="cuda")
         if self.entry == "jth256_lane_digests":
             args, got = [words.data_ptr(), lane_out.data_ptr(), b * m, m, 0, tweak & MASK], \
                 lane_out
+        elif kernels.is_cta_entry(self.entry):
+            out = torch.empty((b, 8), dtype=torch.int64, device="cuda")
+            args, got = [words.data_ptr(), counts.data_ptr(), lengths.data_ptr(),
+                         out.data_ptr()], out
+            if self.entry == "jth256_block_cta_digests_estimate":
+                adv = torch.empty((b,), dtype=torch.float32, device="cuda")
+                args.append(adv.data_ptr())
+                got = (out, adv)
+            args += [b, m, tweak & MASK]
         else:
             out = torch.empty((b, 8), dtype=torch.int64, device="cuda")
             args, got = [words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(),
@@ -967,9 +1006,12 @@ def compare_phase(gen: torch.Generator, smi: str, other: str) -> dict:
     entries take a ring depth is launched at the depth this checkout's
     rule picks. Then this checkout's two block entries at every ring depth
     at SWEEP_BLOCKS, in two rounds (deepest first, then shallowest first):
-    the rule's depth should be the fastest or within 2 % of it."""
+    the rule's depth should be the fastest or within 2 % of it. Last, the
+    short blocks of CTA_TIMED (`time_short_blocks`): DIR's block entries
+    (its one-CTA entries where it has them, at a ring of the same bytes a
+    lane) beside this checkout's one-CTA and cross-CTA entries."""
     phase(f"row chain vs {other}")
-    lib, has_depth = other_row_chain(other)
+    lib, has_depth, cta_rows = other_row_chain(other)
     m = BLOCK_BYTES // LANE_BYTES
     entries = ("jth256_lane_digests",) + BLOCK_ENTRIES
     biggest = max(COMPARE_BLOCKS)
@@ -1026,8 +1068,135 @@ def compare_phase(gen: torch.Generator, smi: str, other: str) -> dict:
                   f"fastest depth {best} {ms[best]:.4f} ms ({ms[rule] / ms[best]:.3f}x){flag}; "
                   + ", ".join(f"{d}: {v:.4f}" for d, v in ms.items()) + f"; card {smi}")
         del pool
-    out = {"sizes": rows, "sweep": sweep, "card": smi}
+    sides = {"other": {e: RowChainEntry(getattr(lib, kernels.CTA_ENTRIES[e]),
+                                        kernels.CTA_ENTRIES[e], has_depth, biggest, cta_rows)
+                       if cta_rows else theirs[e] for e in BLOCK_ENTRIES},
+             "this": {e: RowChainEntry(kernels.function(kernels.CTA_ENTRIES[e]),
+                                       kernels.CTA_ENTRIES[e], True, biggest)
+                      for e in BLOCK_ENTRIES},
+             "this_cross": {e: ours[e] for e in BLOCK_ENTRIES}}
+    short = time_short_blocks(gen, smi, sides)
+    out = {"sizes": rows, "sweep": sweep, "short": short,
+           "other_cta_chunk_rows": cta_rows, "card": smi}
     print("row_chain_compare " + json.dumps(out))
+    return out
+
+
+def cta_bound_ms(n_blocks: int, m: int, smi: str, estimate: bool) -> float:
+    """Least time for a one-CTA block entry over n_blocks blocks of m
+    whole lanes: the words read once, each block's count and length (16 B)
+    read and its digests (64 B) and, estimating, its advisory (4 B)
+    written, or the chain's, fold's and combine's integer operations,
+    whichever is larger; no lane digests leave the CTA."""
+    n_lanes = n_blocks * m
+    nbytes = n_lanes * LANE_BYTES + n_blocks * (16 + 64 + (4 if estimate else 0))
+    ops = (n_lanes * LANE_BYTES // 4 * OPS_PER_WORD + n_lanes * 8 * 17 * FOLD_OPS_PER_STEP
+           + n_blocks * 8 * 12)
+    return max(nbytes / hbm_bytes_per_s(smi) * 1e3, ops / INT32_OPS_PER_S * 1e3)
+
+
+def time_short_blocks(gen: torch.Generator, smi: str, sides: dict) -> dict:
+    """Each side's two block entries (`sides[side][block entry]`, a
+    RowChainEntry) at CTA_TIMED, on random whole blocks cycling through
+    COLD_BYTES: the sides' digests and advisories must agree; then
+    `time_queued`'s device ms of each, in turns (the sides in order, then
+    back), beside the one-CTA design's bound."""
+    out = {}
+    for nb, lanes in CTA_TIMED:
+        copies = max(1, -(-COLD_BYTES // (nb * lanes * LANE_BYTES)))
+        pool = random_words(gen, nb * lanes * copies).view(copies, nb, lanes, ROWS, COLS)
+        counts = torch.full((nb,), lanes, dtype=torch.int64, device="cuda")
+        lengths = torch.full((nb,), lanes * LANE_BYTES, dtype=torch.int64, device="cuda")
+        row = {}
+        for e in BLOCK_ENTRIES:
+            got = {side: entries[e](pool[0], counts, lengths, 7)
+                   for side, entries in sides.items()}
+            first = next(iter(got.values()))
+            for side, g in got.items():
+                for a, b in zip(first if isinstance(first, tuple) else (first,),
+                                g if isinstance(g, tuple) else (g,)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{nb} x {lanes}: {e} of side {side} disagrees")
+            times = {side: [] for side in sides}
+            for side in list(sides) + list(reversed(sides)):
+                times[side].append(time_queued(
+                    lambda i, f=sides[side][e]: f(pool[i % copies], counts, lengths,
+                                                  0x7000 + i))[0])
+            row[e] = {"ms": times, "bound_ms": cta_bound_ms(
+                nb, lanes, smi, e == "jth256_block_digests_estimate")}
+        out[f"{nb}x{lanes}"] = row
+        print(f"{nb} blocks x {lanes} lanes: " + "; ".join(
+            f"{e} " + ", ".join(f"{side} " + " / ".join(f"{v * 1e3:.2f}" for v in ms)
+                                for side, ms in row[e]["ms"].items())
+            + f" us (bound {row[e]['bound_ms'] * 1e3:.3f} us)" for e in BLOCK_ENTRIES)
+            + f"; card {smi}")
+        del pool
+    return out
+
+
+def cta_phase(gen: torch.Generator, smi: str) -> dict:
+    """Gate: the one-CTA design of both block entries, its C entries
+    called directly and through the wrappers (`hash_device`,
+    `hash_estimate_device`), on blocks of CTA_GATE_LANES lanes,
+    CTA_GATE_BLOCKS blocks, lane counts m, 0, below m and past m, odd
+    lengths one of them past 2^32, tweaks 0 and 0x5bd1e995: digests bit for
+    bit the numpy spec's and the cross-CTA entries' (called directly);
+    advisories bit for bit the cross-CTA estimating entry's and the
+    histogram and entropy entries'; one launch a wrapper call, counted
+    under jth256_block_cta beside the entries' own keys up to the cut
+    (`kernels.CTA_BLOCK_LANES`) and not past it. Then the one-CTA entries'
+    device ms beside the cross-CTA entries' at CTA_TIMED
+    (`time_short_blocks`)."""
+    phase("one CTA a short block")
+    biggest = max(CTA_GATE_BLOCKS)
+    cross = {e: RowChainEntry(kernels.function(e), e, True, biggest) for e in BLOCK_ENTRIES}
+    cta = {e: RowChainEntry(kernels.function(kernels.CTA_ENTRIES[e]), kernels.CTA_ENTRIES[e],
+                            True, biggest) for e in BLOCK_ENTRIES}
+    checked = 0
+    for m in CTA_GATE_LANES:
+        for nb in CTA_GATE_BLOCKS:
+            words = random_words(gen, nb * m).view(nb, m, ROWS, COLS)
+            counts = torch.tensor([(m, 0, max(1, m - 1), m + 5, 1)[i % 5] for i in range(nb)],
+                                  dtype=torch.int64, device="cuda")
+            lengths = torch.tensor(
+                [(m * LANE_BYTES - 1, 777, (1 << 32) + 3 * LANE_BYTES + 5, 1, 0)[i % 5]
+                 for i in range(nb)], dtype=torch.int64, device="cuda")
+            host = (words.cpu().numpy().view(np.uint32), counts.cpu().numpy(),
+                    lengths.cpu().numpy())
+            want_a = compress_batch.estimate(words, counts)
+            for tweak in (0, 0x5BD1E995):
+                kernels.reset_launches()
+                got_d = hash_torch.hash_device(words, counts, lengths, tweak)
+                est_d, est_a = hash_torch.hash_estimate_device(words, counts, lengths, tweak)
+                torch.cuda.synchronize()
+                taken = 2 if m <= kernels.CTA_BLOCK_LANES else 0
+                want = {"jth256_row_chain": 2, "jth256_block_digests": 1,
+                        "jth256_block_digests_estimate": 1, "jth256_block_cta": taken}
+                if {k: kernels.LAUNCHES[k] for k in want} != want:
+                    raise AssertionError(f"{nb} x {m}: launches {kernels.LAUNCHES}")
+                spec = hash_packed_np(host[0] ^ np.uint32(tweak), host[1], host[2])
+                cta_d = cta["jth256_block_digests"](words, counts, lengths, tweak)
+                cta_e, cta_a = cta["jth256_block_digests_estimate"](words, counts, lengths, tweak)
+                cross_d = cross["jth256_block_digests"](words, counts, lengths, tweak)
+                cross_e, cross_a = cross["jth256_block_digests_estimate"](
+                    words, counts, lengths, tweak)
+                torch.cuda.synchronize()
+                what = f"{nb} blocks x {m} lanes, tweak {tweak:#x}"
+                if not np.array_equal(cta_d.cpu().numpy().astype(np.uint32), spec):
+                    raise AssertionError(f"{what}: the one-CTA digests != hash_packed_np")
+                if not all(torch.equal(cta_d, d) for d in (cta_e, cross_d, cross_e, got_d, est_d)):
+                    raise AssertionError(f"{what}: one-CTA digests != the cross-CTA entries' "
+                                         "or the wrappers'")
+                if not all(torch.equal(cta_a, a) for a in (cross_a, want_a, est_a)):
+                    raise AssertionError(f"{what}: one-CTA advisories != the cross-CTA "
+                                         "entry's or the histogram and entropy entries'")
+                checked += 1
+    print(f"one-CTA entries == hash_packed_np and the cross-CTA entries at {CTA_GATE_LANES} "
+          f"lanes x {CTA_GATE_BLOCKS} blocks, 2 tweaks ({checked} shapes and tweaks), the "
+          f"wrappers counting jth256_block_cta up to {kernels.CTA_BLOCK_LANES} lanes")
+    short = time_short_blocks(gen, smi, {"cross": cross, "cta": cta})
+    out = {"checked": checked, "short": short, "card": smi}
+    print("one_cta " + json.dumps(out))
     return out
 
 
@@ -4604,6 +4773,7 @@ def main(argv=None) -> int:
     conc = concurrent_ingest_phase(rng, args.volume_gib)
     estimator = estimator_phase(rng, gen, smi)
     fused = hash_estimate_phase(gen, smi)
+    cta = cta_phase(gen, smi)
     main_path = main_path_phase(rng, args.volume_gib, kind)
     serve = serve_phase(rng, args.volume_gib, smi)
     mount = mount_phase(rng, min(args.volume_gib, MOUNT_GIB), smi)
@@ -4766,6 +4936,14 @@ def main(argv=None) -> int:
         "block_ms": fused["small"]["block_ms"],
         "bound_ms": fused["small"]["bound_ms"],
         "bound_by": fused["small"]["bound_by"],
+    }, {
+        # the estimating entry's one-CTA design, which that close takes,
+        # beside the cross-CTA design at the same shape
+        "name": "jth256_block_cta_digests_estimate", **row_chain,
+        "shape": "1 block x 2 lanes (the small-file cell's 128 KiB close)",
+        **{f"{side}_ms": statistics.median(ms) for side, ms in
+           cta["short"]["1x2"]["jth256_block_digests_estimate"]["ms"].items()},
+        "bound_ms": cta["short"]["1x2"]["jth256_block_digests_estimate"]["bound_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

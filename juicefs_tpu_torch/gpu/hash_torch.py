@@ -6,10 +6,12 @@ epilogue (`gpu/kernels/jth256_row_chain.cu`, entry `jth256_block_digests`,
 counterpart of the Pallas `_pallas_row_chain` with `_lane_accs`,
 `_combine_accs` and `_fmix`). An ingest hash batch, whose words the
 compress plane estimates too, takes the entry that also estimates them
-(`jth256_block_digests_estimate`, `hash_estimate_device`). A lane shard
-of a mesh holds only part of each block, so it runs the entry that stops
-after the lane fold (`jth256_lane_digests`, `chain_digests`), and the
-mesh combines the gathered lane digests with
+(`jth256_block_digests_estimate`, `hash_estimate_device`). A batch of
+short blocks (at most `kernels.CTA_BLOCK_LANES` lanes each) takes either
+entry's one-CTA design, a block in one CTA (`kernels.block_entry`). A
+lane shard of a mesh holds only part of each block, so it runs the entry
+that stops after the lane fold (`jth256_lane_digests`, `chain_digests`),
+and the mesh combines the gathered lane digests with
 `gpu/kernels/jth256_combine.cu` (`combine`). Each row-chain launch takes
 the ring depth `kernels.ring_depth` picks for its lane count on its card
 and observes the waves it needs in `juicefs_torch_row_chain_waves`.
@@ -188,27 +190,35 @@ _ROW_CHAIN_WAVES = global_registry().histogram(
     "juicefs_torch_row_chain_waves",
     "Waves of resident CTAs a row-chain launch needs at its ring depth",
     buckets=(1, 2, 3, 4, 8, 16, 32))
-# per (entry, card): the SM count and the entry's resident CTAs an SM at
-# each ring depth, read once
-_RING_TABLES: dict[tuple[str, int], tuple[int, dict[int, int]]] = {}
+# per (entry, lanes a CTA, card): the SM count and the entry's resident
+# CTAs an SM at each ring depth, read once
+_RING_TABLES: dict[tuple[str, int, int], tuple[int, dict[int, int]]] = {}
 
 
 def _ring(entry: str, dev: torch.device, n_lanes: int, m: int) -> tuple[int, int]:
     """(depth, waves) of a row-chain launch of `entry` over n_lanes lanes,
     m a block, on the card `dev`, by `kernels.ring_depth`; called with
-    `dev` current. A block entry's ring also holds a block's lane digests
-    (32 B a lane) for its combine."""
-    table = _RING_TABLES.get((entry, dev.index))
+    `dev` current. A cross-CTA block entry's ring also holds a block's
+    lane digests (32 B a lane) for its combine; a one-CTA entry's CTA
+    holds a block's m lanes, each with a ring of 8 KiB chunks."""
+    cta = kernels.is_cta_entry(entry)
+    per_cta = m if cta else 1
+    table = _RING_TABLES.get((entry, per_cta, dev.index))
     if table is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        table = _RING_TABLES[entry, dev.index] = (sms, kernels.row_chain_occupancy(entry))
+        table = _RING_TABLES[entry, per_cta, dev.index] = (
+            sms, kernels.row_chain_occupancy(entry, per_cta))
     sms, ctas = table
-    staged = 0 if entry == "jth256_lane_digests" else m * kernels.LANE_DIGEST_BYTES
-    depth = kernels.ring_depth(n_lanes, sms, ctas, staged)
-    if depth not in ctas:
+    if cta:
+        depth = kernels.ring_depth(n_lanes, sms, ctas, lanes_per_cta=per_cta,
+                                   chunk_bytes=kernels.CTA_CHUNK_BYTES)
+    else:
+        staged = 0 if entry == "jth256_lane_digests" else m * kernels.LANE_DIGEST_BYTES
+        depth = kernels.ring_depth(n_lanes, sms, ctas, staged)
+    if ctas.get(depth, 0) < 1:
         raise ValueError(f"{entry}: blocks of {m} lanes outgrow the row chain's deepest "
                          f"ring ({max(ctas)} chunks)")
-    return depth, kernels.waves(n_lanes, sms, ctas[depth])
+    return depth, kernels.waves(n_lanes // per_cta, sms, ctas[depth])
 
 
 def row_chain(words_flat: torch.Tensor, m: int, tweak: int = 0,
@@ -431,7 +441,9 @@ def hash_device(words: torch.Tensor, lane_counts: torch.Tensor,
 
     On the card, one launch of the row chain with the lane fold and the
     combine in its epilogue (counted under jth256_row_chain and
-    jth256_block_digests); on the CPU the plain versions
+    jth256_block_digests, and, for blocks of at most
+    `kernels.CTA_BLOCK_LANES` lanes, which a CTA a block runs, under
+    jth256_block_cta); on the CPU the plain versions
     (`combine_accs(chain_digests_ref(...))`). Any other device raises."""
     if words.dim() != 4:
         raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
@@ -452,7 +464,8 @@ def hash_estimate_device(words: torch.Tensor, lane_counts: torch.Tensor,
 
     On the card, one launch of the row chain with the lane fold, the
     combine and the estimate in its epilogue (counted under
-    jth256_row_chain and jth256_block_digests_estimate); on the CPU the
+    jth256_row_chain and jth256_block_digests_estimate, and for short
+    blocks under jth256_block_cta, as `hash_device`); on the CPU the
     plain versions. Any other device raises."""
     if words.dim() != 4:
         raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
@@ -473,7 +486,9 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
                    lengths: torch.Tensor, tweak: int, out: torch.Tensor,
                    advisories: torch.Tensor | None = None) -> None:
     """One launch of a block entry on the words' card into `out` (and, for
-    the estimating entry, `advisories`), on the current stream."""
+    the estimating entry, `advisories`), on the current stream: its
+    one-CTA design for blocks of at most `kernels.CTA_BLOCK_LANES` lanes,
+    counted under `jth256_block_cta` too."""
     global _LAST_KERNEL_MODE, _LAST_FOLD_MODE
     # one pass of checks: this call runs once per hash batch, 214 one-block
     # batches in a one-writer ingest, so its host time is on the path
@@ -489,20 +504,28 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
         raise ValueError(f"lane_counts and lengths must be ({b},), got "
                          f"{tuple(counts.shape)} and {tuple(lens.shape)}")
     if b:
-        lane_out = torch.empty((b * m, 8), dtype=torch.int32, device=dev)  # scratch
-        fn = kernels.function(entry)
+        design = kernels.block_entry(entry, m)  # the C entry that takes the batch
+        fn = kernels.function(design)
         switch = dev.index != torch.cuda.current_device()
         with torch.cuda.device(dev) if switch else contextlib.nullcontext():
             stream = _stream(dev)
-            args = [words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(), lens.data_ptr(),
-                    _arrivals(dev, stream, b).data_ptr(), out.data_ptr()]
-            if advisories is not None:
-                args += [zeroed_workspace(entry, dev, stream, b, 256).data_ptr(),
-                         advisories.data_ptr()]
-            depth, waves = _ring(entry, dev, b * m, m)
-            _check_rc(entry, fn(*args, b, m, int(tweak) & MASK, depth, stream))
+            if design != entry:  # one CTA a block: no scratch, counters or workspace
+                args = [words.data_ptr(), counts.data_ptr(), lens.data_ptr(), out.data_ptr()]
+                if advisories is not None:
+                    args.append(advisories.data_ptr())
+            else:
+                lane_out = torch.empty((b * m, 8), dtype=torch.int32, device=dev)  # scratch
+                args = [words.data_ptr(), lane_out.data_ptr(), counts.data_ptr(),
+                        lens.data_ptr(), _arrivals(dev, stream, b).data_ptr(), out.data_ptr()]
+                if advisories is not None:
+                    args += [zeroed_workspace(entry, dev, stream, b, 256).data_ptr(),
+                             advisories.data_ptr()]
+            depth, waves = _ring(design, dev, b * m, m)
+            _check_rc(design, fn(*args, b, m, int(tweak) & MASK, depth, stream))
         kernels.LAUNCHES["jth256_row_chain"] += 1
         kernels.LAUNCHES[entry] += 1
+        if design != entry:
+            kernels.LAUNCHES["jth256_block_cta"] += 1
         _ROW_CHAIN_WAVES.observe(waves)
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
 

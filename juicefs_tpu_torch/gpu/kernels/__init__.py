@@ -17,13 +17,16 @@ those of the entry that also combines each block (a one-card hash batch),
 each block for the compress plane (a one-card ingest hash batch),
 `jth256_lane_digests` those of the lane-fold entry alone (a lane shard of
 a mesh), and `jth256_combine` the per-block combine kernel that a
-lane-split mesh runs after its gather. `compress_histogram` and
+lane-split mesh runs after its gather. `jth256_block_cta` counts the
+block batches of the first two keys that the one-CTA design took (blocks
+of at most CTA_BLOCK_LANES lanes, a block in one CTA: `block_entry`); they
+count under their entry's key as well. `compress_histogram` and
 `compress_entropy` count the two entries a mesh's estimate runs (a
 histogram per shard, an entropy per data row). The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
 process (a mount's `.stats` or `/metrics`) shows them too.
 
-The row chain's ring depth is a launch argument of its three entries;
+The row chain's ring depth is a launch argument of its entries;
 `ring_depth` picks it from the launch's lane count, the card's SM count
 and the entry's resident CTAs an SM at each depth (`row_chain_occupancy`).
 """
@@ -51,10 +54,13 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_block_digests": 0,
                             "jth256_block_digests_estimate": 0,
                             "jth256_lane_digests": 0, "jth256_combine": 0,
-                            "compress_histogram": 0, "compress_entropy": 0}
+                            "compress_histogram": 0, "compress_entropy": 0,
+                            "jth256_block_cta": 0}
 # the source file each C entry is built from
 ENTRY_SOURCES = {"jth256_block_digests": "jth256_row_chain",
                  "jth256_block_digests_estimate": "jth256_row_chain",
+                 "jth256_block_cta_digests": "jth256_row_chain",
+                 "jth256_block_cta_digests_estimate": "jth256_row_chain",
                  "jth256_lane_digests": "jth256_row_chain",
                  "jth256_combine": "jth256_combine",
                  "compress_histogram": "compress_estimate",
@@ -164,6 +170,13 @@ _SIGNATURES = {
     #  advisories, n_blocks, m, tweak, depth, stream)
     "jth256_block_digests_estimate": [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
+    # (words, lane_counts, lengths, out, n_blocks, m, tweak, depth, stream)
+    "jth256_block_cta_digests": [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
+    # (words, lane_counts, lengths, out, advisories, n_blocks, m, tweak,
+    #  depth, stream)
+    "jth256_block_cta_digests_estimate": [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p],
     # (accs, lane_counts, lengths, out, n_blocks, m, stream)
     "jth256_combine": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p],
@@ -203,51 +216,84 @@ RING_CHUNK_BYTES = 4096
 RING_BYTES_IN_FLIGHT = 8 << 20
 LARGE_BATCH_DEPTH = 8
 LANE_DIGEST_BYTES = 32
+# The one-CTA design of the two block entries: a block of up to 8 lanes
+# (8 x 128 threads, the most a CTA has) runs in one CTA, each lane through
+# its own ring of 1-8 chunks of 8 KiB (CTA_RING_DEPTHS), and hands nothing
+# to another CTA. Its jth256_block_cta_* entries take every batch whose
+# pack has at most CTA_BLOCK_LANES lanes a block (256 KiB); longer blocks
+# keep the cross-CTA entries. The cut is 4, not 8: one SM streams all of a
+# block's lanes, and from 5 lanes on that stream outlasts the handoff the
+# design saves (on an H100, the estimating entry at 1 and 8 blocks:
+# 0.95-0.97x the cross-CTA entry's time at 4 lanes, 1.02-1.04x at 5,
+# 1.10-1.13x at 6, 1.27-1.34x at 8; PERF.md section 6).
+CTA_BLOCK_LANES = 4
+CTA_CHUNK_BYTES = 8192
+CTA_RING_DEPTHS = range(1, 9)
+CTA_ENTRIES = {"jth256_block_digests": "jth256_block_cta_digests",
+               "jth256_block_digests_estimate": "jth256_block_cta_digests_estimate"}
 # the code jth256_row_chain_occupancy takes for each row-chain entry
 _OCCUPANCY_ENTRY = {"jth256_lane_digests": 0, "jth256_block_digests": 1,
-                    "jth256_block_digests_estimate": 2}
+                    "jth256_block_digests_estimate": 2, "jth256_block_cta_digests": 3,
+                    "jth256_block_cta_digests_estimate": 4}
 
 
-def ring_depth(n_lanes: int, sms: int, ctas: dict[int, int], staged: int = 0) -> int:
-    """The ring depth, in chunks, of a row-chain launch over n_lanes lanes
-    (a CTA each) on a card of `sms` SMs, where ctas[d] CTAs of the entry
-    fit on an SM at depth d, and a ring has to hold `staged` bytes (a
+def block_entry(entry: str, m: int) -> str:
+    """The C entry that runs a batch of `entry` (a block entry) whose
+    blocks have m lanes: its one-CTA design up to CTA_BLOCK_LANES lanes,
+    else the entry itself."""
+    return CTA_ENTRIES[entry] if m <= CTA_BLOCK_LANES else entry
+
+
+def is_cta_entry(entry: str) -> bool:
+    """Whether `entry` is a one-CTA block entry."""
+    return entry in CTA_ENTRIES.values()
+
+
+def ring_depth(n_lanes: int, sms: int, ctas: dict[int, int], staged: int = 0,
+               lanes_per_cta: int = 1, chunk_bytes: int = RING_CHUNK_BYTES) -> int:
+    """The ring depth, in chunks of `chunk_bytes` a lane, of a row-chain
+    launch over n_lanes lanes, `lanes_per_cta` a CTA, on a card of `sms`
+    SMs, where ctas[d] CTAs of the entry fit on an SM at depth d (0: the
+    CTA cannot hold that ring), and a ring has to hold `staged` bytes (a
     block entry's lane digests of a block): the shallowest ring that keeps
     RING_BYTES_IN_FLIGHT in flight across the launch, or the deepest one
-    below it at which every lane is resident at once (ceil(n_lanes / sms)
-    CTAs an SM), so that the launch is one wave; LARGE_BATCH_DEPTH where
-    no depth is; never one too small for `staged`. A deeper ring only
-    queues more bytes ahead of the chains, which then finish later. On an
-    H100 the residency binds only past 16 CTAs an SM (2112 lanes)."""
-    least = max(RING_DEPTHS[0], -(-staged // RING_CHUNK_BYTES))
-    need = -(-n_lanes // sms)
-    want = -(-RING_BYTES_IN_FLIGHT // (n_lanes * RING_CHUNK_BYTES))
-    for depth in range(min(max(want, least), RING_DEPTHS[-1]), least - 1, -1):
+    below it at which every CTA is resident at once (ceil(CTAs / sms) an
+    SM), so that the launch is one wave; 32 KiB a lane (LARGE_BATCH_DEPTH
+    chunks of 4 KiB), or the deepest ring a CTA holds, where no depth is;
+    never one too small for `staged`. A deeper ring only queues more bytes
+    ahead of the chains, which then finish later. On an H100 the residency
+    binds only past 16 CTAs an SM (2112 one-lane CTAs)."""
+    least = max(min(ctas), -(-staged // chunk_bytes))
+    deepest = max(d for d, n in ctas.items() if n > 0)
+    need = -(-n_lanes // (lanes_per_cta * sms))
+    want = -(-RING_BYTES_IN_FLIGHT // (n_lanes * chunk_bytes))
+    for depth in range(min(max(want, least), deepest), least - 1, -1):
         if ctas[depth] >= need:
             return depth
-    return max(LARGE_BATCH_DEPTH, least)
+    return max(min(LARGE_BATCH_DEPTH * RING_CHUNK_BYTES // chunk_bytes, deepest), least)
 
 
-def waves(n_lanes: int, sms: int, ctas: int) -> int:
-    """The waves a launch of n_lanes lane CTAs needs when `ctas` fit on
-    each of `sms` SMs."""
-    return -(-n_lanes // (sms * ctas))
+def waves(n_ctas: int, sms: int, ctas: int) -> int:
+    """The waves a launch of n_ctas CTAs needs when `ctas` fit on each of
+    `sms` SMs."""
+    return -(-n_ctas // (sms * ctas))
 
 
-def row_chain_occupancy(entry: str) -> dict[int, int]:
+def row_chain_occupancy(entry: str, lanes: int = 1) -> dict[int, int]:
     """The resident CTAs per SM of the row-chain entry `entry` on the
-    current device at each depth of RING_DEPTHS (the library is built at
-    the first call)."""
+    current device at each of its ring depths (RING_DEPTHS; CTA_RING_DEPTHS
+    for a one-CTA entry, whose CTA holds a block of `lanes` lanes), 0 where
+    a CTA cannot hold the ring (the library is built at the first call)."""
     fn = getattr(load_library(ENTRY_SOURCES[entry]), "jth256_row_chain_occupancy")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     table = {}
-    for depth in RING_DEPTHS:
+    for depth in CTA_RING_DEPTHS if is_cta_entry(entry) else RING_DEPTHS:
         ctas = ctypes.c_int(0)
-        rc = fn(_OCCUPANCY_ENTRY[entry], depth, ctypes.byref(ctas))
+        rc = fn(_OCCUPANCY_ENTRY[entry], lanes, depth, ctypes.byref(ctas))
         if rc != 0:
-            raise RuntimeError(f"jth256_row_chain_occupancy({entry}, {depth}) failed: "
-                               f"CUDA error {rc}")
+            raise RuntimeError(f"jth256_row_chain_occupancy({entry}, {lanes}, {depth}) "
+                               f"failed: CUDA error {rc}")
         table[depth] = ctas.value
     return table
 
@@ -287,7 +333,9 @@ def load_twin():
     returns int64 (B, 8), as the block entry computes them;
     `block_digests_estimate(words, m, lane_counts, lengths, tweak)` those
     digests and float32 (B,) advisories, as the estimating entry computes
-    them;
+    them; `block_cta_digests_estimate(words, m, lane_counts, lengths,
+    tweak)` the same pair as the one-CTA entries compute them, a block at
+    a time, its live lanes alone;
     `estimate_histogram(words, lane_counts, lane_offset=0)` takes int32
     (B, M, 128, 128) words and int64 counts and returns int32 (B, 256)
     sampled byte counts, and `estimate_entropy(hist)` int32 (B, 256)

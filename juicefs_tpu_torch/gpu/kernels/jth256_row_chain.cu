@@ -13,6 +13,9 @@
 //   jth256_block_digests_estimate: the same digests, and (B,) float32
 //                         advisories min(entropy / 8, 1) of the blocks'
 //                         sampled bytes (the ingest path's hash batch)
+//   jth256_block_cta_digests, jth256_block_cta_digests_estimate: the two
+//                         block entries' results for blocks of M <= 8
+//                         lanes, a block in one CTA (see "Short blocks")
 // L = B*M lanes of 64 KiB, M lanes a block. Lane l runs with the lane index
 // lane_offset + l mod m (uint32 arithmetic), as _lane_states(words,
 // lane_offset) and _lane_accs(s, lane_offset) do: a device that holds lanes
@@ -136,6 +139,35 @@
 // 1.15x for the block entry followed by the standalone estimator; taken
 // out one at a time, the binning in the chain cost 1.6-6.8 points of that
 // and the flush of the bins 0.9-3.7.
+//
+// Short blocks (row_chain_kernel_cta_block, the jth256_block_cta_* entries):
+// the handoff above is forced where a block's lanes cannot share a CTA, a
+// 4 MiB block's 64 of them. A block of m <= 8 lanes fits one CTA of m x 128
+// threads (a close(2) of a small file is a batch of one 2-lane block). These
+// entries run a block in one CTA, lane li on threads [128 li, 128 li + 128),
+// one thread a column: each lane streams through its own ring of TMA bulk
+// copies (its own mbarriers, and a named barrier over its 128 threads to
+// refill a slot), its sampled words (cest::word_sampled) binned into one
+// shared histogram as the rows arrive; each lane's 8 fold threads write its
+// digests to shared memory; after one __syncthreads warp 0 combines the
+// live lanes while warps 1-3 run the entropy on the histogram, as the last
+// CTA does above. No arrival counter, count workspace, fence, ticket, L2
+// atomic or lane-digest scratch. A lane at or past its block's count only
+// drains its copies (the spec never combines it, nor counts its bytes).
+// The chunks are 16 rows (8 KiB): a lane's chain waits at each chunk
+// boundary on the launch's critical path. The ring holds 1-8 chunks a lane
+// (kernels.ring_depth over this entry's own occupancy table, entry codes 3
+// and 4 of jth256_row_chain_occupancy): the whole lane up to 3 lanes, fewer
+// chunks from 4 lanes, within the card's 227 KiB a CTA.
+// Measured on an H100 80GB HBM3 (700 W, PERF.md section 6), the estimating
+// entry at one block of 2 lanes: 9.42 us cross-CTA, 7.72 us here. The two
+// changes need each other: the cross-CTA entry with 8 KiB chunks took 8.63,
+// one CTA with 4 KiB chunks ~9.7 (two lanes' copies through one SM). 16,
+// 32 and 64 KiB chunks took 1.4-3.4 us more than 8 KiB, and so did issuing
+// a lane's copies from 8 threads at once. From 5 lanes on the one SM
+// streams 320-512 KiB and the design loses (1.02-1.34x the cross-CTA entry
+// at 1 and 8 blocks), so the wrappers send it blocks of at most
+// kernels.CTA_BLOCK_LANES = 4 lanes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -162,6 +194,14 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kEntropyWarps = kThreads / kWarp - 1;                                    // 3
 constexpr int kEntropyThreads = kEntropyWarps * kWarp;                                 // 96
 constexpr int kBinsPerThread = (cest::kBins + kEntropyThreads - 1) / kEntropyThreads;  // 3
+// the one-CTA block entries: a block of at most 8 lanes (512 KiB) a CTA
+constexpr int kCtaMaxLanes = 8;
+constexpr int kCtaThreads = kCtaMaxLanes * kThreads;              // 1024, a CTA's most
+constexpr int kCtaChunkRows = 16;
+constexpr int kCtaChunkBytes = kCtaChunkRows * jth256::kCols * 4;  // 8 KiB
+constexpr int kCtaChunks = jth256::kRows / kCtaChunkRows;         // 8 a lane
+constexpr int kCtaMaxDepth = kCtaChunks;                          // the whole lane
+static_assert(kCtaMaxDepth <= kMaxDepth, "the occupancy entry's depths cover both designs");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -487,6 +527,186 @@ int occupancy(int depth, int* ctas) {
       ctas, row_chain_kernel<kBlocks, kEstimate>, kThreads, smem_bytes<kEstimate>(depth)));
 }
 
+// A named barrier over the 128 threads of lane `li` of a one-CTA block
+// (ids 2-9; 0 is __syncthreads, 1 the entropy's).
+__device__ __forceinline__ void lane_barrier(uint32_t li) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + li), "n"(kThreads) : "memory");
+}
+
+template <bool kEstimate>
+constexpr int cta_smem_bytes(int m, int depth) {
+  return m * depth * kCtaChunkBytes + (kEstimate ? static_cast<int>(sizeof(EstimateSmem)) : 0);
+}
+
+// One CTA a block of m <= kCtaMaxLanes lanes: lane li on threads [128 li,
+// 128 li + 128), a column a thread, through its own ring of `depth` chunks
+// of kCtaChunkBytes; then the fold, the combine and the estimate with no
+// handoff out of the CTA (the design note at the head of the file).
+template <bool kEstimate>
+__global__ void __launch_bounds__(kCtaThreads)
+row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint32_t tweak,
+                           uint32_t depth, BlockArgs blk, EstimateArg<kEstimate> est) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) uint64_t full[kCtaMaxLanes][kCtaMaxDepth];
+  __shared__ uint32_t states[kCtaMaxLanes][jth256::kCols];
+  __shared__ uint32_t digests[kCtaMaxLanes * jth256::kDigestWords];
+  const long long b = blockIdx.x;
+  const uint32_t tid = threadIdx.x, li = tid / kThreads, col = tid % kThreads;
+  const uint8_t* src =
+      reinterpret_cast<const uint8_t*>(words) + (b * m + li) * kLaneBytes;
+  uint8_t* lane_ring = ring + li * depth * kCtaChunkBytes;
+
+  // the block's count and length, in flight while the first chunk is
+  const long long count = blk.lane_counts[b];
+  const long long length = blk.lengths[b];
+  if (col == 0) {
+    for (uint32_t i = 0; i < depth; ++i) mbar_init(&full[li][i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (uint32_t c = 0; c < depth; ++c) {
+      mbar_expect_tx(&full[li][c], kCtaChunkBytes);
+      bulk_load(lane_ring + c * kCtaChunkBytes, src + c * kCtaChunkBytes, kCtaChunkBytes,
+                &full[li][c]);
+    }
+  }
+  EstimateSmem* es = nullptr;
+  if constexpr (kEstimate) {
+    es = reinterpret_cast<EstimateSmem*>(ring + m * depth * kCtaChunkBytes);
+    for (uint32_t i = tid; i < cest::kBins; i += blockDim.x) es->hist[i] = 0;
+  }
+  __syncthreads();  // the barriers are initialised and the histogram zero
+
+  // a lane at or past the count is never combined (nor counted): it only
+  // drains its copies
+  const uint32_t live = cest::counted_lanes(count, 0, m);
+  const bool chained = li < live;
+  uint32_t s = jth256::init_state(col, li);
+  uint32_t slot = 0, parity = 0;
+#pragma unroll 1
+  for (uint32_t c = 0; c < kCtaChunks; ++c) {
+    mbar_wait(&full[li][slot], parity);
+    const uint32_t* tile =
+        reinterpret_cast<const uint32_t*>(lane_ring + slot * kCtaChunkBytes) + col;
+    if (chained) {
+#pragma unroll
+      for (int r = 0; r < kCtaChunkRows; ++r) {
+        const uint32_t w = tile[r * kThreads];
+        if constexpr (kEstimate) {  // a sampled word, as read
+          if (cest::word_sampled(c * kCtaChunkRows + r, col)) cest::bin_word(es->hist, w);
+        }
+        s = jth256::row_step(s, w ^ tweak);
+      }
+    }
+    if (c + depth < kCtaChunks) {
+      lane_barrier(li);  // the lane's threads are done with the slot: refill it
+      if (col == 0) {
+        mbar_expect_tx(&full[li][slot], kCtaChunkBytes);
+        bulk_load(lane_ring + slot * kCtaChunkBytes, src + (c + depth) * kCtaChunkBytes,
+                  kCtaChunkBytes, &full[li][slot]);
+      }
+    }
+    if (++slot == depth) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+
+  // the lane fold, on the lane's own barrier
+  states[li][col] = s;
+  lane_barrier(li);
+  if (chained && col < jth256::kDigestWords) {
+    uint32_t acc = jth256::fold_seed(li, col);
+#pragma unroll
+    for (uint32_t gi = 0; gi < jth256::kGroups; ++gi) {
+      acc = jth256::fold_step(acc, states[li][gi * jth256::kDigestWords + col], gi);
+    }
+    digests[li * jth256::kDigestWords + col] = acc;
+  }
+  __syncthreads();  // every live lane's digests and every sampled byte are in
+  if (tid < jth256::kDigestWords) {
+    blk.out[b * jth256::kDigestWords + tid] = static_cast<long long>(jth256::finish_word(
+        digests, jth256::kDigestWords, live, static_cast<uint32_t>(length), tid));
+  }
+  if constexpr (kEstimate) {
+    // beside the combine's chain on warp 0, as the cross-CTA entry's last CTA
+    if (tid >= kWarp && tid < kThreads) {
+      uint32_t bins[kBinsPerThread];
+#pragma unroll
+      for (int k = 0; k < kBinsPerThread; ++k) {
+        const uint32_t bin = tid - kWarp + k * kEntropyThreads;
+        bins[k] = bin < cest::kBins ? es->hist[bin] : 0u;
+      }
+      const float adv = entropy_advisory(bins, es);
+      if (tid == kWarp) est.out[b] = adv;
+    }
+  }
+}
+
+// The one-CTA instance's largest dynamic shared memory on the current
+// device (the card's opt-in limit a block less its static shared memory),
+// into *limit; allowed once a device.
+template <bool kEstimate>
+cudaError_t allow_cta_smem(int* limit) {
+  static std::atomic<int> allowed[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (*limit = allowed[dev].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, row_chain_kernel_cta_block<kEstimate>);
+  if (err != cudaSuccess) return err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  *limit = optin - static_cast<int>(attr.sharedSizeBytes);
+  err = cudaFuncSetAttribute(row_chain_kernel_cta_block<kEstimate>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  if (err == cudaSuccess && dev < 64) allowed[dev].store(*limit, std::memory_order_relaxed);
+  return err;
+}
+
+template <bool kEstimate>
+int launch_cta(const void* words, BlockArgs blk, EstimateArg<kEstimate> est,
+               long long n_blocks, unsigned int m, unsigned int tweak, unsigned int depth,
+               void* stream) {
+  if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL || m == 0 ||
+      m > static_cast<unsigned int>(kCtaMaxLanes) || depth == 0 ||
+      depth > static_cast<unsigned int>(kCtaMaxDepth)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(words) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
+  }
+  int limit = 0;
+  cudaError_t err = allow_cta_smem<kEstimate>(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = cta_smem_bytes<kEstimate>(static_cast<int>(m), static_cast<int>(depth));
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);  // a ring the CTA cannot hold
+  row_chain_kernel_cta_block<kEstimate>
+      <<<static_cast<unsigned int>(n_blocks), m * kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(words), m, tweak,
+                                              depth, blk, est);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kEstimate>
+int occupancy_cta(int m, int depth, int* ctas) {
+  if (m < 1 || m > kCtaMaxLanes || depth > kCtaMaxDepth) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int limit = 0;
+  cudaError_t err = allow_cta_smem<kEstimate>(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = cta_smem_bytes<kEstimate>(m, depth);
+  if (smem > limit) {
+    *ctas = 0;  // a ring this CTA cannot hold
+    return 0;
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, row_chain_kernel_cta_block<kEstimate>, m * kThreads, smem));
+}
+
 BlockArgs block_args(const void* lane_counts, const void* lengths, void* arrivals,
                      void* out) {
   return BlockArgs{static_cast<const long long*>(lane_counts),
@@ -549,15 +769,47 @@ extern "C" int jth256_block_digests_estimate(const void* words, void* lane_diges
                             stream);
 }
 
+// jth256_block_digests' (B, 8) digests of n_blocks blocks of m <= 8 lanes
+// (4 MiB - 512 KiB), one CTA a block, with a ring of `depth` chunks of
+// 8 KiB a lane (1-8; m x depth x 8 KiB within what a CTA holds): no lane
+// digests scratch, no arrival counters.
+extern "C" int jth256_block_cta_digests(const void* words, const void* lane_counts,
+                                        const void* lengths, void* out, long long n_blocks,
+                                        unsigned int m, unsigned int tweak, unsigned int depth,
+                                        void* stream) {
+  return launch_cta<false>(words, block_args(lane_counts, lengths, nullptr, out), NoEstimate{},
+                           n_blocks, m, tweak, depth, stream);
+}
+
+// jth256_block_digests_estimate's digests and advisories of blocks of
+// m <= 8 lanes, one CTA a block as jth256_block_cta_digests: no count
+// workspace.
+extern "C" int jth256_block_cta_digests_estimate(const void* words, const void* lane_counts,
+                                                 const void* lengths, void* out,
+                                                 void* advisories, long long n_blocks,
+                                                 unsigned int m, unsigned int tweak,
+                                                 unsigned int depth, void* stream) {
+  return launch_cta<true>(words, block_args(lane_counts, lengths, nullptr, out),
+                          EstimateArgs{nullptr, static_cast<float*>(advisories)}, n_blocks, m,
+                          tweak, depth, stream);
+}
+
 // The resident CTAs per SM, on the current device, of the lane-digests
-// entry (entry 0), the block entry (1) or the estimating entry (2) with a
-// ring of `depth` chunks, into *ctas; returns the cudaError_t of the query.
-extern "C" int jth256_row_chain_occupancy(int entry, int depth, int* ctas) {
-  if (depth < kMinDepth || depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+// entry (entry 0), the block entry (1) or the estimating entry (2), a lane
+// a CTA (`lanes` 1), or of the one-CTA block entry (3) or its estimating
+// entry (4) over blocks of `lanes` lanes, with a ring of `depth` chunks,
+// into *ctas (0 for a ring the CTA cannot hold); returns the cudaError_t
+// of the query.
+extern "C" int jth256_row_chain_occupancy(int entry, int lanes, int depth, int* ctas) {
+  if (depth < kMinDepth || depth > kMaxDepth || (entry < 3 && lanes != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (entry) {
     case 0: return occupancy<false, false>(depth, ctas);
     case 1: return occupancy<true, false>(depth, ctas);
     case 2: return occupancy<true, true>(depth, ctas);
+    case 3: return occupancy_cta<false>(lanes, depth, ctas);
+    case 4: return occupancy_cta<true>(lanes, depth, ctas);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,4 +1,4 @@
-// CPU twin of jth256_row_chain.cu (all three entries), jth256_combine.cu
+// CPU twin of jth256_row_chain.cu (all its entries), jth256_combine.cu
 // and compress_estimate.cu: the same per-lane chain, lane fold and
 // combine, and the same estimator sample, mask, binning and entropy, built
 // with g++ from the same jth256_step.cuh and compress_estimate.cuh, so the
@@ -46,6 +46,24 @@ void chain_lane(const uint32_t* w, int64_t lane, int64_t m, uint32_t tw,
       for (uint32_t col = 0; col < kCols; ++col) {
         s[col] = jth256::row_step(s[col], chunk[r * kCols + col] ^ tw);
       }
+    }
+  }
+}
+
+// Final states of lane `lane` (its index in the batch), lane index `li`
+// of its block, into s[128], as the one-CTA block entries chain it: each
+// sampled word (cest::word_sampled) binned into `hist` as its row is read,
+// before the tweak.
+void chain_lane_cta(const uint32_t* w, int64_t lane, uint32_t li, uint32_t tw, uint32_t* s,
+                    uint32_t* hist) {
+  const uint32_t* lw = w + lane * jth256::kRows * jth256::kCols;
+  constexpr uint32_t kCols = jth256::kCols;
+  for (uint32_t col = 0; col < kCols; ++col) s[col] = jth256::init_state(col, li);
+  for (uint32_t row = 0; row < static_cast<uint32_t>(jth256::kRows); ++row) {
+    for (uint32_t col = 0; col < kCols; ++col) {
+      const uint32_t word = lw[row * kCols + col];
+      if (cest::word_sampled(row, col)) cest::bin_word(hist, word);
+      s[col] = jth256::row_step(s[col], word ^ tw);
     }
   }
 }
@@ -225,6 +243,47 @@ std::tuple<torch::Tensor, torch::Tensor> block_digests_estimate(
   return {digests, estimate_entropy(hist)};
 }
 
+// jth256_block_cta_digests_estimate (and, in its digests,
+// jth256_block_cta_digests): a block at a time, as one CTA runs it. Only
+// the live lanes (below the block's lane count, clamped to [0, m]) are
+// chained, each binning its sampled words into the block's one histogram
+// as it reads them; their fold digests, then the combine over them and the
+// entropy of the histogram.
+std::tuple<torch::Tensor, torch::Tensor> block_cta_digests_estimate(
+    torch::Tensor words, int64_t m, torch::Tensor lane_counts, torch::Tensor lengths,
+    int64_t tweak) {
+  check_words(words, m);
+  TORCH_CHECK(words.size(0) % m == 0, "words must hold whole blocks of m lanes");
+  const int64_t b = words.size(0) / m;
+  TORCH_CHECK(lane_counts.scalar_type() == torch::kInt64 && lane_counts.numel() == b &&
+                  lane_counts.is_contiguous(),
+              "lane_counts must be int64 (B,)");
+  TORCH_CHECK(lengths.scalar_type() == torch::kInt64 && lengths.numel() == b &&
+                  lengths.is_contiguous(),
+              "lengths must be int64 (B,)");
+  auto digests = torch::empty({b, jth256::kDigestWords}, lane_counts.options());
+  auto hist = torch::zeros({b, cest::kBins}, words.options());
+  int64_t* o = digests.data_ptr<int64_t>();
+  uint32_t* h = reinterpret_cast<uint32_t*>(hist.data_ptr<int32_t>());
+  const int64_t* counts = lane_counts.data_ptr<int64_t>();
+  const int64_t* lens = lengths.data_ptr<int64_t>();
+  std::vector<uint32_t> lane_digests(m * jth256::kDigestWords);
+  uint32_t s[jth256::kCols];
+  for (int64_t i = 0; i < b; ++i) {
+    const uint32_t live = cest::counted_lanes(counts[i], 0, static_cast<uint32_t>(m));
+    for (uint32_t li = 0; li < live; ++li) {
+      chain_lane_cta(words_u32(words), i * m + li, li, static_cast<uint32_t>(tweak), s,
+                     h + i * cest::kBins);
+      fold_lane(s, li, lane_digests.data() + li * jth256::kDigestWords);
+    }
+    for (uint32_t k = 0; k < static_cast<uint32_t>(jth256::kDigestWords); ++k) {
+      o[i * jth256::kDigestWords + k] = jth256::finish_word(
+          lane_digests.data(), jth256::kDigestWords, live, static_cast<uint32_t>(lens[i]), k);
+    }
+  }
+  return {digests, estimate_entropy(hist)};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("row_chain", &row_chain, "JTH-256 row chain on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("tweak"),
@@ -248,6 +307,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "Entropy advisories of byte histograms on the CPU (twin)", pybind11::arg("hist"));
   mod.def("block_digests_estimate", &block_digests_estimate,
           "Block digests and compressibility advisories in one pass on the CPU (twin)",
+          pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("lane_counts"),
+          pybind11::arg("lengths"), pybind11::arg("tweak") = 0);
+  mod.def("block_cta_digests_estimate", &block_cta_digests_estimate,
+          "Block digests and advisories of short blocks, a block at a time as one CTA "
+          "runs it, on the CPU (twin)",
           pybind11::arg("words"), pybind11::arg("m"), pybind11::arg("lane_counts"),
           pybind11::arg("lengths"), pybind11::arg("tweak") = 0);
 }

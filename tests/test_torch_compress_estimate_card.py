@@ -262,8 +262,9 @@ def test_estimating_hash_entry_is_one_launch_and_one_kernel(card, tmp_path):
 def test_estimating_hash_entry_workspaces_are_zero_after_each_launch(card):
     """The arrival counters and the count workspace of a stream are zero
     again after every launch, so a second call agrees bit for bit; a larger
-    batch gets larger workspaces, and another stream its own."""
-    words, counts, lengths = pack_with_lengths(19, 32, 4)
+    batch gets larger workspaces, and another stream its own. Blocks of 16
+    lanes: shorter ones take the one-CTA design, which has neither."""
+    words, counts, lengths = pack_with_lengths(19, 32, 16)
     dw = _t(words).to(card)
     dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
     stream = torch.cuda.Stream()

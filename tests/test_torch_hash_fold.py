@@ -28,7 +28,7 @@ from juicefs_tpu.tpu import hash_jax as hj
 from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels, sharding
 from juicefs_tpu_torch.gpu.jth256 import hash_packed_np
-from torch_estimate_packs import pack_with_lengths
+from torch_estimate_packs import pack_with_lengths, short_block_pack
 
 ref_spec = sys.modules["juicefs_tpu.tpu.jth256"]
 LANE = ref_spec.LANE_BYTES
@@ -200,6 +200,8 @@ def test_kernel_entries_have_sources_and_signatures():
     row chain's states entry and the estimator's one-card entry are gone."""
     assert set(kernels.ENTRY_SOURCES) == {"jth256_block_digests",
                                           "jth256_block_digests_estimate",
+                                          "jth256_block_cta_digests",
+                                          "jth256_block_cta_digests_estimate",
                                           "jth256_lane_digests", "jth256_combine",
                                           "compress_histogram", "compress_entropy"}
     assert set(kernels._SIGNATURES) == set(kernels.ENTRY_SOURCES)
@@ -214,7 +216,8 @@ def test_kernel_entries_have_sources_and_signatures():
     assert set(kernels.LAUNCHES) == {"jth256_row_chain", "jth256_block_digests",
                                      "jth256_block_digests_estimate",
                                      "jth256_lane_digests", "jth256_combine",
-                                     "compress_histogram", "compress_entropy"}
+                                     "compress_histogram", "compress_entropy",
+                                     "jth256_block_cta"}
 
 
 # (B, M): one and three blocks of 1, 2 and 64 lanes
@@ -361,6 +364,94 @@ def test_ring_depth_holds_a_block_of_lane_digests(entry):
     assert kernels.ring_depth(4096, H100_SMS, ctas, 4096 * digests) > max(kernels.RING_DEPTHS)
 
 
+@pytest.mark.parametrize("m", range(1, 65))
+def test_block_batches_take_the_one_cta_design_up_to_the_cut(m):
+    """A block batch whose pack has m lanes a block takes each block entry's
+    one-CTA design up to the cut, 4 lanes (blocks of 256 KiB and less), and
+    the cross-CTA entry above it: the one-CTA kernel holds up to 8 lanes
+    (8 x 128 threads, the most a CTA has), but from 5 lanes on its one SM's
+    stream made it the slower design on the card."""
+    assert kernels.CTA_BLOCK_LANES == 4
+    for entry, cta in (("jth256_block_digests", "jth256_block_cta_digests"),
+                       ("jth256_block_digests_estimate",
+                        "jth256_block_cta_digests_estimate")):
+        got = kernels.block_entry(entry, m)
+        assert got == (cta if m <= 4 else entry)
+        assert kernels.is_cta_entry(got) == (m <= 4)
+        assert got in kernels.ENTRY_SOURCES and got in kernels._SIGNATURES
+
+
+# The one-CTA entries' resident CTAs an SM on an H100 as their shared
+# memory implies: the ring (m lanes x depth x 8 KiB), 4864 B of static
+# shared memory (the mbarriers, states and lane digests of 8 lanes) and,
+# estimating, the 1072 B of histogram and entropy scratch; at most 227 KiB
+# a CTA (232,448 B, else the CTA cannot hold the ring: 0), 1 KiB reserved
+# a CTA of the SM's 228 KiB, 128 B units; at most 2048 threads an SM.
+CTA_STATIC = 4864
+CTA_SCRATCH = {"block": 0, "estimate": 1072}
+
+
+def _h100_cta_ctas(m: int, scratch: int) -> dict:
+    table = {}
+    for d in kernels.CTA_RING_DEPTHS:
+        held = m * d * kernels.CTA_CHUNK_BYTES + scratch + CTA_STATIC
+        cta = -(-(held + 1024) // 128) * 128
+        table[d] = 0 if held > 232448 else min(2048 // (128 * m), 32, 233472 // cta)
+    return table
+
+
+@pytest.mark.parametrize("entry", sorted(CTA_SCRATCH))
+@pytest.mark.parametrize("m", range(1, 9))
+def test_one_cta_ring_puts_every_batch_of_up_to_32_short_blocks_in_one_wave(entry, m):
+    """The ring rule over the one-CTA design's own occupancy table: every
+    batch of 1-32 blocks of m lanes is one wave at a ring the CTA holds;
+    blocks of up to 3 lanes keep their whole lanes resident (8 chunks),
+    4-8 lanes the deepest ring that fits 227 KiB; a batch past what the
+    card holds at once takes a ring the CTA holds, never a larger one."""
+    ctas = _h100_cta_ctas(m, CTA_SCRATCH[entry])
+    for b in range(1, 33):
+        depth = kernels.ring_depth(b * m, H100_SMS, ctas, lanes_per_cta=m,
+                                   chunk_bytes=kernels.CTA_CHUNK_BYTES)
+        assert depth in kernels.CTA_RING_DEPTHS and ctas[depth] >= 1, (b, depth)
+        assert m * depth * kernels.CTA_CHUNK_BYTES + CTA_SCRATCH[entry] + CTA_STATIC <= 232448
+        assert kernels.waves(b, H100_SMS, ctas[depth]) == 1
+        if b == 1:
+            assert depth == {1: 8, 2: 8, 3: 8, 4: 6, 5: 5, 6: 4, 7: 3, 8: 3}[m]
+    for b in (5000, 100_000):
+        depth = kernels.ring_depth(b * m, H100_SMS, ctas, lanes_per_cta=m,
+                                   chunk_bytes=kernels.CTA_CHUNK_BYTES)
+        assert ctas[depth] >= 1 and kernels.waves(b, H100_SMS, ctas[depth]) > 1
+
+
+# (B, M) of the one-CTA design: a block alone, two, a small-file batch
+# mix and past one wave's worth of short blocks at 1-8 lanes
+CTA_CASES = [(1, 1), (2, 1), (13, 1), (1, 2), (2, 2), (13, 2), (1, 3), (13, 3),
+             (1, 4), (13, 4), (1, 8), (2, 8), (13, 8)]
+
+
+@pytest.mark.parametrize("b,m", CTA_CASES)
+def test_twin_one_cta_entry_matches_the_block_entries(twin, b, m):
+    """The one-CTA design's arithmetic (twin: a block at a time, its live
+    lanes alone in 16-row chunks, one histogram a block) gives the block
+    entry's digests and the estimating entry's advisories bit for bit, the
+    numpy spec's digests of the tweaked words, and the histogram and
+    entropy entries' advisories."""
+    words, counts, lengths = short_block_pack(500 + 17 * b + m, b, m)
+    tc, tl = torch.from_numpy(counts), torch.from_numpy(lengths)
+    flat = _t(words).reshape(b * m, 128, 128)
+    for tweak in (0, 0x5BD1E995):
+        want = hash_packed_np(words ^ np.uint32(tweak), counts, lengths)
+        got, adv = twin.block_cta_digests_estimate(flat, m, tc, tl, tweak)
+        assert got.dtype == torch.int64 and tuple(got.shape) == (b, 8)
+        np.testing.assert_array_equal(_u32(got), want)
+        cross, cross_adv = twin.block_digests_estimate(flat, m, tc, tl, tweak)
+        assert torch.equal(got, cross) and torch.equal(adv, cross_adv)
+        assert torch.equal(got, twin.block_digests(flat, m, tc, tl, tweak))
+    hist = twin.estimate_histogram(_t(words), tc)
+    assert torch.equal(adv, twin.estimate_entropy(hist))
+    assert int(hist[counts == 0].sum()) == 0
+
+
 def test_arrival_counters_are_per_stream_and_grow_zeroed():
     """The block entry's counter workspace: one buffer per (device,
     stream), the same buffer while a batch fits, a new zeroed and larger
@@ -416,7 +507,8 @@ def test_hash_device_is_one_launch_on_the_card(card):
     assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 2,
                                 "jth256_block_digests_estimate": 0,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
-                                "compress_histogram": 0, "compress_entropy": 0}
+                                "compress_histogram": 0, "compress_entropy": 0,
+                                "jth256_block_cta": 0}
     assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
 
 
@@ -441,4 +533,5 @@ def test_hash_estimate_device_is_one_launch_on_the_card(card):
     assert kernels.LAUNCHES == {"jth256_row_chain": 2, "jth256_block_digests": 0,
                                 "jth256_block_digests_estimate": 2,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
-                                "compress_histogram": 0, "compress_entropy": 0}
+                                "compress_histogram": 0, "compress_entropy": 0,
+                                "jth256_block_cta": 0}

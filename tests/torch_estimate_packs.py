@@ -46,6 +46,20 @@ def pack_with_lengths(seed: int, b: int, m: int):
     return words, counts.astype(np.int64), lengths.astype(np.int64)
 
 
+def short_block_pack(seed: int, b: int, m: int):
+    """Words (B, M, 128, 128) uint32 of random lanes (dead ones too), and
+    int64 lane counts and lengths for the row chain's one-CTA entries:
+    counts m, 0, below m, past m and 1 in turn; odd lengths, one past 2^32
+    (the spec mixes a length in mod 2^32)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(b, m, 128, 128), dtype=np.uint32)
+    counts = np.array([(m, 0, max(1, m - 1), m + 5, 1)[i % 5] for i in range(b)],
+                      dtype=np.int64)
+    lengths = np.array([(m * LANE - 1, 777, (1 << 32) + 3 * LANE + 5, 1, 0)[i % 5]
+                        for i in range(b)], dtype=np.int64)
+    return words, counts, lengths
+
+
 def np_histogram(words: np.ndarray, counts: np.ndarray, lane_offset: int = 0) -> np.ndarray:
     """Independent numpy histogram of the estimator's sample: lanes
     [lane_offset, lane_offset + M) of each block, counted below its count."""
