@@ -108,6 +108,23 @@ class _Slot:
                                    pin_memory=pinned)
         self.uploaded: list = []  # CUDA events behind the last upload
 
+    def pack_row(self, i: int, block) -> None:
+        """Pack one block into row i, zero-padded, with its lane count and
+        length. The copy is a memoryview assignment, which holds the
+        interpreter lock through its memcpy, as a `bytes()` copy does: a
+        numpy copy would drop the lock and take it back, and with busy
+        threads about each retake waits up to the switch interval."""
+        row = self.words.numpy()[i].reshape(-1).view(np.uint8)
+        n = len(block)
+        if n > row.size:
+            raise ValueError(f"block of {n} bytes larger than the slot's "
+                             f"{row.size}-byte rows")
+        counts, lengths = self.counts.numpy(), self.lengths.numpy()
+        counts[i], lengths[i] = 1, 0  # an empty row until the copy is whole
+        memoryview(row)[:n] = memoryview(block).cast("B")
+        row[n:] = 0
+        counts[i], lengths[i] = max(1, -(-n // LANE_BYTES)), n
+
 
 class HashPipeline:
     """hash_stream(iter[(key, bytes)]) -> iter[(key, 32-byte digest)]."""
@@ -145,16 +162,67 @@ class HashPipeline:
         slot.uploaded = []
         return slot
 
+    def staging_slot(self) -> _Slot:
+        """A staging slot of this pipeline's batch shape (pinned on a card)
+        of the caller's own, who packs its rows (`_Slot.pack_row`) and
+        hashes them with `hash_slot`."""
+        return _Slot(self.config, self.device is not None and self.device.type == "cuda")
+
+    def hash_slot(self, slot: _Slot, n: int) -> list[bytes]:
+        """The digests of the first n rows of a staging slot the caller
+        packed, waited for: on a device backend one placement and one
+        launch, as a batch of `hash_stream`; on the host backend the host
+        hash of the rows."""
+        lengths = slot.lengths.numpy()[:n]
+        nbytes = int(lengths.sum())
+        with _TR.span("gpu", "hash", stage="dispatch", hist=_H_DISPATCH) as sp:
+            if sp.active:
+                sp.set(batch=n, bytes=nbytes, backend=self.config.backend)
+            if self.device is not None:
+                out = self._dispatch_slot(slot, n)
+            else:
+                from .. import native
+
+                words = slot.words.numpy()[:n]
+                if native.available():
+                    rows = words.reshape(n, -1).view(np.uint8)
+                    out = native.jth256_batch([rows[i, :int(lengths[i])] for i in range(n)])
+                else:
+                    out = digests_to_bytes(hash_packed_np(
+                        words.view(np.uint32), slot.counts.numpy()[:n], lengths))
+        _BATCH_BLOCKS.observe(n)
+        _BLOCKS_HASHED.inc(n)
+        _HASH_BYTES.inc(nbytes)
+        return self._digests(out, n)
+
+    def _digests(self, out, n: int) -> list[bytes]:
+        """The first n digests of a dispatched batch: a host hash's list
+        as it is, a device batch's after the blocking wait for its copy
+        back, where the device latency lands."""
+        if isinstance(out, list):
+            return out[:n]
+        with _TR.span("gpu", "hash", stage="drain", hist=_H_DRAIN) as sp:
+            if sp.active:
+                sp.set(batch=n, backend=self.config.backend)
+            host, done = out
+            if done is not None:
+                done.synchronize()
+            return digests_to_bytes(host.numpy().astype(np.uint32))[:n]
+
     def _dispatch_device(self, blocks: list[bytes]):
-        """Pack into a staging slot, place it through the plane (one
-        placement), hash; returns the pending (host digests tensor,
-        completion event or None)."""
+        """Pack into a staging slot and dispatch it (`_dispatch_slot`)."""
         n = len(blocks)
         slot = self._slot()
         with _TR.span("gpu", "hash", stage="pack", hist=_H_PACK):
             counts, lengths = pack_into(slot.words.numpy(), blocks)
             slot.counts.numpy()[:n] = counts
             slot.lengths.numpy()[:n] = lengths
+        return self._dispatch_slot(slot, n)
+
+    def _dispatch_slot(self, slot: _Slot, n: int):
+        """Place the first n packed rows of a staging slot through the
+        plane (one placement), hash; returns the pending (host digests
+        tensor, completion event or None)."""
         cuda = self.device.type == "cuda"
         with _TR.span("gpu", "hash", stage="upload", hist=_H_UPLOAD):
             packed = self.plane.put_packed(slot.words[:n], slot.counts[:n],
@@ -206,19 +274,7 @@ class HashPipeline:
 
         def drain(batch) -> Iterator[tuple[str, bytes]]:
             bkeys, out = batch
-            if isinstance(out, list):
-                digests = out
-            else:
-                # blocking device sync: where the device latency lands
-                with _TR.span("gpu", "hash", stage="drain",
-                              hist=_H_DRAIN) as sp:
-                    if sp.active:
-                        sp.set(batch=len(bkeys), backend=cfg.backend)
-                    host, done = out
-                    if done is not None:
-                        done.synchronize()
-                    digests = digests_to_bytes(host.numpy().astype(np.uint32))
-            return zip(bkeys, digests[: len(bkeys)])
+            return zip(bkeys, self._digests(out, len(bkeys)))
 
         for key, data in items:
             if len(data) > cfg.pad_lanes * LANE_BYTES:

@@ -1465,11 +1465,11 @@ class KVMeta(BaseMeta):
             batch = entries[i:i + 1024]
 
             def fn(tx: KVTxn, batch=batch):
-                for sid, indx, bsize, digest in batch:
-                    tx.set(
-                        self._blockdigest_key(sid, indx),
-                        bsize.to_bytes(4, "big") + digest,
-                    )
+                tx.sets([
+                    (self._blockdigest_key(sid, indx),
+                     bsize.to_bytes(4, "big") + digest)
+                    for sid, indx, bsize, digest in batch
+                ])
                 return 0
 
             self.client.txn(fn)

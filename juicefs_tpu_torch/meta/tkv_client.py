@@ -48,6 +48,12 @@ class KVTxn:
     def set(self, key: bytes, value: bytes) -> None:
         raise NotImplementedError
 
+    def sets(self, pairs: list[tuple[bytes, bytes]]) -> None:
+        """Set each (key, value) in order: `set`'s batched counterpart, as
+        `gets` is `get`'s."""
+        for key, value in pairs:
+            self.set(key, value)
+
     def delete(self, key: bytes) -> None:
         raise NotImplementedError
 
@@ -243,6 +249,11 @@ class MemKV(TKVClient):
 # --------------------------------------------------------------------------
 
 
+# rows a multi-row INSERT of `_SqliteTxn.sets` binds (two parameters a
+# row, well inside the 999 of sqlite builds before 3.32)
+SETS_ROWS = 256
+
+
 class _SqliteTxn(KVTxn):
     # txnwatch write recorder: the harness compares the ordered
     # set/delete stream between the doubled runs (writes here go
@@ -279,6 +290,23 @@ class _SqliteTxn(KVTxn):
             "INSERT INTO kv(k, v) VALUES(?, ?) ON CONFLICT(k) DO UPDATE SET v=excluded.v",
             (key, bytes(value)),
         )
+
+    def sets(self, pairs):
+        """Many rows in one multi-row INSERT a `SETS_ROWS` rows: each
+        statement steps sqlite once, where a `set` a row would step it a
+        row at a time, and every step drops and retakes the interpreter
+        lock (a wait of up to the switch interval each, with busy threads
+        about)."""
+        pairs = [(bytes(k), bytes(v)) for k, v in pairs]
+        if self._log is not None:
+            self._log.extend(("set", k, v) for k, v in pairs)
+        for i in range(0, len(pairs), SETS_ROWS):
+            chunk = pairs[i:i + SETS_ROWS]
+            self._conn.execute(
+                "INSERT INTO kv(k, v) VALUES " + ",".join(["(?, ?)"] * len(chunk))
+                + " ON CONFLICT(k) DO UPDATE SET v=excluded.v",
+                [x for pair in chunk for x in pair],
+            )
 
     def delete(self, key):
         if self._log is not None:

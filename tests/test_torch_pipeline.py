@@ -61,6 +61,37 @@ def test_hash_stream_counters_and_bounds():
         list(pipe.hash_stream([("big", bytes(5 * LANE))]))
 
 
+@pytest.mark.parametrize("backend,native", [("cuda", True), ("cpu", True), ("cpu", False)],
+                         ids=["device-path-on-cpu", "host-native", "host-numpy"])
+def test_hash_slot_matches_reference(backend, native, monkeypatch):
+    """A staging slot packed row by row (`_Slot.pack_row`, rows written out
+    of order, a reused slot) hashes as the reference pipeline hashes the
+    same blocks, and is counted as one batch."""
+    from juicefs_tpu_torch import native as native_mod
+
+    if not native:
+        monkeypatch.setattr(native_mod, "available", lambda: False)
+    pipe = HashPipeline(PipelineConfig(backend=backend, batch_blocks=4, pad_lanes=4),
+                        device="cpu")
+    slot = pipe.staging_slot()
+    for seed in (6, 7):
+        blocks = [b for _, b in _items(seed, 4)]
+        want = [ref_spec.jth256(b) for b in blocks]
+        for i in (2, 0, 3, 1):
+            slot.pack_row(i, blocks[i])
+        blocks0, bytes0 = pp._BLOCKS_HASHED.value, pp._HASH_BYTES.value
+        assert pipe.hash_slot(slot, 3) == want[:3]
+        assert pp._BLOCKS_HASHED.value - blocks0 == 3
+        assert pp._HASH_BYTES.value - bytes0 == sum(len(b) for b in blocks[:3])
+    packed = np.zeros_like(slot.words.numpy()[:4])
+    counts, lengths = pp.pack_into(packed, blocks)
+    assert (slot.words.numpy()[:4] == packed).all()
+    assert list(slot.counts.numpy()[:4]) == list(counts)
+    assert list(slot.lengths.numpy()[:4]) == list(lengths)
+    with pytest.raises(ValueError):
+        slot.pack_row(0, bytes(5 * LANE))
+
+
 def test_cpu_backend_ships_nothing_to_a_device():
     pipe = HashPipeline(PipelineConfig(backend="cpu", batch_blocks=4))
     assert not pipe.device_backend

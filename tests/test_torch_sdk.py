@@ -121,10 +121,10 @@ def test_jfs_term_reports_blocks_left_without_a_row(tmp_path, caplog):
         mid = port_sdk.jfs_init(url)
         assert mid > 0
         if fail:
-            def refuse(_blocks):
+            def refuse(_slot, _n):
                 raise RuntimeError("hash backend unavailable")
 
-            port_sdk._mounts[mid][1].store.indexer._pipe.hash_blocks = refuse
+            port_sdk._mounts[mid][1].store.indexer._pipe.hash_slot = refuse
         fd = port_sdk.jfs_open(mid, "/f", os.O_CREAT | os.O_RDWR, 0o644)
         assert port_sdk.jfs_pwrite(mid, fd, 0, data) == len(data)
         assert port_sdk.jfs_flush(mid, fd) == 0
