@@ -107,9 +107,10 @@ Phases, in order; any mismatch raises and the script exits non-zero:
               cross-CTA entries', advisories bit for bit the cross-CTA
               estimating entry's and the histogram and entropy entries';
               each wrapper launch at 4 lanes or fewer is counted under
-              jth256_block_cta, at 8 none; then its device ms beside the
-              cross-CTA entries at 1 block x 1, 2, 4 and 8 lanes and 8 and
-              32 blocks x 2 lanes
+              jth256_block_cta (an estimating one also under
+              jth256_block_cta_estimate), at 8 none; then its device ms
+              beside the cross-CTA entries at 1 block x 1, 2, 4 and 8
+              lanes and 8 and 32 blocks x 2 lanes
   11. main    the admin path through the port's CLI on a sqlite3:// volume
               of the same plan: `format --hash-backend pallas` (probes the
               card), a write of every block as its own slice through
@@ -1143,7 +1144,8 @@ def cta_phase(gen: torch.Generator, smi: str) -> dict:
     bit the numpy spec's and the cross-CTA entries' (called directly);
     advisories bit for bit the cross-CTA estimating entry's and the
     histogram and entropy entries'; one launch a wrapper call, counted
-    under jth256_block_cta beside the entries' own keys up to the cut
+    under jth256_block_cta (an estimating one also under
+    jth256_block_cta_estimate) beside the entries' own keys up to the cut
     (`kernels.CTA_BLOCK_LANES`) and not past it. Then the one-CTA entries'
     device ms beside the cross-CTA entries' at CTA_TIMED
     (`time_short_blocks`)."""
@@ -1171,7 +1173,8 @@ def cta_phase(gen: torch.Generator, smi: str) -> dict:
                 torch.cuda.synchronize()
                 taken = 2 if m <= kernels.CTA_BLOCK_LANES else 0
                 want = {"jth256_row_chain": 2, "jth256_block_digests": 1,
-                        "jth256_block_digests_estimate": 1, "jth256_block_cta": taken}
+                        "jth256_block_digests_estimate": 1, "jth256_block_cta": taken,
+                        "jth256_block_cta_estimate": taken // 2}
                 if {k: kernels.LAUNCHES[k] for k in want} != want:
                     raise AssertionError(f"{nb} x {m}: launches {kernels.LAUNCHES}")
                 spec = hash_packed_np(host[0] ^ np.uint32(tweak), host[1], host[2])
@@ -1193,7 +1196,8 @@ def cta_phase(gen: torch.Generator, smi: str) -> dict:
                 checked += 1
     print(f"one-CTA entries == hash_packed_np and the cross-CTA entries at {CTA_GATE_LANES} "
           f"lanes x {CTA_GATE_BLOCKS} blocks, 2 tweaks ({checked} shapes and tweaks), the "
-          f"wrappers counting jth256_block_cta up to {kernels.CTA_BLOCK_LANES} lanes")
+          f"wrappers counting jth256_block_cta and jth256_block_cta_estimate up to "
+          f"{kernels.CTA_BLOCK_LANES} lanes")
     short = time_short_blocks(gen, smi, {"cross": cross, "cta": cta})
     out = {"checked": checked, "short": short, "card": smi}
     print("one_cta " + json.dumps(out))

@@ -465,8 +465,8 @@ def hash_estimate_device(words: torch.Tensor, lane_counts: torch.Tensor,
     On the card, one launch of the row chain with the lane fold, the
     combine and the estimate in its epilogue (counted under
     jth256_row_chain and jth256_block_digests_estimate, and for short
-    blocks under jth256_block_cta, as `hash_device`); on the CPU the
-    plain versions. Any other device raises."""
+    blocks under jth256_block_cta and jth256_block_cta_estimate); on the
+    CPU the plain versions. Any other device raises."""
     if words.dim() != 4:
         raise ValueError(f"words must be (B, M, {ROWS}, {COLS}), got {tuple(words.shape)}")
     if words.device.type == "cpu":
@@ -488,7 +488,8 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
     """One launch of a block entry on the words' card into `out` (and, for
     the estimating entry, `advisories`), on the current stream: its
     one-CTA design for blocks of at most `kernels.CTA_BLOCK_LANES` lanes,
-    counted under `jth256_block_cta` too."""
+    counted under `jth256_block_cta` too (and, estimating, under
+    `jth256_block_cta_estimate`)."""
     global _LAST_KERNEL_MODE, _LAST_FOLD_MODE
     # one pass of checks: this call runs once per hash batch, 214 one-block
     # batches in a one-writer ingest, so its host time is on the path
@@ -526,6 +527,8 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
         kernels.LAUNCHES[entry] += 1
         if design != entry:
             kernels.LAUNCHES["jth256_block_cta"] += 1
+            if advisories is not None:
+                kernels.LAUNCHES["jth256_block_cta_estimate"] += 1
         _ROW_CHAIN_WAVES.observe(waves)
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
 

@@ -20,7 +20,10 @@ a mesh), and `jth256_combine` the per-block combine kernel that a
 lane-split mesh runs after its gather. `jth256_block_cta` counts the
 block batches of the first two keys that the one-CTA design took (blocks
 of at most CTA_BLOCK_LANES lanes, a block in one CTA: `block_entry`); they
-count under their entry's key as well. `compress_histogram` and
+count under their entry's key as well. `jth256_block_cta_estimate` counts
+those of them that also estimate (`jth256_block_cta_digests_estimate`,
+each block's estimate on a warp of its own beside its lanes' chains: a
+small-file close). `compress_histogram` and
 `compress_entropy` count the two entries a mesh's estimate runs (a
 histogram per shard, an entropy per data row). The gauge
 `juicefs_torch_kernel_launches{kernel}` reads the same counts, so another
@@ -55,7 +58,7 @@ LAUNCHES: dict[str, int] = {"jth256_row_chain": 0, "jth256_block_digests": 0,
                             "jth256_block_digests_estimate": 0,
                             "jth256_lane_digests": 0, "jth256_combine": 0,
                             "compress_histogram": 0, "compress_entropy": 0,
-                            "jth256_block_cta": 0}
+                            "jth256_block_cta": 0, "jth256_block_cta_estimate": 0}
 # the source file each C entry is built from
 ENTRY_SOURCES = {"jth256_block_digests": "jth256_row_chain",
                  "jth256_block_digests_estimate": "jth256_row_chain",

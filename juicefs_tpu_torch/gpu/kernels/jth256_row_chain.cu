@@ -147,20 +147,47 @@
 // entries run a block in one CTA, lane li on threads [128 li, 128 li + 128),
 // one thread a column: each lane streams through its own ring of TMA bulk
 // copies (its own mbarriers, and a named barrier over its 128 threads to
-// refill a slot), its sampled words (cest::word_sampled) binned into one
-// shared histogram as the rows arrive; each lane's 8 fold threads write its
-// digests to shared memory; after one __syncthreads warp 0 combines the
-// live lanes while warps 1-3 run the entropy on the histogram, as the last
-// CTA does above. No arrival counter, count workspace, fence, ticket, L2
-// atomic or lane-digest scratch. A lane at or past its block's count only
-// drains its copies (the spec never combines it, nor counts its bytes).
+// refill a slot); each lane's 8 fold threads write its digests to shared
+// memory; after a barrier over the lanes' threads warp 0 combines the live
+// lanes. No arrival counter, count workspace, fence, ticket, L2 atomic or
+// lane-digest scratch. A lane at or past its block's count only drains its
+// copies (the spec never combines it, nor counts its bytes).
+// The estimate, in the estimating instance, runs on a warp of its own
+// after the lanes' threads (row_chain_kernel_cta_block<true, true>, m x
+// 128 + 32 threads): it leaves the lanes at the CTA's start, gathers the
+// block's m x 64 sampled words straight from `words` with its own loads,
+// 14 a thread (cest::gather_sample: 256 B a lane, as read, before the
+// tweak; in flight with the first chunk), bins the counted lanes' bytes
+// into a shared histogram it zeroes itself (cest::bin_sample) and
+// computes the advisory alone (warp_advisory: cest::reduce256's order),
+// all while the lanes chain. The lanes run the plain instance's chain and
+// take named barriers over their own threads, so the warp never holds
+// them back. Where a CTA has no room for the warp (8 lanes, 1024 threads;
+// never dispatched) the launch takes <true, false>: the lanes' threads
+// gather and bin the sample, a word a thread, before their first chunk's
+// wait, and warps 1-3 run the entropy beside the combine, as the last CTA
+// does above. Before, the lanes binned each sampled word as its
+// row arrived (4 shared atomics on 2 threads a warp, the other 30
+// waiting, inside a 128-step dependent chain) and the entropy began only
+// after the chains: 1.0-1.2 us of every launch. Two things kept the warp
+// from being free: the entropy's __fdiv_rn brought its slow path, a
+// subroutine call, into the kernel, after which ptxas re-read the thread
+// index and recomputed the ring's addresses at every chunk of the chain
+// (cest::div_rn leaves the call out, bit for bit); and the 8-lane
+// fallback's code, dead at m <= 7, cost ~0.3 us more in the same
+// instance, hence an instance of its own. Measured on an H100 80GB HBM3
+// (700 W, PERF.md section 6, parent / change, in turns), the estimating
+// entry at 1 block x 1 / 2 / 4 lanes and 8 / 32 blocks x 2 lanes: 7.49 /
+// 7.84 / 9.14 / 8.35 / 8.93 us against 6.53 / 6.86 / 8.22 / 7.40 / 8.00,
+// the plain entry beside them 6.40 / 6.66 / 7.89 / 7.28 / 7.91.
 // The chunks are 16 rows (8 KiB): a lane's chain waits at each chunk
 // boundary on the launch's critical path. The ring holds 1-8 chunks a lane
 // (kernels.ring_depth over this entry's own occupancy table, entry codes 3
 // and 4 of jth256_row_chain_occupancy): the whole lane up to 3 lanes, fewer
 // chunks from 4 lanes, within the card's 227 KiB a CTA.
 // Measured on an H100 80GB HBM3 (700 W, PERF.md section 6), the estimating
-// entry at one block of 2 lanes: 9.42 us cross-CTA, 7.72 us here. The two
+// entry at one block of 2 lanes: 9.42 us cross-CTA, 7.72 us here (with
+// the estimate still in the chain). The two
 // changes need each other: the cross-CTA entry with 8 KiB chunks took 8.63,
 // one CTA with 4 KiB chunks ~9.7 (two lanes' copies through one SM). 16,
 // 32 and 64 KiB chunks took 1.4-3.4 us more than 8 KiB, and so did issuing
@@ -538,14 +565,82 @@ constexpr int cta_smem_bytes(int m, int depth) {
   return m * depth * kCtaChunkBytes + (kEstimate ? static_cast<int>(sizeof(EstimateSmem)) : 0);
 }
 
+// The estimating instance takes its estimate warp, after the lanes'
+// threads, where a CTA has room for it (m <= 7 lanes; the wrappers send at
+// most 4): row_chain_kernel_cta_block<true, true>, else <true, false>.
+constexpr int kCtaGatherWords = (kCtaMaxLanes - 1) * cest::kLaneSample / kWarp;  // 14 a thread
+__host__ __device__ constexpr bool cta_estimate_warp(uint32_t m) {
+  return m * kThreads + kWarp <= static_cast<uint32_t>(kCtaThreads);
+}
+__host__ __device__ constexpr uint32_t cta_threads(bool own_warp, uint32_t m) {
+  return m * kThreads + (own_warp ? kWarp : 0);
+}
+
+// Named barrier 10 over the m x 128 threads of a one-CTA block's lanes,
+// which the estimate warp never waits on.
+__device__ __forceinline__ void lanes_barrier(uint32_t m) {
+  asm volatile("bar.sync 10, %0;\n" ::"r"(m * kThreads) : "memory");
+}
+
+// The advisory of a 256-bin histogram by one warp, lane i holding bins
+// i + 32 g (g < 8): bin i + 32 g is lane i of group g, so each group is one
+// butterfly of cest::reduce256 (which leaves its sum in every lane), lane g
+// keeps group g's sum, and lanes 0-7 sum the 8 with reduce256's last
+// butterfly: the same bits as compress_estimate.cu's entropy entry. Valid
+// in lane 0.
+__device__ __forceinline__ float warp_advisory(const uint32_t* hist) {
+  const uint32_t lane = threadIdx.x % kWarp;
+  uint32_t bins[cest::kGroups], total = 0;
+#pragma unroll
+  for (int g = 0; g < cest::kGroups; ++g) {
+    bins[g] = hist[lane + g * cest::kGroup];
+    total += bins[g];
+  }
+  for (int off = kWarp / 2; off > 0; off /= 2) total += __shfl_xor_sync(kFull, total, off);
+  float mine = 0.0f;
+#pragma unroll
+  for (int g = 0; g < cest::kGroups; ++g) {
+    float v = cest::entropy_term(bins[g], total);
+    for (int off = cest::kGroup / 2; off > 0; off /= 2) {
+      v = cest::add_rn(v, __shfl_xor_sync(kFull, v, off));
+    }
+    if (lane == static_cast<uint32_t>(g)) mine = v;
+  }
+  for (int off = cest::kGroups / 2; off > 0; off /= 2) {
+    mine = cest::add_rn(mine, __shfl_xor_sync(kFull, mine, off));
+  }
+  return cest::advisory(mine);
+}
+
+// The estimate warp's work: the block's m x 64 sampled words gathered
+// with its own loads (14 a thread, in flight while it zeroes the
+// histogram), the counted lanes' bytes binned, and the advisory into *out.
+__device__ __forceinline__ void estimate_block(uint32_t* hist, const uint32_t* block_words,
+                                               uint32_t m, const long long* count, float* out) {
+  const uint32_t lane = threadIdx.x % kWarp;
+  uint32_t sample[kCtaGatherWords];
+  cest::gather_sample(sample, block_words, m * cest::kLaneSample, lane, kWarp);
+  const uint32_t live = cest::counted_lanes(*count, 0, m);
+  for (uint32_t i = lane; i < cest::kBins; i += kWarp) hist[i] = 0;
+  __syncwarp();
+  cest::bin_sample(hist, sample, live * cest::kLaneSample, lane, kWarp);
+  __syncwarp();
+  const float adv = warp_advisory(hist);
+  if (lane == 0) *out = adv;
+}
+
 // One CTA a block of m <= kCtaMaxLanes lanes: lane li on threads [128 li,
 // 128 li + 128), a column a thread, through its own ring of `depth` chunks
-// of kCtaChunkBytes; then the fold, the combine and the estimate with no
-// handoff out of the CTA (the design note at the head of the file).
-template <bool kEstimate>
+// of kCtaChunkBytes; then the fold, the combine and (kEstimate) the
+// estimate with no handoff out of the CTA (the design note at the head of
+// the file). kOwnWarp: the estimate on a warp of its own, threads
+// [128 m, 128 m + 32), beside the lanes; else on the lanes' threads.
+template <bool kEstimate, bool kOwnWarp = false>
 __global__ void __launch_bounds__(kCtaThreads)
 row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint32_t tweak,
                            uint32_t depth, BlockArgs blk, EstimateArg<kEstimate> est) {
+  static_assert(kEstimate || !kOwnWarp, "the estimate warp is the estimating instance's");
+  constexpr bool kLanesEstimate = kEstimate && !kOwnWarp;
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kCtaMaxLanes][kCtaMaxDepth];
   __shared__ uint32_t states[kCtaMaxLanes][jth256::kCols];
@@ -555,6 +650,15 @@ row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint3
   const uint8_t* src =
       reinterpret_cast<const uint8_t*>(words) + (b * m + li) * kLaneBytes;
   uint8_t* lane_ring = ring + li * depth * kCtaChunkBytes;
+  EstimateSmem* es = nullptr;
+  if constexpr (kEstimate) es = reinterpret_cast<EstimateSmem*>(ring + m * depth * kCtaChunkBytes);
+  if constexpr (kOwnWarp) {
+    if (li == m) {  // the estimate warp
+      estimate_block(es->hist, words + b * m * cest::kLaneWords, m, blk.lane_counts + b,
+                     est.out + b);
+      return;
+    }
+  }
 
   // the block's count and length, in flight while the first chunk is
   const long long count = blk.lane_counts[b];
@@ -568,16 +672,27 @@ row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint3
                 &full[li][c]);
     }
   }
-  EstimateSmem* es = nullptr;
-  if constexpr (kEstimate) {
-    es = reinterpret_cast<EstimateSmem*>(ring + m * depth * kCtaChunkBytes);
+  // with the estimate on the lanes' threads, they gather the block's
+  // sample, a word a thread of the first m x 64
+  uint32_t sample[1];
+  if constexpr (kLanesEstimate) {
     for (uint32_t i = tid; i < cest::kBins; i += blockDim.x) es->hist[i] = 0;
+    cest::gather_sample(sample, words + b * m * cest::kLaneWords, m * cest::kLaneSample, tid,
+                        m * kThreads);
   }
-  __syncthreads();  // the barriers are initialised and the histogram zero
+  // the barriers are initialised (and the histogram zero)
+  if constexpr (kOwnWarp) {
+    lanes_barrier(m);
+  } else {
+    __syncthreads();
+  }
 
   // a lane at or past the count is never combined (nor counted): it only
   // drains its copies
   const uint32_t live = cest::counted_lanes(count, 0, m);
+  if constexpr (kLanesEstimate) {  // binned before the first chunk's wait
+    cest::bin_sample(es->hist, sample, live * cest::kLaneSample, tid, m * kThreads);
+  }
   const bool chained = li < live;
   uint32_t s = jth256::init_state(col, li);
   uint32_t slot = 0, parity = 0;
@@ -588,13 +703,7 @@ row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint3
         reinterpret_cast<const uint32_t*>(lane_ring + slot * kCtaChunkBytes) + col;
     if (chained) {
 #pragma unroll
-      for (int r = 0; r < kCtaChunkRows; ++r) {
-        const uint32_t w = tile[r * kThreads];
-        if constexpr (kEstimate) {  // a sampled word, as read
-          if (cest::word_sampled(c * kCtaChunkRows + r, col)) cest::bin_word(es->hist, w);
-        }
-        s = jth256::row_step(s, w ^ tweak);
-      }
+      for (int r = 0; r < kCtaChunkRows; ++r) s = jth256::row_step(s, tile[r * kThreads] ^ tweak);
     }
     if (c + depth < kCtaChunks) {
       lane_barrier(li);  // the lane's threads are done with the slot: refill it
@@ -621,12 +730,17 @@ row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint3
     }
     digests[li * jth256::kDigestWords + col] = acc;
   }
-  __syncthreads();  // every live lane's digests and every sampled byte are in
+  // every live lane's digests (and every sampled byte the lanes binned) are in
+  if constexpr (kOwnWarp) {
+    lanes_barrier(m);
+  } else {
+    __syncthreads();
+  }
   if (tid < jth256::kDigestWords) {
     blk.out[b * jth256::kDigestWords + tid] = static_cast<long long>(jth256::finish_word(
         digests, jth256::kDigestWords, live, static_cast<uint32_t>(length), tid));
   }
-  if constexpr (kEstimate) {
+  if constexpr (kLanesEstimate) {
     // beside the combine's chain on warp 0, as the cross-CTA entry's last CTA
     if (tid >= kWarp && tid < kThreads) {
       uint32_t bins[kBinsPerThread];
@@ -644,7 +758,7 @@ row_chain_kernel_cta_block(const uint32_t* __restrict__ words, uint32_t m, uint3
 // The one-CTA instance's largest dynamic shared memory on the current
 // device (the card's opt-in limit a block less its static shared memory),
 // into *limit; allowed once a device.
-template <bool kEstimate>
+template <bool kEstimate, bool kOwnWarp>
 cudaError_t allow_cta_smem(int* limit) {
   static std::atomic<int> allowed[64];
   int dev = 0;
@@ -654,22 +768,29 @@ cudaError_t allow_cta_smem(int* limit) {
     return cudaSuccess;
   }
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, row_chain_kernel_cta_block<kEstimate>);
+  err = cudaFuncGetAttributes(&attr, row_chain_kernel_cta_block<kEstimate, kOwnWarp>);
   if (err != cudaSuccess) return err;
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   *limit = optin - static_cast<int>(attr.sharedSizeBytes);
-  err = cudaFuncSetAttribute(row_chain_kernel_cta_block<kEstimate>,
+  err = cudaFuncSetAttribute(row_chain_kernel_cta_block<kEstimate, kOwnWarp>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
   if (err == cudaSuccess && dev < 64) allowed[dev].store(*limit, std::memory_order_relaxed);
   return err;
 }
 
-template <bool kEstimate>
+// The estimating instance runs blocks of m lanes with its estimate warp
+// where the CTA has room for it (cta_estimate_warp), else on the lanes.
+template <bool kEstimate, bool kOwnWarp = false>
 int launch_cta(const void* words, BlockArgs blk, EstimateArg<kEstimate> est,
                long long n_blocks, unsigned int m, unsigned int tweak, unsigned int depth,
                void* stream) {
+  if constexpr (kEstimate && !kOwnWarp) {
+    if (cta_estimate_warp(m)) {
+      return launch_cta<true, true>(words, blk, est, n_blocks, m, tweak, depth, stream);
+    }
+  }
   if (n_blocks <= 0 || n_blocks > 0x7FFFFFFFLL || m == 0 ||
       m > static_cast<unsigned int>(kCtaMaxLanes) || depth == 0 ||
       depth > static_cast<unsigned int>(kCtaMaxDepth)) {
@@ -679,24 +800,29 @@ int launch_cta(const void* words, BlockArgs blk, EstimateArg<kEstimate> est,
     return static_cast<int>(cudaErrorMisalignedAddress);  // TMA needs 16 B
   }
   int limit = 0;
-  cudaError_t err = allow_cta_smem<kEstimate>(&limit);
+  cudaError_t err = allow_cta_smem<kEstimate, kOwnWarp>(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = cta_smem_bytes<kEstimate>(static_cast<int>(m), static_cast<int>(depth));
   if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);  // a ring the CTA cannot hold
-  row_chain_kernel_cta_block<kEstimate>
-      <<<static_cast<unsigned int>(n_blocks), m * kThreads, smem,
+  row_chain_kernel_cta_block<kEstimate, kOwnWarp>
+      <<<static_cast<unsigned int>(n_blocks), cta_threads(kOwnWarp, m), smem,
          static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(words), m, tweak,
                                               depth, blk, est);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kEstimate>
+template <bool kEstimate, bool kOwnWarp = false>
 int occupancy_cta(int m, int depth, int* ctas) {
+  if constexpr (kEstimate && !kOwnWarp) {
+    if (m >= 1 && cta_estimate_warp(static_cast<uint32_t>(m))) {
+      return occupancy_cta<true, true>(m, depth, ctas);
+    }
+  }
   if (m < 1 || m > kCtaMaxLanes || depth > kCtaMaxDepth) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int limit = 0;
-  cudaError_t err = allow_cta_smem<kEstimate>(&limit);
+  cudaError_t err = allow_cta_smem<kEstimate, kOwnWarp>(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = cta_smem_bytes<kEstimate>(m, depth);
   if (smem > limit) {
@@ -704,7 +830,8 @@ int occupancy_cta(int m, int depth, int* ctas) {
     return 0;
   }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, row_chain_kernel_cta_block<kEstimate>, m * kThreads, smem));
+      ctas, row_chain_kernel_cta_block<kEstimate, kOwnWarp>,
+      static_cast<int>(cta_threads(kOwnWarp, static_cast<uint32_t>(m))), smem));
 }
 
 BlockArgs block_args(const void* lane_counts, const void* lengths, void* arrivals,

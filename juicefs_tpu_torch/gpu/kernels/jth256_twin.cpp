@@ -51,19 +51,15 @@ void chain_lane(const uint32_t* w, int64_t lane, int64_t m, uint32_t tw,
 }
 
 // Final states of lane `lane` (its index in the batch), lane index `li`
-// of its block, into s[128], as the one-CTA block entries chain it: each
-// sampled word (cest::word_sampled) binned into `hist` as its row is read,
-// before the tweak.
-void chain_lane_cta(const uint32_t* w, int64_t lane, uint32_t li, uint32_t tw, uint32_t* s,
-                    uint32_t* hist) {
+// of its block, into s[128], as the one-CTA block entries chain it (the
+// bare chain: the estimate gathers its sample apart from it).
+void chain_lane_cta(const uint32_t* w, int64_t lane, uint32_t li, uint32_t tw, uint32_t* s) {
   const uint32_t* lw = w + lane * jth256::kRows * jth256::kCols;
   constexpr uint32_t kCols = jth256::kCols;
   for (uint32_t col = 0; col < kCols; ++col) s[col] = jth256::init_state(col, li);
   for (uint32_t row = 0; row < static_cast<uint32_t>(jth256::kRows); ++row) {
     for (uint32_t col = 0; col < kCols; ++col) {
-      const uint32_t word = lw[row * kCols + col];
-      if (cest::word_sampled(row, col)) cest::bin_word(hist, word);
-      s[col] = jth256::row_step(s[col], word ^ tw);
+      s[col] = jth256::row_step(s[col], lw[row * kCols + col] ^ tw);
     }
   }
 }
@@ -244,15 +240,19 @@ std::tuple<torch::Tensor, torch::Tensor> block_digests_estimate(
 }
 
 // jth256_block_cta_digests_estimate (and, in its digests,
-// jth256_block_cta_digests): a block at a time, as one CTA runs it. Only
-// the live lanes (below the block's lane count, clamped to [0, m]) are
-// chained, each binning its sampled words into the block's one histogram
-// as it reads them; their fold digests, then the combine over them and the
-// entropy of the histogram.
+// jth256_block_cta_digests): a block of m <= 8 lanes at a time, as one CTA
+// runs it. The block's sample is gathered apart from the chain, all m
+// lanes' words as read (cest::gather_sample), and the live lanes' (below
+// the block's lane count, clamped to [0, m]) binned into the block's one
+// histogram (cest::bin_sample); only the live lanes are chained; their
+// fold digests, then the combine over them and the entropy of the
+// histogram.
 std::tuple<torch::Tensor, torch::Tensor> block_cta_digests_estimate(
     torch::Tensor words, int64_t m, torch::Tensor lane_counts, torch::Tensor lengths,
     int64_t tweak) {
+  constexpr int kMaxLanes = 8;
   check_words(words, m);
+  TORCH_CHECK(m <= kMaxLanes, "a one-CTA block holds at most 8 lanes");
   TORCH_CHECK(words.size(0) % m == 0, "words must hold whole blocks of m lanes");
   const int64_t b = words.size(0) / m;
   TORCH_CHECK(lane_counts.scalar_type() == torch::kInt64 && lane_counts.numel() == b &&
@@ -268,12 +268,15 @@ std::tuple<torch::Tensor, torch::Tensor> block_cta_digests_estimate(
   const int64_t* counts = lane_counts.data_ptr<int64_t>();
   const int64_t* lens = lengths.data_ptr<int64_t>();
   std::vector<uint32_t> lane_digests(m * jth256::kDigestWords);
-  uint32_t s[jth256::kCols];
+  uint32_t s[jth256::kCols], sample[kMaxLanes * cest::kLaneSample];
+  const uint32_t lanes = static_cast<uint32_t>(m);
   for (int64_t i = 0; i < b; ++i) {
-    const uint32_t live = cest::counted_lanes(counts[i], 0, static_cast<uint32_t>(m));
+    const uint32_t live = cest::counted_lanes(counts[i], 0, lanes);
+    cest::gather_sample(sample, words_u32(words) + i * m * cest::kLaneWords,
+                        lanes * cest::kLaneSample, 0, 1);
+    cest::bin_sample(h + i * cest::kBins, sample, live * cest::kLaneSample, 0, 1);
     for (uint32_t li = 0; li < live; ++li) {
-      chain_lane_cta(words_u32(words), i * m + li, li, static_cast<uint32_t>(tweak), s,
-                     h + i * cest::kBins);
+      chain_lane_cta(words_u32(words), i * m + li, li, static_cast<uint32_t>(tweak), s);
       fold_lane(s, li, lane_digests.data() + li * jth256::kDigestWords);
     }
     for (uint32_t k = 0; k < static_cast<uint32_t>(jth256::kDigestWords); ++k) {

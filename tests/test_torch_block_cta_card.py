@@ -21,7 +21,7 @@ from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels
 from juicefs_tpu_torch.gpu.jth256 import hash_packed_np
 from torch_estimate_packs import as_int32 as _t
-from torch_estimate_packs import short_block_pack
+from torch_estimate_packs import pack_with_lengths, short_block_pack
 
 
 @pytest.fixture
@@ -104,7 +104,9 @@ def test_one_cta_entries_match_the_spec_and_the_cross_cta_entries(card, m, b):
                                     "jth256_lane_digests": 0, "jth256_combine": 0,
                                     "compress_histogram": 0, "compress_entropy": 0,
                                     "jth256_block_cta": 2 if m <= kernels.CTA_BLOCK_LANES
-                                    else 0}
+                                    else 0,
+                                    "jth256_block_cta_estimate":
+                                        1 if m <= kernels.CTA_BLOCK_LANES else 0}
         cta_d = _cta("jth256_block_digests", dw, dc, dl, tweak)
         cta_e, cta_a = _cta("jth256_block_digests_estimate", dw, dc, dl, tweak)
         cross_d = _cross("jth256_block_digests", dw, dc, dl, tweak)
@@ -141,6 +143,77 @@ def test_engagement_counter_rises_only_up_to_the_cut(card, m):
     assert f'juicefs_torch_kernel_launches{{kernel="jth256_block_cta"}} {cta}' in gauge
     np.testing.assert_array_equal(got.cpu().numpy().astype(np.uint32),
                                   hash_packed_np(words, counts, lengths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 8])
+def test_estimate_counter_counts_each_estimating_one_cta_launch(card, m):
+    """jth256_block_cta_estimate (and its gauge) rises once for each
+    estimating launch that takes the one-CTA design (the estimate on a
+    warp of its own), never for the plain one-CTA entry's launches, and
+    never past the cut, where both block entries keep the cross-CTA
+    design."""
+    from juicefs_tpu_torch.metric import global_registry
+
+    words, counts, lengths = short_block_pack(850 + m, 4, m)
+    dw, dc, dl = _on(card, words, counts, lengths)
+    taken = m <= kernels.CTA_BLOCK_LANES
+    kernels.reset_launches()
+    for _ in range(3):
+        ht.hash_device(dw, dc, dl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["jth256_block_cta_estimate"] == 0
+    assert kernels.LAUNCHES["jth256_block_cta"] == (3 if taken else 0)
+    for i in range(1, 3):
+        ht.hash_estimate_device(dw, dc, dl)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["jth256_block_cta_estimate"] == (i if taken else 0)
+    assert kernels.LAUNCHES["jth256_block_digests_estimate"] == 2
+    gauge = global_registry()._metrics["juicefs_torch_kernel_launches"].render()
+    want = 2 if taken else 0
+    assert f'juicefs_torch_kernel_launches{{kernel="jth256_block_cta_estimate"}} {want}' in gauge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 7, 8])
+def test_one_cta_estimate_on_zero_text_and_random_blocks(card, m):
+    """The one-CTA estimating entry, called directly, on a zero, a text, a
+    random, a 3-lane + 777 B and a short block with random dead lanes (the
+    estimate warp's binning adds a warp's run of equal bytes at once; 8
+    lanes bin on the lanes' threads): digests and advisories bit for bit
+    the cross-CTA estimating entry's, advisories the histogram and entropy
+    entries'."""
+    words, counts, lengths = pack_with_lengths(870 + m, 10, m)
+    dw, dc, dl = _on(card, words, counts, lengths)
+    want_a = cb.estimate(dw, dc)
+    for tweak in (0, 0x5BD1E995):
+        cta_d, cta_a = _cta("jth256_block_digests_estimate", dw, dc, dl, tweak)
+        cross_d, cross_a = _cross("jth256_block_digests_estimate", dw, dc, dl, tweak)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(cta_d.cpu().numpy().astype(np.uint32),
+                                      hash_packed_np(words ^ np.uint32(tweak), counts, lengths))
+        assert torch.equal(cta_d, cross_d)
+        assert torch.equal(cta_a, cross_a) and torch.equal(cta_a, want_a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 13, 100])
+def test_eight_lane_blocks_estimate_on_the_lanes_threads(card, b):
+    """At 8 lanes a CTA has no room for the estimate warp (8 x 128 + 32 >
+    1024 threads): the lanes' threads gather and bin the sample before
+    their first chunk and warps 1-3 run the entropy after the chains. With
+    dead lanes (counts 8, 0, 7, 13 and 1) the entry's digests and
+    advisories are bit for bit the cross-CTA estimating entry's, and its
+    advisories the histogram and entropy entries'."""
+    words, counts, lengths = short_block_pack(880 + b, b, 8)
+    dw, dc, dl = _on(card, words, counts, lengths)
+    want_a = cb.estimate(dw, dc)
+    for tweak in (0, 0x5BD1E995):
+        cta_d, cta_a = _cta("jth256_block_digests_estimate", dw, dc, dl, tweak)
+        cross_d, cross_a = _cross("jth256_block_digests_estimate", dw, dc, dl, tweak)
+        torch.cuda.synchronize()
+        assert torch.equal(cta_d, cross_d)
+        assert torch.equal(cta_a, cross_a) and torch.equal(cta_a, want_a)
 
 
 @pytest.mark.cuda

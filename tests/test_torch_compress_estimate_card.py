@@ -316,3 +316,65 @@ def test_ring_puts_every_batch_of_up_to_32_blocks_in_one_wave(card):
         _fused(dw[:b], dc[:b], dl[:b])
     torch.cuda.synchronize()
     assert waves_h.counts[0] - ones == 64 and waves_h.total - total == 64
+
+
+# cest::div_rn against __fdiv_rn: every b in [1, 2^18] (a histogram's
+# total: 4096 lanes of 64 sampled words, far past any block) and every
+# a <= b, then 2^26 random pairs 1 <= a <= b < 2^32
+_DIV_CHECK = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "compress_estimate.cuh"
+
+__global__ void every_pair(unsigned long long* bad, uint32_t b_lo, uint32_t b_hi) {
+  const uint32_t b = b_lo + blockIdx.x;
+  if (b > b_hi) return;
+  unsigned long long n = 0;
+  for (uint32_t a = 1 + threadIdx.x; a <= b; a += blockDim.x) {
+    const float fa = static_cast<float>(a), fb = static_cast<float>(b);
+    n += __float_as_uint(cest::div_rn(fa, fb)) != __float_as_uint(__fdiv_rn(fa, fb));
+  }
+  if (n) atomicAdd(bad, n);
+}
+
+__global__ void random_pairs(unsigned long long* bad) {
+  unsigned long long x = (blockIdx.x * 256ull + threadIdx.x + 1) * 0x9E3779B97F4A7C15ull;
+  unsigned long long n = 0;
+  for (int i = 0; i < 1024; ++i) {
+    x ^= x << 13;
+    x ^= x >> 7;
+    x ^= x << 17;
+    const uint32_t b = static_cast<uint32_t>(x >> 32) | 1u, a = static_cast<uint32_t>(x) % b + 1u;
+    const float fa = static_cast<float>(a), fb = static_cast<float>(b);
+    n += fa <= fb && __float_as_uint(cest::div_rn(fa, fb)) != __float_as_uint(__fdiv_rn(fa, fb));
+  }
+  if (n) atomicAdd(bad, n);
+}
+
+extern "C" int div_rn_mismatches(unsigned long long* bad, unsigned int top) {
+  for (uint32_t lo = 1; lo <= top; lo += 65536) every_pair<<<65536, 256>>>(bad, lo, top);
+  random_pairs<<<256, 256>>>(bad);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+@pytest.mark.cuda
+def test_div_rn_is_fdiv_rn_on_every_histogram_ratio(card, tmp_path):
+    """The estimate's count / total (cest::div_rn, __fdiv_rn's fast path
+    without its slow-path call) gives __fdiv_rn's bits for every total up
+    to 2^18 and every count up to it, and for random pairs up to 2^32: the
+    advisories keep their bits."""
+    import ctypes
+    import subprocess
+
+    src, so = tmp_path / "div_check.cu", tmp_path / "libdiv_check.so"
+    src.write_text(_DIV_CHECK)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.KERNEL_DIR, "-o",
+                    str(so), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).div_rn_mismatches
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_uint], ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device=card)
+    torch.cuda.synchronize()
+    assert fn(bad.data_ptr(), 1 << 18) == 0
+    assert int(bad.item()) == 0

@@ -27,7 +27,7 @@ import juicefs_tpu.tpu  # noqa: F401  (loads the reference spec module)
 from juicefs_tpu.tpu import hash_jax as hj
 from juicefs_tpu_torch.gpu import hash_torch as ht
 from juicefs_tpu_torch.gpu import kernels, sharding
-from juicefs_tpu_torch.gpu.jth256 import hash_packed_np
+from juicefs_tpu_torch.gpu.jth256 import hash_packed_np, pack_blocks
 from torch_estimate_packs import pack_with_lengths, short_block_pack
 
 ref_spec = sys.modules["juicefs_tpu.tpu.jth256"]
@@ -217,7 +217,7 @@ def test_kernel_entries_have_sources_and_signatures():
                                      "jth256_block_digests_estimate",
                                      "jth256_lane_digests", "jth256_combine",
                                      "compress_histogram", "compress_entropy",
-                                     "jth256_block_cta"}
+                                     "jth256_block_cta", "jth256_block_cta_estimate"}
 
 
 # (B, M): one and three blocks of 1, 2 and 64 lanes
@@ -386,17 +386,19 @@ def test_block_batches_take_the_one_cta_design_up_to_the_cut(m):
 # shared memory (the mbarriers, states and lane digests of 8 lanes) and,
 # estimating, the 1072 B of histogram and entropy scratch; at most 227 KiB
 # a CTA (232,448 B, else the CTA cannot hold the ring: 0), 1 KiB reserved
-# a CTA of the SM's 228 KiB, 128 B units; at most 2048 threads an SM.
+# a CTA of the SM's 228 KiB, 128 B units; at most 2048 threads an SM, a
+# CTA m x 128 threads and, estimating up to 7 lanes, its estimate warp's 32.
 CTA_STATIC = 4864
 CTA_SCRATCH = {"block": 0, "estimate": 1072}
 
 
 def _h100_cta_ctas(m: int, scratch: int) -> dict:
+    threads = 128 * m + (32 if scratch and 128 * m + 32 <= 1024 else 0)
     table = {}
     for d in kernels.CTA_RING_DEPTHS:
         held = m * d * kernels.CTA_CHUNK_BYTES + scratch + CTA_STATIC
         cta = -(-(held + 1024) // 128) * 128
-        table[d] = 0 if held > 232448 else min(2048 // (128 * m), 32, 233472 // cta)
+        table[d] = 0 if held > 232448 else min(2048 // threads, 32, 233472 // cta)
     return table
 
 
@@ -450,6 +452,60 @@ def test_twin_one_cta_entry_matches_the_block_entries(twin, b, m):
     hist = twin.estimate_histogram(_t(words), tc)
     assert torch.equal(adv, twin.estimate_entropy(hist))
     assert int(hist[counts == 0].sum()) == 0
+
+
+def _estimate_packs(seed, m):
+    """The one-CTA estimate's inputs at m lanes: a zero, a text, a random,
+    a 3-lane + 777 B and a short block, each packed to m lanes with random
+    words in the lanes past its count (dead lanes, which no one counts),
+    and `short_block_pack`'s counts of m, 0, below m, past m and 1."""
+    words, counts, _lengths = pack_with_lengths(seed, 5, m)
+    packs = [(words, counts)]
+    blocks = [np.random.default_rng(seed).bytes(777)]
+    tail, tail_counts, _ = pack_blocks(blocks, pad_lanes=m)
+    packs.append((tail.copy(), tail_counts.astype(np.int64)))
+    words, counts, _lengths = short_block_pack(seed + 1, 5, m)
+    packs.append((words, counts))
+    return packs
+
+
+@pytest.mark.parametrize("m", range(1, 9))
+def test_twin_one_cta_estimate_gathers_apart_from_the_chain(twin, m):
+    """The one-CTA estimating entry's arithmetic (twin) gathers a block's
+    sample apart from the chain (`cest::gather_sample`, all m lanes as
+    read) and bins its counted lanes' bytes (`cest::bin_sample`): at 1-8
+    lanes, with dead lanes, a 777 B block, counts 0 and past m and a tweak,
+    its advisories are the reduce256-order entropy of the plain torch
+    histogram (`byte_histogram_ref`) bit for bit, and within 1e-5 of the
+    plain torch estimate `entropy_ratio_ref(byte_histogram_ref(...))`; the
+    tweak moves the digests, never the advisories."""
+    from juicefs_tpu_torch.gpu import compress_batch as cb
+
+    for words, counts in _estimate_packs(900 + m, m):
+        b = words.shape[0]
+        lengths = torch.full((b,), 777, dtype=torch.int64)
+        tc = torch.from_numpy(counts)
+        ref_hist = cb.byte_histogram_ref(_t(words), tc)
+        want = twin.estimate_entropy(ref_hist.to(torch.int32).contiguous())
+        plain = cb.entropy_ratio_ref(ref_hist)
+        flat = _t(words).reshape(b * m, 128, 128)
+        digests = []
+        for tweak in (0, 0x5BD1E995):
+            got, adv = twin.block_cta_digests_estimate(flat, m, tc, lengths, tweak)
+            assert adv.dtype == torch.float32 and tuple(adv.shape) == (b,)
+            assert torch.equal(adv, want), (m, tweak)
+            np.testing.assert_allclose(adv.numpy(), plain.numpy(), rtol=0, atol=1e-5)
+            digests.append(got)
+        assert not torch.equal(digests[0][counts > 0], digests[1][counts > 0])
+
+
+def test_twin_one_cta_estimate_holds_at_most_8_lanes(twin):
+    """The twin, as the kernel, refuses a one-CTA block of more than 8
+    lanes (a CTA's 1024 threads)."""
+    words, counts, lengths = short_block_pack(3, 1, 9)
+    with pytest.raises(RuntimeError, match="at most 8 lanes"):
+        twin.block_cta_digests_estimate(_t(words).reshape(9, 128, 128), 9,
+                                        torch.from_numpy(counts), torch.from_numpy(lengths), 0)
 
 
 def test_arrival_counters_are_per_stream_and_grow_zeroed():
@@ -508,7 +564,7 @@ def test_hash_device_is_one_launch_on_the_card(card):
                                 "jth256_block_digests_estimate": 0,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
                                 "compress_histogram": 0, "compress_entropy": 0,
-                                "jth256_block_cta": 0}
+                                "jth256_block_cta": 0, "jth256_block_cta_estimate": 0}
     assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
 
 
@@ -534,4 +590,4 @@ def test_hash_estimate_device_is_one_launch_on_the_card(card):
                                 "jth256_block_digests_estimate": 2,
                                 "jth256_lane_digests": 0, "jth256_combine": 0,
                                 "compress_histogram": 0, "compress_entropy": 0,
-                                "jth256_block_cta": 0}
+                                "jth256_block_cta": 0, "jth256_block_cta_estimate": 0}
