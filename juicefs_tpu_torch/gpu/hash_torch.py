@@ -13,8 +13,7 @@ lane shard of a mesh holds only part of each block, so it runs the entry
 that stops after the lane fold (`jth256_lane_digests`, `chain_digests`),
 and the mesh combines the gathered lane digests with
 `gpu/kernels/jth256_combine.cu` (`combine`). Each row-chain launch takes
-the ring depth `kernels.ring_depth` picks for its lane count on its card
-and observes the waves it needs in `juicefs_torch_row_chain_waves`.
+the ring depth `kernels.ring_depth` picks for its lane count on its card.
 
 Every wrapper launches its kernel for a CUDA tensor and runs its plain
 torch version only for a tensor on the CPU: `row_chain_ref`,
@@ -42,7 +41,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..metric import global_registry
 from . import kernels
 from .jth256 import (
     COLS,
@@ -186,10 +184,6 @@ def _check_rc(entry: str, rc: int) -> None:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
-_ROW_CHAIN_WAVES = global_registry().histogram(
-    "juicefs_torch_row_chain_waves",
-    "Waves of resident CTAs a row-chain launch needs at its ring depth",
-    buckets=(1, 2, 3, 4, 8, 16, 32))
 # per (entry, lanes a CTA, card): the SM count and the entry's resident
 # CTAs an SM at each ring depth, read once
 _RING_TABLES: dict[tuple[str, int, int], tuple[int, dict[int, int]]] = {}
@@ -291,13 +285,12 @@ def chain_digests(words_flat: torch.Tensor, m: int, tweak: int = 0,
     if n_lanes:
         fn = kernels.function(entry)
         with torch.cuda.device(words_flat.device):
-            depth, waves = _ring(entry, words_flat.device, n_lanes, m)
+            depth, _ = _ring(entry, words_flat.device, n_lanes, m)
             _check_rc(entry, fn(words_flat.data_ptr(), out.data_ptr(), n_lanes, m,
                                 int(lane_offset) & MASK, int(tweak) & MASK, depth,
                                 _stream(words_flat.device)))
         kernels.LAUNCHES["jth256_row_chain"] += 1
         kernels.LAUNCHES[entry] += 1
-        _ROW_CHAIN_WAVES.observe(waves)
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
     return out
 
@@ -521,7 +514,7 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
                 if advisories is not None:
                     args += [zeroed_workspace(entry, dev, stream, b, 256).data_ptr(),
                              advisories.data_ptr()]
-            depth, waves = _ring(design, dev, b * m, m)
+            depth, _ = _ring(design, dev, b * m, m)
             _check_rc(design, fn(*args, b, m, int(tweak) & MASK, depth, stream))
         kernels.LAUNCHES["jth256_row_chain"] += 1
         kernels.LAUNCHES[entry] += 1
@@ -529,7 +522,6 @@ def _launch_blocks(entry: str, words: torch.Tensor, lane_counts: torch.Tensor,
             kernels.LAUNCHES["jth256_block_cta"] += 1
             if advisories is not None:
                 kernels.LAUNCHES["jth256_block_cta_estimate"] += 1
-        _ROW_CHAIN_WAVES.observe(waves)
     _LAST_KERNEL_MODE = _LAST_FOLD_MODE = "cuda"
 
 

@@ -20,9 +20,19 @@ import threading
 import time
 from typing import Callable, Iterator, Optional
 
+from ..metric import global_registry
+from ..metric.trace import global_tracer, stage_hist
 from ..utils import get_logger, txnwatch
 
 logger = get_logger("meta.tkv")
+
+_TR = global_tracer()
+_TXN_STAGES = {stage: stage_hist("meta", "txn", stage)
+               for stage in ("lock_wait", "run", "commit")}
+# upstream's meta metric (pkg/meta/metrics.go txRestart)
+_TXN_RESTART = global_registry().counter(
+    "juicefs_transaction_restart",
+    "The number of times a transaction is restarted.")
 
 
 class KVTxn:
@@ -326,12 +336,52 @@ class _SqliteTxn(KVTxn):
                 yield (bytes(row[0]), bytes(row[1]))
 
 
+class _TxnStages:
+    """The open stage of one attempt of `SqliteKV.txn`, a span of the
+    port's tracer (`meta.txn.<stage>`: a stage histogram with no reader,
+    a profiler range under a profiler): `lock_wait` until BEGIN IMMEDIATE
+    has returned, `run` for the closure, `commit` for the statement that
+    ends the transaction BEGIN opened. `enter` closes the open stage."""
+
+    __slots__ = ("stage", "_span")
+
+    def __init__(self):
+        self.stage = self._span = None
+
+    def enter(self, stage: str) -> None:
+        self.close()
+        span = _TR.span("meta", "txn", stage=stage, hist=_TXN_STAGES[stage])
+        span.__enter__()
+        self.stage, self._span = stage, span
+
+    def close(self) -> None:
+        span = self._span
+        if span is not None:
+            self.stage = self._span = None
+            span.__exit__(None, None, None)
+
+    def rollback(self, conn: sqlite3.Connection) -> None:
+        """ROLLBACK after a statement or the closure raised: in `commit`
+        when BEGIN had opened the transaction, in no stage when it failed."""
+        if self.stage == "run":
+            self.enter("commit")
+        elif self.stage == "lock_wait":
+            self.close()
+        try:
+            conn.execute("ROLLBACK")
+        except sqlite3.OperationalError:
+            pass  # BEGIN itself failed: no transaction to roll back
+        self.close()
+
+
 class SqliteKV(TKVClient):
     """Durable single-host engine over one sqlite file (WAL mode).
 
     sqlite is single-writer, so transactions take a process-wide lock plus
     BEGIN IMMEDIATE; cross-process writers serialize on the sqlite lock with
-    a busy timeout.
+    a busy timeout. Each attempt of a write transaction is timed in three
+    stages (`_TxnStages`): the wait for both locks, the closure, the
+    COMMIT or ROLLBACK; each retry counts in `juicefs_transaction_restart`.
     """
 
     name = "sqlite3"
@@ -364,10 +414,15 @@ class SqliteKV(TKVClient):
         if getattr(self._local, "in_txn", False):
             return fn(_SqliteTxn(conn))
         last: Exception | None = None
+        stages = _TxnStages()
         for attempt in range(retries):
+            # this process's writers, then sqlite's own lock (other
+            # connections, up to the busy timeout)
+            stages.enter("lock_wait")
             with self._wlock:
                 try:
                     conn.execute("BEGIN IMMEDIATE")
+                    stages.enter("run")
                     self._local.in_txn = True
                     # txn-rerun harness seam: writes land on the
                     # connection directly, so the doubled first run is
@@ -391,22 +446,19 @@ class SqliteKV(TKVClient):
                         if tw else None)
                     if tw:
                         conn.execute("RELEASE txnwatch")
+                    stages.enter("commit")
                     conn.execute("ROLLBACK" if discarded else "COMMIT")
                     return result
                 except sqlite3.OperationalError as e:
-                    try:
-                        conn.execute("ROLLBACK")
-                    except sqlite3.OperationalError:
-                        pass  # BEGIN itself failed: no transaction to roll back
+                    stages.rollback(conn)
                     last = e
+                    _TXN_RESTART.inc()
                     time.sleep(min(0.001 * (1 << min(attempt, 8)), 0.1))
                 except BaseException:
-                    try:
-                        conn.execute("ROLLBACK")
-                    except sqlite3.OperationalError:
-                        pass
+                    stages.rollback(conn)
                     raise
                 finally:
+                    stages.close()
                     self._local.in_txn = False
         raise last  # type: ignore[misc]
 
@@ -468,6 +520,7 @@ class SqliteKV(TKVClient):
                     )
             except sqlite3.OperationalError:
                 self._local.in_txn = False
+                _TXN_RESTART.inc()
                 time.sleep(min(0.001 * (1 << min(attempt, 8)), 0.1))
         return self.txn(fn)  # fall back to the write path
 

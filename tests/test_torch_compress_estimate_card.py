@@ -291,10 +291,8 @@ def test_ring_puts_every_batch_of_up_to_32_blocks_in_one_wave(card):
     """At the ring depth the rule picks for a batch of 1-32 blocks of 64
     lanes, each row-chain entry holds ceil(lanes / SMs) CTAs an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so every lane is
-    resident at once, and a launch of either block entry at each of those
-    sizes observes 1 in juicefs_torch_row_chain_waves."""
-    from juicefs_tpu_torch.metric import global_registry
-
+    resident at once, and either block entry launches at each of those
+    sizes."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     entries = ("jth256_lane_digests", "jth256_block_digests", "jth256_block_digests_estimate")
     with torch.cuda.device(card):
@@ -306,16 +304,13 @@ def test_ring_puts_every_batch_of_up_to_32_blocks_in_one_wave(card):
             staged = 0 if e == "jth256_lane_digests" else 64 * kernels.LANE_DIGEST_BYTES
             assert depth == kernels.ring_depth(n, sms, tables[e], staged)
             assert tables[e][depth] >= -(-n // sms) and waves == 1, (b, e, depth)
-    waves_h = global_registry()._metrics["juicefs_torch_row_chain_waves"]
     words, counts, lengths = pack_with_lengths(5, 32, 64)
     dw = _t(words).to(card)
     dc, dl = torch.from_numpy(counts).to(card), torch.from_numpy(lengths).to(card)
-    ones, total = waves_h.counts[0], waves_h.total
     for b in range(1, 33):
         ht.hash_device(dw[:b], dc[:b], dl[:b])
         _fused(dw[:b], dc[:b], dl[:b])
     torch.cuda.synchronize()
-    assert waves_h.counts[0] - ones == 64 and waves_h.total - total == 64
 
 
 # cest::div_rn against __fdiv_rn: every b in [1, 2^18] (a histogram's
